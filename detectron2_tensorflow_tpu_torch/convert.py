@@ -1,0 +1,85 @@
+"""Carry the JAX package's weights into the port's ``state_dict``.
+
+Input: the JAX model's ``variables``, nested dicts of numpy (or array-like)
+values with a ``params`` and a ``frozen`` collection. Output: a dict of
+float32 tensors named as the port's modules (Detectron2's names), ready for
+``build_model(cfg, state_dict=...)``.
+
+Layout changes:
+  * conv kernels HWIO -> OIHW;
+  * FC kernels ``[in, out]`` -> ``[out, in]``. The box head's ``fc1``
+    needs no row reordering: the port flattens the pooled ``[S, S, C]``
+    features in (h, w, c) order, as the JAX package does. (A Detectron2
+    checkpoint flattens (c, h, w); loading one needs that permutation.)
+  * the mask head's deconv: the JAX package's ``ConvTranspose2D`` applies
+    the kernel as stored, PyTorch's ``ConvTranspose2d`` applies it
+    spatially flipped with in/out swapped, so the kernel is flipped in H and
+    W and laid out ``[in, out, kh, kw]``;
+  * the ``frozen`` FrozenBN collection (scale, bias, mean, var) becomes the
+    ``norm`` buffers (weight, bias, running_mean, running_var).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+_PREFIX = {
+    "backbone": "backbone.bottom_up",
+    "neck": "backbone",
+    "rpn_head": "proposal_generator.rpn_head",
+    "box_heads_0": "roi_heads.box_head",
+    "box_predictors_0": "roi_heads.box_predictor",
+    "mask_head": "roi_heads.mask_head",
+}
+_FROZEN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        path = prefix + (str(k),)
+        if hasattr(v, "items"):
+            yield from _flatten(v, path)
+        else:
+            yield path, np.asarray(v, dtype=np.float32)
+
+
+def _module_name(path: Tuple[str, ...]) -> str:
+    top, *rest = path
+    if top not in _PREFIX:
+        raise KeyError(f"no port counterpart for JAX parameter {'/'.join(path)}")
+    return ".".join([_PREFIX[top]] + rest)
+
+
+def _kernel(arr: np.ndarray, deconv: bool) -> np.ndarray:
+    if arr.ndim == 2:  # Dense [in, out]
+        return arr.T
+    if deconv:  # JAX ConvTranspose [kh, kw, in, out] -> [in, out, kh, kw], flipped
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+
+
+def convert_variables(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``variables`` -> the port's float32 ``state_dict``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(variables["params"]):
+        *mod, leaf = path
+        deconv = mod[-1] == "deconv"
+        if mod[-1] in ("conv", "deconv") and len(mod) > 2:
+            mod = mod[:-1]  # the inner conv module of a Conv2D / ConvTranspose2D
+        name = _module_name(tuple(mod))
+        if leaf == "kernel":
+            out[f"{name}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(_kernel(arr, deconv)))
+        elif leaf == "bias":
+            out[f"{name}.bias"] = torch.from_numpy(arr.copy())
+        else:
+            raise KeyError(f"unexpected JAX parameter {'/'.join(path)}")
+    for path, arr in _flatten(variables.get("frozen", {})):
+        *mod, bn, leaf = path
+        if not bn.startswith("FrozenBatchNorm"):
+            raise KeyError(f"unexpected frozen variable {'/'.join(path)}")
+        out[f"{_module_name(tuple(mod))}.norm.{_FROZEN[leaf]}"] = torch.from_numpy(arr.copy())
+    return out

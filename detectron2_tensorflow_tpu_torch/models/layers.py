@@ -1,0 +1,119 @@
+"""Shared building blocks: conv with norm and activation, FrozenBN, deconv.
+
+Port of the JAX package's ``models/layers.py``, inference only. The
+JAX package runs NHWC convs with HWIO kernels; here convs are PyTorch's
+NCHW modules and the model keeps activations in ``channels_last`` memory, so
+the tensor a layer produces is NHWC in memory either way. ``convert.py``
+turns the JAX kernels into OIHW weights.
+
+What carries over exactly:
+  * D2's symmetric padding for stride-2 convs (``(k - 1) // 2 * dilation``
+    on every side, where XLA's "SAME" would pad bottom/right-heavy);
+  * FrozenBN folded to ``x * scale + shift``, the fold computed in float32
+    and cast to the activation dtype, as the JAX module does;
+  * a conv runs in the model dtype (its weight and bias are cast), as
+    the JAX package's convs do.
+The JAX package's opt-in fused 1x1 epilogue and ``D2TPU_DOT_TAIL`` branch
+are not ported: they change no result.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm with frozen statistics and affine (never trained).
+
+    The four tensors are buffers, named as in Detectron2's checkpoints.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(num_features))
+        self.register_buffer("bias", torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def folded_affine(self):
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * scale
+        return scale, shift
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, shift = self.folded_affine()
+        shape = (1, -1, 1, 1)
+        return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+def get_norm(norm: str, channels: int) -> Optional[nn.Module]:
+    if norm == "":
+        return None
+    if norm == "FrozenBN":
+        return FrozenBatchNorm2d(channels)
+    raise NotImplementedError(f"norm '{norm}' is not ported")
+
+
+class Conv2d(nn.Conv2d):
+    """Conv + optional norm + optional ReLU, with D2's padding rule.
+
+    ``bias`` defaults to "no norm => bias", the D2 convention. Padding is
+    ``(k - 1) // 2 * dilation`` on every side: the same as "SAME" at stride
+    1 for odd kernels, and D2's symmetric rule at stride 2.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 norm: str = "", activation: str = "", bias: Optional[bool] = None):
+        if bias is None:
+            bias = norm == ""
+        super().__init__(
+            in_channels, out_channels, kernel_size, stride=stride,
+            padding=(kernel_size - 1) // 2 * dilation, dilation=dilation,
+            groups=groups, bias=bias,
+        )
+        self.norm = get_norm(norm, out_channels)
+        if activation not in ("", "relu"):
+            raise NotImplementedError(f"activation '{activation}' is not ported")
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``residual`` given: ``relu(norm(conv(x)) + residual)``."""
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        x = F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                     self.dilation, self.groups)
+        if self.norm is not None:
+            x = self.norm(x)
+        if residual is not None:
+            return F.relu(x + residual)
+        if self.activation == "relu":
+            x = F.relu(x)
+        return x
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """Transposed conv (the mask head's 2x deconv), run in the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class Linear(nn.Linear):
+    """Linear layer run in the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Max pool with D2's symmetric ``(window - 1) // 2`` padding."""
+    return F.max_pool2d(x, window, stride, padding=(window - 1) // 2)

@@ -1,0 +1,125 @@
+"""GeneralizedRCNN inference: Mask R-CNN with an FPN trunk.
+
+Port of the non-cascade, non-res5, mask-on branch of ``predict_fn`` in
+the JAX package's ``models/meta_arch/rcnn.py``: trunk and FPN, RPN
+proposals, one pooling storage shared by the box and mask poolers, box head
+and class-aware NMS to fixed detection slots, mask head on the detections.
+
+Parameters follow Detectron2's names (``backbone.bottom_up.*``,
+``proposal_generator.rpn_head.*``, ``roi_heads.box_head.*``, ...).
+Activations stay NHWC in memory: images enter as ``[B, H, W, 3]`` and are
+viewed as NCHW, which is PyTorch's ``channels_last`` layout.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ...structures import Instances
+from ..backbones.resnet import build_resnet_backbone, output_shapes
+from ..necks.fpn import build_fpn, output_strides
+from ..roi_heads.roi_heads import StandardROIHeads
+from ..rpn import RPN
+from .common import preprocess_images
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class GeneralizedRCNN(nn.Module):
+    """Mask R-CNN R50-FPN; ``predict(batch)`` is the serving entry point."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        m = cfg.MODEL
+        if (m.META_ARCHITECTURE != "GeneralizedRCNN" or not m.MASK_ON
+                or m.KEYPOINT_ON or m.LOAD_PROPOSALS
+                or m.ROI_HEADS.NAME != "StandardROIHeads"):
+            raise NotImplementedError(
+                "only Mask R-CNN with StandardROIHeads (no keypoints, no loaded "
+                "proposals) is ported"
+            )
+        self.dtype = DTYPES[m.DTYPE]
+        self.pixel_mean = list(m.PIXEL_MEAN)
+        self.pixel_std = list(m.PIXEL_STD)
+        self.input_format = m.INPUT_FORMAT
+        trunk_shapes = output_shapes(cfg)
+        self.backbone = build_fpn(cfg, build_resnet_backbone(cfg), trunk_shapes)
+        strides = output_strides(cfg, trunk_shapes)
+        ch = m.NECK.OUT_CHANNELS
+        self.proposal_generator = RPN(cfg, [strides[f] for f in m.RPN.IN_FEATURES], ch)
+        self.roi_heads = StandardROIHeads(
+            cfg, [strides[f] for f in m.ROI_HEADS.IN_FEATURES], ch
+        )
+
+    def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Raw ``[B, H, W, 3]`` images -> ``{p2..p6: [B, C, H, W]}`` (NHWC memory)."""
+        x = preprocess_images(images, self.pixel_mean, self.pixel_std,
+                              self.input_format, self.dtype)
+        return self.backbone(x.permute(0, 3, 1, 2))
+
+    @torch.inference_mode()
+    def predict(self, batch: Dict[str, torch.Tensor]) -> Instances:
+        """``batch = {"image": [B, H, W, 3] float, "image_size": [B, 2] int32}``
+        on the model's device -> ``Instances`` with ``boxes [B, D, 4]``,
+        ``scores [B, D]``, ``pred_classes [B, D]``, ``is_valid [B, D]`` and
+        ``pred_masks [B, D, 28, 28]`` (probabilities)."""
+        image_sizes = batch["image_size"]
+        features = self.features(batch["image"])
+        rpn = self.proposal_generator
+        logits, deltas = rpn.rpn_head([features[f] for f in rpn.in_features])
+        proposals = rpn.proposals(logits, deltas, image_sizes)
+
+        heads = self.roi_heads
+        storage = heads.pooling_storage(features)
+        pooled = heads.pool_box_features(proposals.proposal_boxes, storage,
+                                         valid=proposals.is_valid)
+        scores, deltas = heads.box_predictor(heads.box_head(pooled))
+        detections = heads.box_inference(scores.float(), deltas.float(), proposals,
+                                         image_sizes)
+        mask_in = heads.pool_mask_features(detections.boxes, storage,
+                                           valid=detections.is_valid)
+        return heads.mask_inference(heads.mask_head(mask_in), detections)
+
+
+def init_weights(model: GeneralizedRCNN, generator: torch.Generator) -> None:
+    """Seeded random weights that keep activations of order one.
+
+    Convs and FCs are variance-preserving (He-normal over fan-in, with the
+    JAX package's small normals for the RPN head and the predictors), and
+    every bottleneck's last FrozenBN scales its branch by 0.2, so the
+    residual stream does not grow with depth. With zero biases the network
+    is linear in the input's scale up to the softmax; the stem's FrozenBN
+    scales the raw pixels (std 1, values up to ~130) by 1/640, which keeps
+    the class softmax unsaturated (scores near 1/81 at 80 classes) and the
+    RPN deltas small, so proposals are real boxes near their anchors.
+    """
+    small = {
+        "proposal_generator.rpn_head.conv": 0.01,
+        "proposal_generator.rpn_head.objectness_logits": 0.01,
+        "proposal_generator.rpn_head.anchor_deltas": 0.01,
+        "roi_heads.box_predictor.cls_score": 0.01,
+        "roi_heads.box_predictor.bbox_pred": 0.001,
+        "roi_heads.mask_head.predictor": 0.001,
+    }
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                w = mod.weight
+                if name in small:
+                    std = small[name]
+                elif isinstance(mod, nn.ConvTranspose2d):  # stride = kernel: one tap
+                    std = math.sqrt(2.0 / w.shape[0])
+                else:
+                    std = math.sqrt(2.0 / w[0].numel())
+                w.copy_(torch.randn(w.shape, generator=generator) * std)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            if hasattr(mod, "running_var"):
+                if name.endswith("stem.conv1.norm"):
+                    mod.weight.fill_(1.0 / 640)
+                elif name.endswith("conv3.norm"):
+                    mod.weight.fill_(0.2)

@@ -1,0 +1,101 @@
+"""Where the time of one ``predict`` goes on the card.
+
+    python -m detectron2_tensorflow_tpu_torch.tools.profile_predict [batch ...]
+
+Builds chip_smoke's model (Mask R-CNN R50-FPN, bf16, seeded random weights,
+``SCORE_THRESH_TEST = 0``), serves a random 800x1344 batch of each given
+size (default 2), and prints: images/s on the host clock around
+synchronized runs; from ``torch.profiler``, the device time per batch, the
+device's idle share (1 - device time / wall time), the device time by
+category (convs, GEMMs, the two hand-written kernels, sorts, the rest) and
+the top kernels by device time. The full profiler table goes to
+``chiprun_out/profile_predict_b<batch>.txt``.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from detectron2_tensorflow_tpu_torch import build_model, get_cfg
+
+CATEGORIES = (
+    ("nms_keep kernel", ("nms_mask_kernel", "nms_sweep_kernel")),
+    ("roi_patch kernel", ("roi_patch_fwd_kernel",)),
+    ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "nhwc", "fprop", "dgrad")),
+    ("gemm", ("gemm", "cutlass", "sm90_", "gemv")),
+    ("sort / top-k", ("sort", "radix", "topk", "scan")),
+    ("gather / index", ("index", "gather", "scatter")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other elementwise / copies"
+
+
+def run(batch: int, out_dir: Path) -> None:
+    dev = torch.device("cuda", 0)
+    cfg = get_cfg()
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    image = torch.from_numpy(rng.uniform(0, 255, (batch, 800, 1344, 3)).astype(np.float32)).to(dev)
+    inputs = {"image": image,
+              "image_size": torch.tensor([[800, 1333]] * batch, dtype=torch.int32, device=dev)}
+    for _ in range(3):
+        model.predict(inputs)
+    torch.cuda.synchronize()
+
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        model.predict(inputs)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters
+    print(f"batch {batch}: {batch / wall:.2f} img/s, {wall * 1000:.2f} ms/batch (host clock)")
+
+    prof_iters = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(prof_iters):
+            model.predict(inputs)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) / prof_iters
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events) / prof_iters
+    print(f"batch {batch}: device time {total_us / 1000:.2f} ms/batch, wall under the profiler "
+          f"{prof_wall * 1000:.2f} ms/batch, device idle share {1 - total_us / 1e3 / (prof_wall * 1e3):.3f}")
+    by_cat = defaultdict(float)
+    for e in events:
+        by_cat[category(e.key)] += e.self_device_time_total / prof_iters
+    for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"  {cat:28s} {us / 1000:8.3f} ms  {us / total_us:6.1%}")
+    print("  top kernels:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"    {e.self_device_time_total / prof_iters / 1000:8.3f} ms  x{e.count // prof_iters:<4d} "
+              f"{e.key[:110]}")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"profile_predict_b{batch}.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80))
+
+
+def main(argv) -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_predict: no CUDA device")
+    print(torch.cuda.get_device_name(0), torch.__version__)
+    for batch in [int(a) for a in argv] or [2]:
+        run(batch, Path("chiprun_out"))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
