@@ -6,10 +6,11 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order,
 any failure exits non-zero:
 
   1. device: a CUDA card is required;
-  2. build: both hand-written kernels (``csrc/*.cu``) are compiled for
-     sm_90a, one nvcc per source, in parallel;
+  2. build: the hand-written kernels (``csrc/*.cu``: ``nms_keep``, and
+     ``roi_patch_fwd`` and ``roi_patch_bwd`` in one library) are compiled
+     for sm_90a, one nvcc per source, in parallel;
   3. kernels: each kernel is held against its plain PyTorch version on the
-     card at the slice's shapes (inputs from a seeded numpy generator) and
+     card at the slices' shapes (inputs from a seeded numpy generator) and
      both are timed with CUDA events after warm-up;
   4. model: Mask R-CNN R50-FPN (``bench_cfg()``'s model, seeded random
      weights, ``SCORE_THRESH_TEST = 0`` so all 100 detection slots are real)
@@ -17,7 +18,15 @@ any failure exits non-zero:
      ``build_model(cfg)`` + ``model.predict(batch)``; the kernels' launch
      counts are read around that run; outputs are checked, and a narrow
      float32 model is held against the same model run on the CPU (where
-     every kernel takes its plain version) on a small input.
+     every kernel takes its plain version) on a small input;
+  5. train: the same model at ``train_cfg(8)`` (bf16, float32 parameters,
+     seeded random weights) takes 2 warm-up and 3 x 3 timed steps on a
+     seeded 8 x 800 x 1344 batch through ``create_train_state`` +
+     ``build_train_step``; the launch counts are read around the timed
+     steps; losses must be finite, the frozen stem and res2 unchanged bit
+     for bit, every trainable parameter changed; and a narrow float32 train
+     step on 2 x 128 x 160 is held against the same step on the CPU (same
+     weights, noise and proposals).
 
 The last lines are the card's name and power limit, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``.
@@ -25,6 +34,7 @@ line, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -34,17 +44,26 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from detectron2_tensorflow_tpu_torch import get_cfg, kernels
+from detectron2_tensorflow_tpu_torch import get_cfg, kernels, train_cfg
+from detectron2_tensorflow_tpu_torch.engine import (
+    build_train_step,
+    create_train_state,
+    make_train_batch,
+)
 from detectron2_tensorflow_tpu_torch.models import build_model
 from detectron2_tensorflow_tpu_torch.models.meta_arch.postprocess import detector_postprocess
 from detectron2_tensorflow_tpu_torch.models.poolers import (
     build_storage,
     plan_patch,
     plan_rois,
+    roi_patch_backward,
+    roi_patch_backward_reference,
     roi_patch_interpolate,
     roi_patch_interpolate_reference,
 )
+from detectron2_tensorflow_tpu_torch.models.sampling import draw_noise
 from detectron2_tensorflow_tpu_torch.ops.nms import greedy_keep, greedy_keep_reference
+from detectron2_tensorflow_tpu_torch.solver import trainable_parameters
 
 SEED = 0
 NMS_SRC = "detectron2_tensorflow_tpu_torch/csrc/nms_keep.cu"
@@ -56,6 +75,21 @@ ROOT = Path(__file__).resolve().parent
 # one bf16 ulp of the output's magnitude, 2^-7 relative to its maximum.
 ROI_TOL_F32 = 1e-4
 ROI_TOL_BF16_REL = 2.0 ** -7
+# ROI backward: both sides sum the same float32 products (g widened exactly)
+# in other orders, the kernel's cross-ROI sums in atomic order. A float32 sum
+# of n terms errs by at most about n * 2^-24 of the sum of their magnitudes,
+# and a plane cell sums 2S products per ROI over the ROIs that cover it
+# (up to ~100 with clustered boxes): each cell is held to 1e-5 of the sum of
+# the magnitudes of its terms, the same plane made from |g|.
+ROI_BWD_TOL = 1e-5
+# Narrow float32 train step, card against CPU (TF32 off), same weights,
+# proposals and sampler noise: losses to 1e-4 relative; gradients to 1e-4 of
+# each tensor's largest magnitude, elementwise and in norm. The same float32
+# sums in other orders (cuDNN against oneDNN, the backward kernel's atomics)
+# read 3.11e-05 at worst on an H100; tests/test_torch_train.py holds the CPU
+# against the JAX package to the same 1e-4.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-4
 
 
 def tpu_kernel(name: str, line: int) -> str:
@@ -145,14 +179,15 @@ def check_nms(rng, dev):
     return results
 
 
-def roi_inputs(rng, dev, dtype, n, s, valid_frac=0.9):
+def roi_inputs(rng, dev, dtype, n, s, valid_frac=0.9, objects=None):
     """A real storage plane (p2-p5 of an 800x1344 image, C=256, with the
-    extent-tier aliases) and a plan for ``n`` random boxes per image."""
+    extent-tier aliases) and a plan for ``n`` random boxes per image,
+    jittered copies of ``objects`` objects (default ``n // 4``)."""
     b, c = 2, 256
     feats = [torch.from_numpy(rng.standard_normal((b, 800 // st, 1344 // st, c)).astype(np.float32))
              .to(dev, dtype) for st in (4, 8, 16, 32)]
     storage, meta = build_storage(feats, [4, 8, 16, 32], plan_patch(1333, 32))
-    boxes, _ = clustered_boxes(rng, b, n, objects=max(n // 4, 8))
+    boxes, _ = clustered_boxes(rng, b, n, objects=objects or max(n // 4, 8))
     valid = torch.from_numpy(rng.uniform(0, 1, (b, n)) < valid_frac).to(dev)
     starts, wy, wx = plan_rois(meta, torch.from_numpy(boxes).to(dev), s, 0, 224, 4, valid=valid)
     return storage.contiguous(), starts.contiguous(), wy.contiguous(), wx.contiguous(), valid
@@ -181,6 +216,58 @@ def check_roi(rng, dev):
             log(f"roi_patch  {name}: max|err| {err:.3g} (tol {tol:.3g}, max|out| {scale:.3g}), "
                 f"skipped {int(skipped.sum())}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             results.append({"case": name, "err": err, "ms": ms, "plain_ms": plain_ms})
+    return results
+
+
+def check_roi_bwd(rng, dev):
+    """``roi_patch_bwd`` against ``roi_patch_backward_reference`` at the train
+    step's box and mask sets, clustered heavily overlapping boxes, 10% of the
+    slots skipped, bf16 and float32 cotangents, and box chained into mask
+    through ``init``."""
+    results = []
+    planes = {}
+    for label, n, s in (("box B=2 N=512 S=7", 512, 7), ("mask B=2 N=128 S=14", 128, 14)):
+        storage, starts, wy, wx, valid = roi_inputs(rng, dev, torch.bfloat16, n, s, objects=12)
+        shape = tuple(storage.shape)
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.from_numpy(rng.standard_normal((2, n, s, s, 256)).astype(np.float32)).to(dev, dtype)
+            got = roi_patch_backward(g, starts, wy, wx, shape)
+            want = roi_patch_backward_reference(g, starts, wy, wx, shape)
+            bound = roi_patch_backward_reference(g.abs(), starts, wy, wx, shape)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            excess = float(((got - want).abs() - ROI_BWD_TOL * bound).max())
+            if not excess <= 0:
+                raise AssertionError(f"roi_patch_bwd {label} {dtype}: error exceeds "
+                                     f"{ROI_BWD_TOL} x sum|terms| by {excess}")
+            only_skipped = torch.where((~valid)[..., None, None, None], g, torch.zeros_like(g))
+            if bool(roi_patch_backward(only_skipped, starts, wy, wx, shape).any()):
+                raise AssertionError(f"roi_patch_bwd {label}: skipped slots added to the plane")
+            acc, acc_ref = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
+            ms = cuda_ms(lambda: roi_patch_backward(g, starts, wy, wx, shape, init=acc), reps=20)
+            plain_ms = cuda_ms(lambda: roi_patch_backward_reference(g, starts, wy, wx, shape,
+                                                                    init=acc_ref),
+                               reps=3, warmup=1)
+            name = f"{label} {str(dtype).replace('torch.', '')}"
+            log(f"roi_bwd    {name}: max|err| {err:.3g} (max|want| {float(want.abs().max()):.3g}, "
+                f"max sum|terms| {float(bound.max()):.3g}), skipped {int((~valid).sum())}, "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            results.append({"case": name, "err": err, "ms": ms, "plain_ms": plain_ms})
+            planes[label, dtype] = (g, starts, wy, wx, shape)
+    # Chained: the box set's gradient into a fresh plane, then the mask set's
+    # added into it, in the order the fused pool's backward takes them.
+    gb, sb, wyb, wxb, shape = planes["box B=2 N=512 S=7", torch.bfloat16]
+    gm, sm, wym, wxm, _ = planes["mask B=2 N=128 S=14", torch.bfloat16]
+    got = roi_patch_backward(gm, sm, wym, wxm, shape, init=roi_patch_backward(gb, sb, wyb, wxb, shape))
+    want = roi_patch_backward_reference(gm, sm, wym, wxm, shape,
+                                        init=roi_patch_backward_reference(gb, sb, wyb, wxb, shape))
+    bound = roi_patch_backward_reference(gm.abs(), sm, wym, wxm, shape,
+                                         init=roi_patch_backward_reference(gb.abs(), sb, wyb, wxb, shape))
+    err = float((got - want).abs().max())
+    if not float(((got - want).abs() - ROI_BWD_TOL * bound).max()) <= 0:
+        raise AssertionError("roi_patch_bwd chained box -> mask: error exceeds the bound")
+    log(f"roi_bwd    chained box -> mask through init (bf16): max|err| {err:.3g}")
+    results.append({"case": "chained", "err": err})
     return results
 
 
@@ -285,6 +372,142 @@ def run_model(rng, dev):
     return launches, img_s
 
 
+# -- phase 5: train ---------------------------------------------------------
+
+FROZEN = ("backbone.bottom_up.stem.", "backbone.bottom_up.res2.")
+
+
+def narrow_train_cfg():
+    cfg = train_cfg(2)
+    for k, v in NARROW.items():
+        cfg.MODEL.RESNETS[k] = v
+    cfg.MODEL.NECK.OUT_CHANNELS = 32
+    cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 64
+    cfg.MODEL.ROI_MASK_HEAD.CONV_DIM = 32
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
+    cfg.MODEL.DTYPE = "float32"
+    cfg.INPUT.MAX_GT_INSTANCES = 5
+    return cfg
+
+
+@contextlib.contextmanager
+def given_proposals(model, proposals):
+    """Make ``model``'s RPN return ``proposals``: the card's and the CPU's
+    convolutions round differently, and proposal scores closer than that
+    may trade slots in the top-k, which reorders the sample."""
+    model.proposal_generator.proposals = lambda *args, **kwargs: proposals
+    try:
+        yield
+    finally:
+        del model.proposal_generator.proposals
+
+
+def check_train_against_cpu(dev):
+    """Narrow float32 train step on a 2 x 128 x 160 batch: losses, gradients
+    and updated parameters on the card (kernels) against the CPU (plain
+    versions), from the same weights, sampler noise and proposals."""
+    cfg = narrow_train_cfg()
+    cpu_model = build_model(cfg, generator=torch.Generator().manual_seed(SEED), training=True)
+    gpu_model = build_model(cfg, device=dev, state_dict=cpu_model.state_dict(), training=True)
+    batch = {k: torch.from_numpy(v) for k, v in make_train_batch(cfg, 128, 160).items()}
+    gbatch = {k: v.to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        feats = cpu_model.features(batch["image"])
+        rpn = cpu_model.proposal_generator
+        logits, deltas = rpn.rpn_head([feats[f] for f in rpn.in_features])
+        proposals = rpn.proposals(logits, deltas, batch["image_size"], training=True)
+    n_anchors = sum(l[0].numel() for l in logits)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    noise = {"rpn": draw_noise(gen, (2, n_anchors), "cpu"),
+             "roi": draw_noise(gen, (2, proposals.is_valid.shape[1] + 5), "cpu")}
+    gnoise = {k: tuple(t.to(dev) for t in v) for k, v in noise.items()}
+    gprops = type(proposals)(**{k: v.to(dev) for k, v in proposals.get_fields().items()})
+
+    def run(model, b, nz, props):
+        with given_proposals(model, props):
+            losses = model.losses(b, noise=nz)
+        sum(losses.values()).backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None})
+
+    want_l, want_g = run(cpu_model, batch, noise, proposals)
+    got_l, got_g = run(gpu_model, gbatch, gnoise, gprops)
+    for k, v in want_l.items():
+        if not abs(got_l[k] - v) <= TRAIN_LOSS_RTOL * abs(v):
+            raise AssertionError(f"narrow train step: {k} {got_l[k]} on the card, {v} on the CPU")
+    if set(got_g) != set(want_g) or set(got_g) != set(trainable_parameters(cpu_model, 2)):
+        raise AssertionError("narrow train step: gradients of other parameters on the card")
+    worst, worst_norm = (0.0, ""), (0.0, "")
+    for n, w in want_g.items():
+        diff = got_g[n] - w
+        rel = float(diff.abs().max()) / max(float(w.abs().max()), 1e-30)
+        rel_norm = float(diff.norm()) / max(float(w.norm()), 1e-30)
+        worst, worst_norm = max(worst, (rel, n)), max(worst_norm, (rel_norm, n))
+        if rel > TRAIN_GRAD_TOL or rel_norm > TRAIN_GRAD_TOL:
+            raise AssertionError(f"narrow train step: gradient of {n} differs by {rel:.3g} of "
+                                 f"its largest magnitude, {rel_norm:.3g} in norm "
+                                 f"(tolerance {TRAIN_GRAD_TOL})")
+    log("train      narrow f32 step, card vs CPU: losses " + ", ".join(
+        f"{k} {got_l[k]:.6f}/{v:.6f}" for k, v in want_l.items())
+        + f"; {len(want_g)} gradients, worst max|err| / max|grad| {worst[0]:.3g} ({worst[1]}),"
+          f" worst |err| / |grad| {worst_norm[0]:.3g} ({worst_norm[1]})")
+
+
+def run_train(dev):
+    cfg = train_cfg(8)
+    b, h, w = 8, 800, 1344
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED),
+                        training=True)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = create_train_state(cfg, model, torch.Generator(device=dev).manual_seed(SEED))
+    step = build_train_step(cfg, state)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_train_batch(cfg, h, w).items()}
+    log(f"train      built Mask R-CNN R50-FPN train state (bf16, float32 params) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    metrics = [step(batch) for _ in range(2)]  # warm-up: cuDNN algorithms, allocator
+    torch.cuda.synchronize()
+
+    greedy_keep.launches = 0
+    roi_patch_interpolate.launches = 0
+    roi_patch_backward.launches = 0
+    windows, iters = 3, 3
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            metrics.append(step(batch))
+        torch.cuda.synchronize()
+        rates.append(b * iters / (time.perf_counter() - t0))
+    launches = {"nms_keep": greedy_keep.launches, "roi_patch_fwd": roi_patch_interpolate.launches,
+                "roi_patch_bwd": roi_patch_backward.launches}
+    img_s = sorted(rates)[windows // 2]
+    log(f"train      {windows}x{iters} steps, batch {b} at {h}x{w}: {img_s:.2f} img/s "
+        f"median (windows {', '.join(f'{r:.2f}' for r in rates)}); launches {launches}; "
+        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the train step never launched {name}")
+
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(np.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError(f"non-finite losses: {values}")
+    trainable = trainable_parameters(model, cfg.MODEL.BACKBONE.FREEZE_AT)
+    frozen = [n for n, _ in model.named_parameters() if n not in trainable]
+    if not frozen or any(not n.startswith(FROZEN) for n in frozen):
+        raise AssertionError(f"unexpected frozen parameters {frozen}")
+    changed_frozen = [n for n in frozen if not torch.equal(dict(model.named_parameters())[n], start[n])]
+    unchanged = [n for n, p in trainable.items() if torch.equal(p.detach(), start[n])]
+    if changed_frozen or unchanged:
+        raise AssertionError(f"frozen parameters changed: {changed_frozen}; "
+                             f"trainable parameters unchanged: {unchanged}")
+    log(f"train      losses finite over {len(values)} steps; first "
+        + ", ".join(f"{k} {v:.4f}" for k, v in values[0].items())
+        + f"; last total_loss {values[-1]['total_loss']:.4f}; {len(frozen)} frozen parameters "
+          f"bit-equal, all {len(trainable)} trainable parameters changed")
+    return launches, img_s
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -301,8 +524,11 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     nms = check_nms(rng, dev)
     roi = check_roi(rng, dev)
+    bwd = check_roi_bwd(rng, dev)
     check_small_against_cpu(rng, dev)
     launches, _ = run_model(rng, dev)
+    check_train_against_cpu(dev)
+    train_launches, _ = run_train(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -317,6 +543,10 @@ def main() -> None:
          "launches": launches["roi_patch_fwd"],
          "max_abs_err": max(r["err"] for r in roi),
          "ms": roi[0]["ms"], "plain_ms": roi[0]["plain_ms"]},
+        {"name": "roi_patch_bwd", "route": "cuda", "source": ROI_SRC, "replaces": tpu_kernel("roi_patch", 440),
+         "launches": train_launches["roi_patch_bwd"],
+         "max_abs_err": max(r["err"] for r in bwd),
+         "ms": bwd[0]["ms"], "plain_ms": bwd[0]["plain_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
 """PyTorch + CUDA port of the JAX detection package beside it, for NVIDIA Hopper.
 
 The JAX package beside it is the reference. This package imports ``torch``
-and never JAX; its two hand-written CUDA kernels (``csrc/``) are built by
+and never JAX; its hand-written CUDA kernels (``csrc/``) are built by
 ``kernels.py`` on first use on a CUDA device.
 """
 
-from .config import get_cfg
+from .config import get_cfg, train_cfg
 from .models import build_model
 
-__all__ = ["get_cfg", "build_model"]
+__all__ = ["get_cfg", "train_cfg", "build_model"]

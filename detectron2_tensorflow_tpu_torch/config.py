@@ -3,9 +3,11 @@
 The JAX package's yacs-style config (``config/``)
 imports PyYAML at module level, which the GPU machine does not have, so the
 port carries its own small tree. It holds only the keys the Mask R-CNN
-R50-FPN inference slice reads, with the values of the JAX package's
-``get_cfg()`` after the benchmark overrides in ``bench.py`` ``bench_cfg()``.
-``tests/test_torch_config.py`` holds the two key by key.
+R50-FPN slices read (serving and the training step), with the values of the
+JAX package's ``get_cfg()`` after the benchmark overrides in ``bench.py``
+``bench_cfg()``; :func:`train_cfg` applies ``bench_train.py``
+``train_cfg()``'s overrides instead. ``tests/test_torch_config.py`` holds
+each against its JAX counterpart key by key.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def get_cfg() -> CfgNode:
             PIXEL_MEAN=[123.675, 116.28, 103.53],
             PIXEL_STD=[1.0, 1.0, 1.0],
             INPUT_FORMAT="BGR",
-            BACKBONE=dict(NAME="ResNet"),
+            BACKBONE=dict(NAME="ResNet", FREEZE_AT=2),
             RESNETS=dict(
                 DEPTH=50,
                 OUT_FEATURES=["res2", "res3", "res4", "res5"],
@@ -87,6 +89,15 @@ def get_cfg() -> CfgNode:
                 PRE_NMS_TOPK_TEST=1000,
                 POST_NMS_TOPK_TEST=1000,
                 NMS_THRESH=0.7,
+                BOUNDARY_THRESH=-1,
+                IOU_THRESHOLDS=[0.3, 0.7],
+                IOU_LABELS=[0, -1, 1],
+                BATCH_SIZE_PER_IMAGE=256,
+                POSITIVE_FRACTION=0.5,
+                SMOOTH_L1_BETA=0.0,
+                LOSS_WEIGHT=1.0,
+                PRE_NMS_TOPK_TRAIN=12000,
+                POST_NMS_TOPK_TRAIN=2000,
             ),
             ROI_HEADS=dict(
                 NAME="StandardROIHeads",
@@ -95,6 +106,11 @@ def get_cfg() -> CfgNode:
                 SCORE_THRESH_TEST=0.05,
                 NMS_THRESH_TEST=0.5,
                 NMS_CLS_AGNOSTIC=False,
+                IOU_THRESHOLDS=[0.5],
+                IOU_LABELS=[0, 1],
+                BATCH_SIZE_PER_IMAGE=512,
+                POSITIVE_FRACTION=0.25,
+                PROPOSAL_APPEND_GT=True,
             ),
             ROI_BOX_HEAD=dict(
                 NAME="FastRCNNConvFCHead",
@@ -108,6 +124,7 @@ def get_cfg() -> CfgNode:
                 CONV_DIM=256,
                 NORM="",
                 CLS_AGNOSTIC_BBOX_REG=False,
+                SMOOTH_L1_BETA=0.0,
             ),
             ROI_MASK_HEAD=dict(
                 NAME="MaskRCNNConvUpsampleHead",
@@ -123,4 +140,39 @@ def get_cfg() -> CfgNode:
         ),
         TEST=dict(DETECTIONS_PER_IMAGE=100),
         TRANSFORM=dict(RESIZE=dict(MAX_SIZE_TRAIN=1333, MAX_SIZE_TEST=1333)),
+        INPUT=dict(MAX_GT_INSTANCES=100),
+        SOLVER=dict(
+            LR_SCHEDULER_NAME="WarmupMultiStepLR",
+            IMS_PER_BATCH=16,
+            AUTO_SCALE_LR_SCHEDULE=True,
+            IMS_PER_BATCH_BASE=16,
+            MAX_ITER=40000,
+            BASE_LR=0.001,
+            MOMENTUM=0.9,
+            WEIGHT_DECAY=0.0001,
+            WEIGHT_DECAY_NORM=0.0,
+            WEIGHT_DECAY_BIAS=0.0001,
+            BIAS_LR_FACTOR=1.0,
+            GAMMA=0.1,
+            STEPS=(30000,),
+            WARMUP_FACTOR=1.0 / 1000,
+            WARMUP_ITERS=1000,
+            WARMUP_METHOD="linear",
+            CLIP_GRADIENTS_BY_NORM=10.0,
+        ),
     )
+
+
+def train_cfg(batch_size: int = 8) -> CfgNode:
+    """The training step's configuration (``bench_train.py`` ``train_cfg()``):
+    the serving model with the FPN RPN training budgets 2000/1000, at most 64
+    GT instances per image, ``batch_size`` images per step and no LR
+    auto-scaling. ``PRE_NMS_TOPK_TEST`` is the JAX package's default there."""
+    cfg = get_cfg()
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 6000
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 2000
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 1000
+    cfg.SOLVER.IMS_PER_BATCH = batch_size
+    cfg.SOLVER.AUTO_SCALE_LR_SCHEDULE = False
+    cfg.INPUT.MAX_GT_INSTANCES = 64
+    return cfg

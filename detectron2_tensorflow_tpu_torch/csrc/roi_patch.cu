@@ -1,4 +1,5 @@
-// ROIAlign forward from a row-concatenated pyramid plane, for Hopper (sm_90a).
+// ROIAlign forward and backward on a row-concatenated pyramid plane, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel of the JAX package, ops/pallas/roi_patch.py
 // roi_patch_interpolate (kernel body _make_kernel). For ROI n of image b it
@@ -21,6 +22,28 @@
 // f32, 57 KB at S = 14) then goes through shared memory to the second
 // contraction over q. Products are dense (no skipping of zero hat weights):
 // the simple design reads every patch element once per block.
+//
+// The backward (roi_patch_bwd_kernel, below) replaces the TPU kernel
+// ops/pallas/roi_patch.py roi_patch_backward (body _make_bwd_kernel). Per
+// ROI it forms
+//     gp[p, q, c] = sum_o sum_u wy[o, p] * g[o, u, c] * wx[u, q]
+// in float32 (g widened exactly, wy and wx unrounded, as the Pallas kernel
+// does) and adds it into a float32 plane [B, Htot, Wm, C] at (row+p, tx+q).
+// The TPU kernel serializes that read-modify-write on a sequential grid
+// (region sort, round-robin groups, a hazard flag, tier-narrowed DMA
+// windows); none of that carries over. Here blocks run in parallel and
+// overlapping ROIs meet in float32 atomicAdd, chosen over a sorted
+// segmented reduction because it is simple and needs no scratch: the price
+// is a summation order that changes from run to run (the plain version
+// agrees to float32 rounding of the sums, not bit for bit).
+// Design: one block per (ROI, 32-channel tile, image), 256 threads, lane l
+// owning channel l. The g tile [S, S, 32] is widened into shared memory;
+// each warp takes patch rows p, forms t[u] = sum_o wy[o, p] g[o, u, c] in
+// registers, then for every column q adds sum_u t[u] wx[u, q] with one
+// coalesced 128-byte atomic per warp. Exact-zero products (cells outside
+// the ROI's hat support) are not added: adding +0 changes no sum.
+// What bounds it on the H100: the atomics into device memory (P*P*C per
+// ROI), then the P*P*S FMAs per channel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,7 +157,116 @@ int launch(const void* plane, const int* starts, const float* wy, const float* w
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+roi_patch_bwd_kernel(const T* __restrict__ g, const int* __restrict__ starts,
+                     const float* __restrict__ wy, const float* __restrict__ wx,
+                     float* __restrict__ acc, int n, int htot, int wm, int c,
+                     int p, int s, int n_classes) {
+  extern __shared__ float smem[];
+  float* wy_s = smem;                 // [S, P]
+  float* wx_s = wy_s + s * p;         // [S, P]
+  float* g_s = wx_s + s * p;          // [S, S, kCT]
+
+  const int roi = blockIdx.x;
+  const int c0 = blockIdx.y * kCT;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ch = c0 + lane;
+  const bool ch_ok = ch < c;
+
+  const size_t slot = (size_t)b * n + roi;
+  const int row = starts[slot * 3 + 0];
+  const int tx = starts[slot * 3 + 1];
+  const int cls = starts[slot * 3 + 2];
+  if (cls >= n_classes) return;  // skip sentinel: no loads, no adds
+
+  const float* wy_g = wy + slot * s * p;
+  const float* wx_g = wx + slot * s * p;
+  for (int i = threadIdx.x; i < s * p; i += kThreads) {
+    wy_s[i] = wy_g[i];
+    wx_s[i] = wx_g[i];
+  }
+  const T* g_g = g + slot * s * s * c;
+  for (int i = warp; i < s * s; i += kWarps) {
+    g_s[i * kCT + lane] = ch_ok ? to_f32(g_g[(size_t)i * c + ch]) : 0.f;
+  }
+  __syncthreads();
+  if (!ch_ok) return;
+
+  float* base = acc + (size_t)b * htot * wm * c;
+  for (int pp = warp; pp < p; pp += kWarps) {
+    const int r = row + pp;
+    if (r < 0 || r >= htot) continue;
+    // t[u] = sum_o wy[o, pp] * g[o, u, c]
+    float t[kMaxS];
+#pragma unroll
+    for (int u = 0; u < kMaxS; ++u) t[u] = 0.f;
+    for (int o = 0; o < s; ++o) {
+      const float w = wy_s[o * p + pp];
+#pragma unroll
+      for (int u = 0; u < kMaxS; ++u) {
+        if (u < s) t[u] += w * g_s[(o * s + u) * kCT + lane];
+      }
+    }
+    float* row_ptr = base + (size_t)r * wm * c;
+    for (int q = 0; q < p; ++q) {
+      const int col = tx + q;
+      if (col < 0 || col >= wm) continue;
+      float v = 0.f;
+#pragma unroll
+      for (int u = 0; u < kMaxS; ++u) {
+        if (u < s) v += t[u] * wx_s[u * p + q];
+      }
+      if (v != 0.f) atomicAdd(row_ptr + (size_t)col * c + ch, v);
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* g, const int* starts, const float* wy, const float* wx,
+               float* acc, int batch, int n, int htot, int wm, int c, int p, int s,
+               int n_classes, cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * s * p + s * s * kCT) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      roi_patch_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n, (c + kCT - 1) / kCT, batch);
+  roi_patch_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(g), starts, wy, wx, acc, n, htot, wm, c, p, s, n_classes);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// g [batch, n, s, s, c] (dtype 0: float32, 1: bfloat16), starts [batch, n, 3]
+// int32, wy/wx [batch, n, s, p] float32; adds every ROI's patch gradient into
+// the float32 plane acc [batch, htot, wm, c], which the caller zeroes or
+// passes in holding earlier sums. Returns cudaGetLastError().
+extern "C" int roi_patch_bwd_launch(const void* g, const void* starts,
+                                    const void* wy, const void* wx, void* acc,
+                                    int batch, int n, int htot, int wm, int c,
+                                    int p, int s, int n_classes, int dtype,
+                                    void* stream) {
+  if (batch <= 0 || n <= 0 || c <= 0) return (int)cudaGetLastError();
+  if (s > kMaxS || p > kMaxP || batch > 65535 || (c + kCT - 1) / kCT > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sp = static_cast<const int*>(starts);
+  const float* wyp = static_cast<const float*>(wy);
+  const float* wxp = static_cast<const float*>(wx);
+  float* ap = static_cast<float*>(acc);
+  if (dtype == 0) {
+    return launch_bwd<float>(g, sp, wyp, wxp, ap, batch, n, htot, wm, c, p, s, n_classes, st);
+  }
+  if (dtype == 1) {
+    return launch_bwd<__nv_bfloat16>(g, sp, wyp, wxp, ap, batch, n, htot, wm, c, p, s,
+                                     n_classes, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // plane [batch, htot, wm, c] (dtype 0: float32, 1: bfloat16), starts
 // [batch, n, 3] int32 (row, tx, tier class), wy/wx [batch, n, s, p] float32,

@@ -34,11 +34,12 @@ EXTRA_FLAGS = {"nms_keep": ["-fmad=false"]}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every pointer and the stream are c_void_p.
+# Entry points of each library and their C signatures: every pointer and the
+# stream are c_void_p.
+_ROI_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
-    "nms_keep": ("nms_keep_launch", [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
-    "roi_patch": ("roi_patch_fwd_launch",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "nms_keep": {"nms_keep_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _P]},
+    "roi_patch": {"roi_patch_fwd_launch": _ROI_ARGS, "roi_patch_bwd_launch": _ROI_ARGS},
 }
 
 _lock = threading.Lock()
@@ -108,10 +109,10 @@ def load(name: str) -> ctypes.CDLL:
             paths = build_all()
             for n, path in paths.items():
                 cdll = ctypes.CDLL(str(path))
-                fn_name, argtypes = SIGNATURES[n]
-                fn = getattr(cdll, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for fn_name, argtypes in SIGNATURES[n].items():
+                    fn = getattr(cdll, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 _libs[n] = cdll
             lib = _libs[name]
         return lib

@@ -4,7 +4,10 @@ Port of the JAX package's ``models/backbones/resnet.py`` for the
 bottleneck, FrozenBN, non-dilated configuration the Mask R-CNN R50-FPN slice
 uses. Module names follow Detectron2 (``stem.conv1``, ``res2.0.conv1``,
 ``res2.0.shortcut``, ``conv1.norm``), so a D2 state dict maps by name.
-Inference only: the trunk never trains here, so freezing is moot.
+Stages up to ``FREEZE_AT`` (1 = the stem, 2 = the stem and res2) are
+frozen as in the JAX package: their outputs are detached (its
+``stop_gradient``), and the solver leaves their parameters out of the
+optimizer (``solver.trainable_parameters``).
 """
 
 from __future__ import annotations
@@ -61,8 +64,10 @@ class ResNet(nn.Module):
 
     def __init__(self, depth: int, num_groups: int, width_per_group: int,
                  stem_out_channels: int, res2_out_channels: int,
-                 stride_in_1x1: bool, norm: str, out_features: List[str]):
+                 stride_in_1x1: bool, norm: str, out_features: List[str],
+                 freeze_at: int = 0):
         super().__init__()
+        self.freeze_at = freeze_at
         if depth not in BLOCKS_PER_STAGE:
             raise NotImplementedError(f"ResNet depth {depth} is not ported")
         self.out_features = list(out_features)
@@ -88,9 +93,13 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.stem(x)
+        if self.freeze_at >= 1:
+            x = x.detach()
         outputs = {}
-        for name in self.stage_names:
+        for idx, name in enumerate(self.stage_names):
             x = getattr(self, name)(x)
+            if self.freeze_at >= idx + 2:
+                x = x.detach()
             if name in self.out_features:
                 outputs[name] = x
         return outputs
@@ -117,4 +126,5 @@ def build_resnet_backbone(cfg) -> ResNet:
         stride_in_1x1=r.STRIDE_IN_1X1,
         norm=r.NORM,
         out_features=r.OUT_FEATURES,
+        freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
     )

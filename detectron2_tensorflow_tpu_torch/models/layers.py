@@ -1,6 +1,6 @@
 """Shared building blocks: conv with norm and activation, FrozenBN, deconv.
 
-Port of the JAX package's ``models/layers.py``, inference only. The
+Port of the JAX package's ``models/layers.py``. The
 JAX package runs NHWC convs with HWIO kernels; here convs are PyTorch's
 NCHW modules and the model keeps activations in ``channels_last`` memory, so
 the tensor a layer produces is NHWC in memory either way. ``convert.py``
@@ -11,10 +11,14 @@ What carries over exactly:
     on every side, where XLA's "SAME" would pad bottom/right-heavy);
   * FrozenBN folded to ``x * scale + shift``, the fold computed in float32
     and cast to the activation dtype, as the JAX module does;
-  * a conv runs in the model dtype (its weight and bias are cast), as
-    the JAX package's convs do.
-The JAX package's opt-in fused 1x1 epilogue and ``D2TPU_DOT_TAIL`` branch
-are not ported: they change no result.
+  * a conv runs in its input's dtype (its weight and bias are cast, so
+    float32 training parameters compute in bf16), as the JAX package's
+    convs do.
+Not ported: the JAX package's ``D2TPU_DOT_TAIL`` branch, a TPU dead end,
+and its fused 1x1 epilogue (``fused_conv1x1_bn_add_relu``). The epilogue
+rounds once in float32 where this path rounds after the conv, so it is not
+the same result; it is opt-in in the JAX package and queued in ROADMAP
+Queue 2 item 4.
 """
 
 from __future__ import annotations

@@ -1,9 +1,12 @@
-"""GeneralizedRCNN inference: Mask R-CNN with an FPN trunk.
+"""GeneralizedRCNN: Mask R-CNN with an FPN trunk, serving and training losses.
 
-Port of the non-cascade, non-res5, mask-on branch of ``predict_fn`` in
-the JAX package's ``models/meta_arch/rcnn.py``: trunk and FPN, RPN
-proposals, one pooling storage shared by the box and mask poolers, box head
-and class-aware NMS to fixed detection slots, mask head on the detections.
+Port of the non-cascade, non-res5, mask-on branch of ``predict_fn`` and
+``loss_fn`` in the JAX package's ``models/meta_arch/rcnn.py``. Serving:
+trunk and FPN, RPN proposals, one pooling storage shared by the box and mask
+poolers, box head and class-aware NMS to fixed detection slots, mask head on
+the detections. Training: RPN losses, training proposals (without gradient)
+plus the GT boxes, ROI sampling, box and mask ROIs pooled by one fused op
+(one float32 gradient accumulator for both), box and mask losses.
 
 Parameters follow Detectron2's names (``backbone.bottom_up.*``,
 ``proposal_generator.rpn_head.*``, ``roi_heads.box_head.*``, ...).
@@ -14,7 +17,7 @@ viewed as NCHW, which is PyTorch's ``channels_last`` layout.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,7 +26,8 @@ from ...structures import Instances
 from ..backbones.resnet import build_resnet_backbone, output_shapes
 from ..necks.fpn import build_fpn, output_strides
 from ..roi_heads.roi_heads import StandardROIHeads
-from ..rpn import RPN
+from ..rpn import RPN, add_ground_truth_to_proposals
+from ..sampling import draw_noise
 from .common import preprocess_images
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -83,6 +87,49 @@ class GeneralizedRCNN(nn.Module):
         mask_in = heads.pool_mask_features(detections.boxes, storage,
                                            valid=detections.is_valid)
         return heads.mask_inference(heads.mask_head(mask_in), detections)
+
+    def losses(self, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """The training losses of one batch: ``loss_rpn_cls``, ``loss_rpn_loc``,
+        ``loss_cls``, ``loss_box_reg``, ``loss_mask`` (float32 scalars).
+
+        ``batch`` holds ``image [B, H, W, 3]``, ``image_size [B, 2]`` and the
+        GT fields ``gt_boxes [B, G, 4]``, ``gt_classes [B, G]``,
+        ``gt_valid [B, G]``, ``gt_masks [B, G, Mm, Mm]`` (mini-masks in GT-box
+        frames) and optionally ``gt_is_crowd [B, G]``. The two samplers draw
+        their uniform noise from ``generator`` (on the batch's device), RPN
+        first, unless ``noise = {"rpn": (pos, neg), "roi": (pos, neg)}``
+        hands the draws in (``[B, anchors]`` and ``[B, proposals]``).
+        """
+        image_sizes = batch["image_size"]
+        features = self.features(batch["image"])
+        rpn = self.proposal_generator
+        logits, deltas = rpn.rpn_head([features[f] for f in rpn.in_features])
+        b, dev = logits[0].shape[0], logits[0].device
+        if noise is None:
+            noise = {"rpn": draw_noise(generator, (b, sum(l[0].numel() for l in logits)), dev)}
+        losses = rpn.losses(logits, deltas, batch, image_sizes, noise["rpn"])
+        proposals = rpn.proposals(logits, deltas, image_sizes, training=True)
+
+        heads = self.roi_heads
+        if heads.proposal_append_gt:
+            proposals = add_ground_truth_to_proposals(proposals, batch)
+        roi_noise = noise.get("roi")
+        if roi_noise is None:
+            roi_noise = draw_noise(generator, proposals.is_valid.shape, dev)
+        sampled = heads.label_and_sample_proposals(proposals, batch, roi_noise)
+        m = heads.mask_slots
+        box_in, mask_in = heads.pool_multi(
+            [(heads.box_pooler, sampled.boxes, sampled.valid),
+             (heads.mask_pooler, sampled.boxes[:, :m], sampled.valid[:, :m])],
+            heads.pooling_storage(features),
+        )
+        scores, box_deltas = heads.box_predictor(heads.box_head(box_in))
+        losses.update(heads.box_losses(scores.float(), box_deltas.float(), sampled))
+        losses["loss_mask"] = heads.mask_loss(heads.mask_head(mask_in), sampled, batch)
+        return losses
 
 
 def init_weights(model: GeneralizedRCNN, generator: torch.Generator) -> None:

@@ -1,8 +1,8 @@
 """Multi-level ROIAlign from one row-concatenated storage plane.
 
-Port of the JAX package's ``models/poolers.py`` (inference half).
-Each image's pyramid levels (plus 2x/4x average-pooled aliases for boxes
-too large for the patch) are stacked row-wise into one NHWC plane
+Port of the JAX package's ``models/poolers.py``. Each image's pyramid
+levels (plus 2x/4x average-pooled aliases for boxes too large for the
+patch) are stacked row-wise into one NHWC plane
 ``[B, Htot, Wm, C]`` with ``P`` zero rows below. Each ROI then reads one
 ``[P, P, C]`` patch at ``(row, tx)``, and bilinear sampling with D2's
 adaptive ``sampling_ratio=0`` bin average collapses into two contractions
@@ -14,6 +14,14 @@ later refactor may drop both). The contraction is :func:`roi_patch_interpolate`:
 the hand-written kernel ``csrc/roi_patch.cu`` for CUDA tensors, which
 replaces the TPU kernel ``ops/pallas/roi_patch.py`` ``roi_patch_interpolate``,
 and the plain PyTorch :func:`roi_patch_interpolate_reference` for CPU tensors.
+Its gradient is :func:`roi_patch_backward`: the kernel ``roi_patch_bwd`` of
+the same source for CUDA tensors, which replaces the TPU kernel
+``roi_patch_backward``, and :func:`roi_patch_backward_reference` for CPU
+tensors. Training pools the box and mask ROI sets through
+:func:`pool_multi_from_storage`, whose backward chains both sets through one
+float32 accumulator. The 2x2 alias pool ``_avgpool2x`` is differentiated by
+autograd, which gives the exact transpose the JAX package writes by hand
+(each cotangent cell spread over its window at weight 1/4).
 """
 
 from __future__ import annotations
@@ -35,6 +43,11 @@ _EXTENT_MARGIN = 2 + (_ALIGN - 1)
 # the skip sentinel of an invalid slot.
 ROW_TIERS = (16, 24)
 COL_TIERS = (16, 24)
+
+# ROIs per step of the plain versions, bounding their gathered
+# [B, chunk, P, P, C] patches and products.
+_FWD_CHUNK = 256
+_BWD_CHUNK = 32
 
 
 def tier_combos(p: int):
@@ -240,14 +253,12 @@ def plan_rois(meta: StorageMeta, boxes: torch.Tensor, output_size: int,
 
 
 def roi_patch_interpolate_reference(storage: torch.Tensor, starts: torch.Tensor,
-                                    wy: torch.Tensor, wx: torch.Tensor,
-                                    chunk: int = 256) -> torch.Tensor:
+                                    wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch ROI patch contraction ``[B, N, S, S, C]``.
 
     The same arithmetic as the kernel: ``wy`` rounded to the plane's dtype,
     both contractions in float32, the result rounded once. Skip-sentinel
-    slots give exact zeros. ROIs go ``chunk`` at a time to bound the
-    gathered ``[B, chunk, P, P, C]`` patches.
+    slots give exact zeros.
     """
     b, htot, wm, c = storage.shape
     n, s, p = wy.shape[1], wy.shape[2], wy.shape[3]
@@ -256,47 +267,58 @@ def roi_patch_interpolate_reference(storage: torch.Tensor, starts: torch.Tensor,
     bidx = torch.arange(b, device=dev)[:, None, None, None]
     skip = starts[..., 2] >= skip_tier_class(p)
     outs = []
-    for lo in range(0, n, chunk):
-        st = starts[:, lo: lo + chunk].long()
+    for lo in range(0, n, _FWD_CHUNK):
+        hi = lo + _FWD_CHUNK
+        st = starts[:, lo:hi].long()
         rows = torch.clamp(st[..., 0, None] + ar, 0, htot - 1)  # [B, n, P]
         cols = torch.clamp(st[..., 1, None] + ar, 0, wm - 1)
         patches = storage[bidx, rows[..., :, None], cols[..., None, :]].float()  # [B,n,P,P,C]
-        wyc = wy[:, lo: lo + chunk].to(storage.dtype).float()
+        wyc = wy[:, lo:hi].to(storage.dtype).float()
         a = torch.einsum("bnop,bnpqc->bnoqc", wyc, patches)
-        out = torch.einsum("bnuq,bnoqc->bnouc", wx[:, lo: lo + chunk].float(), a)
+        out = torch.einsum("bnuq,bnoqc->bnouc", wx[:, lo:hi].float(), a)
         outs.append(out)
     out = torch.cat(outs, dim=1)
     out = torch.where(skip[..., None, None, None], torch.zeros_like(out), out)
     return out.to(storage.dtype)
 
 
-def _roi_patch_cuda(storage: torch.Tensor, starts: torch.Tensor,
-                    wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
-    if storage.dim() != 4 or not storage.is_contiguous():
-        raise ValueError("roi_patch_interpolate: storage must be a contiguous [B, Htot, Wm, C]")
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if storage.dtype not in codes:
-        raise ValueError(f"roi_patch_interpolate: storage dtype {storage.dtype} is not float32/bfloat16")
-    b, htot, wm, c = storage.shape
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_plan(what: str, starts: torch.Tensor, wy: torch.Tensor,
+                wx: torch.Tensor, b: int, device: torch.device):
+    """Validate a ``[B, N]`` plan for a kernel launch; return ``(n, s, p)``."""
     if wy.dim() != 4 or wy.shape[0] != b:
-        raise ValueError("roi_patch_interpolate: wy must be [B, N, S, P]")
+        raise ValueError(f"{what}: wy must be [B, N, S, P]")
     n, s, p = wy.shape[1:]
     for name, t, shape, dtype in (("starts", starts, (b, n, 3), torch.int32),
                                   ("wy", wy, (b, n, s, p), torch.float32),
                                   ("wx", wx, (b, n, s, p), torch.float32)):
         if (tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous()
-                or t.device != storage.device):
-            raise ValueError(f"roi_patch_interpolate: {name} must be a contiguous "
-                             f"{dtype} {shape} on the storage's device")
+                or t.device != device):
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{dtype} {shape} on the plane's device")
     if s > 16 or p > 64:
-        raise ValueError(f"roi_patch_interpolate: S={s} > 16 or P={p} > 64 is not supported")
+        raise ValueError(f"{what}: S={s} > 16 or P={p} > 64 is not supported")
+    return n, s, p
+
+
+def _roi_patch_cuda(storage: torch.Tensor, starts: torch.Tensor,
+                    wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+    what = "roi_patch_interpolate"
+    if storage.dim() != 4 or not storage.is_contiguous():
+        raise ValueError(f"{what}: storage must be a contiguous [B, Htot, Wm, C]")
+    if storage.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{what}: storage dtype {storage.dtype} is not float32/bfloat16")
+    b, htot, wm, c = storage.shape
+    n, s, p = _check_plan(what, starts, wy, wx, b, storage.device)
     lib = kernels.load("roi_patch")
     out = torch.empty((b, n, s, s, c), dtype=storage.dtype, device=storage.device)
     stream = torch.cuda.current_stream(storage.device).cuda_stream
     rc = lib.roi_patch_fwd_launch(
         storage.data_ptr(), starts.data_ptr(), wy.data_ptr(), wx.data_ptr(),
         out.data_ptr(), b, n, htot, wm, c, p, s, skip_tier_class(p),
-        codes[storage.dtype], ctypes.c_void_p(stream),
+        _DTYPE_CODES[storage.dtype], ctypes.c_void_p(stream),
     )
     roi_patch_interpolate.launches += 1
     kernels.check(rc, "roi_patch_fwd_launch")
@@ -322,17 +344,161 @@ def roi_patch_interpolate(storage: torch.Tensor, starts: torch.Tensor,
 roi_patch_interpolate.launches = 0
 
 
+def roi_patch_backward_reference(g: torch.Tensor, starts: torch.Tensor,
+                                 wy: torch.Tensor, wx: torch.Tensor, out_shape,
+                                 init: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch ROI patch backward: the float32 plane ``out_shape``
+    ``[B, Htot, Wm, C]`` of ``sum`` over ROIs of
+    ``gp[p, q, c] = sum_o sum_u wy[o, p] g[o, u, c] wx[u, q]`` placed at
+    ``(row + p, tx + q)``.
+
+    ``g [B, N, S, S, C]`` is widened to float32 and ``wy``/``wx`` are used
+    unrounded, as the TPU kernel does. Skip-sentinel slots and cells outside
+    the plane add nothing. ``init`` (a float32 plane of ``out_shape``) is
+    accumulated into in place and returned; otherwise a zero plane is.
+    """
+    b, htot, wm, c = out_shape
+    n, p = wy.shape[1], wy.shape[3]
+    dev = g.device
+    acc = torch.zeros(out_shape, dtype=torch.float32, device=dev) if init is None else init
+    ar = torch.arange(p, device=dev)
+    bidx = torch.arange(b, device=dev)[:, None, None, None]
+    keep = starts[..., 2] < skip_tier_class(p)
+    for lo in range(0, n, _BWD_CHUNK):
+        hi = lo + _BWD_CHUNK
+        st = starts[:, lo:hi].long()
+        rows = st[..., 0, None] + ar  # [B, n, P]
+        cols = st[..., 1, None] + ar
+        t = torch.einsum("bnop,bnouc->bnpuc", wy[:, lo:hi].float(), g[:, lo:hi].float())
+        gp = torch.einsum("bnpuc,bnuq->bnpqc", t, wx[:, lo:hi].float())
+        inside = (((rows >= 0) & (rows < htot))[..., :, None]
+                  & ((cols >= 0) & (cols < wm))[..., None, :]
+                  & keep[:, lo:hi, None, None])
+        gp = torch.where(inside[..., None], gp, torch.zeros_like(gp))
+        acc.index_put_((bidx, rows.clamp(0, htot - 1)[..., :, None],
+                        cols.clamp(0, wm - 1)[..., None, :]), gp, accumulate=True)
+    return acc
+
+
+def _roi_patch_bwd_cuda(g: torch.Tensor, starts: torch.Tensor, wy: torch.Tensor,
+                        wx: torch.Tensor, out_shape,
+                        init: torch.Tensor | None) -> torch.Tensor:
+    what = "roi_patch_backward"
+    if g.dim() != 5 or not g.is_contiguous():
+        raise ValueError(f"{what}: g must be a contiguous [B, N, S, S, C]")
+    if g.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{what}: g dtype {g.dtype} is not float32/bfloat16")
+    b, htot, wm, c = out_shape
+    n, s, p = _check_plan(what, starts, wy, wx, b, g.device)
+    if tuple(g.shape) != (b, n, s, s, c):
+        raise ValueError(f"{what}: g is {tuple(g.shape)}, expected {(b, n, s, s, c)}")
+    if init is None:
+        acc = torch.zeros(tuple(out_shape), dtype=torch.float32, device=g.device)
+    else:
+        if (tuple(init.shape) != tuple(out_shape) or init.dtype != torch.float32
+                or not init.is_contiguous() or init.device != g.device):
+            raise ValueError(f"{what}: init must be a contiguous float32 {tuple(out_shape)} "
+                             "plane on g's device")
+        acc = init
+    lib = kernels.load("roi_patch")
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    rc = lib.roi_patch_bwd_launch(
+        g.data_ptr(), starts.data_ptr(), wy.data_ptr(), wx.data_ptr(),
+        acc.data_ptr(), b, n, htot, wm, c, p, s, skip_tier_class(p),
+        _DTYPE_CODES[g.dtype], ctypes.c_void_p(stream),
+    )
+    roi_patch_backward.launches += 1
+    kernels.check(rc, "roi_patch_bwd_launch")
+    return acc
+
+
+def roi_patch_backward(g: torch.Tensor, starts: torch.Tensor, wy: torch.Tensor,
+                       wx: torch.Tensor, out_shape,
+                       init: torch.Tensor | None = None) -> torch.Tensor:
+    """Float32 plane gradient of :func:`roi_patch_interpolate` for the
+    cotangent ``g``; accumulates into ``init`` in place when given.
+
+    CPU tensors take :func:`roi_patch_backward_reference`; CUDA tensors the
+    kernel (``roi_patch_backward.launches`` counts its launches). Anything
+    else raises.
+    """
+    dev = g.device.type
+    if dev == "cpu":
+        return roi_patch_backward_reference(g, starts, wy, wx, out_shape, init=init)
+    if dev == "cuda":
+        return _roi_patch_bwd_cuda(g, starts, wy, wx, out_shape, init)
+    raise RuntimeError(f"roi_patch_backward: no implementation for device '{dev}'")
+
+
+roi_patch_backward.launches = 0
+
+
+class RoiPatchPoolMulti(torch.autograd.Function):
+    """Pool several ROI sets ``(starts, wy, wx)`` from one storage plane.
+
+    The forward is one :func:`roi_patch_interpolate` per set. The backward
+    chains every set's :func:`roi_patch_backward` through one float32
+    accumulator (``init=``) and casts it once to the plane's dtype, as the
+    JAX package's ``roi_patch_pool_multi`` does. Gradients go to the plane
+    only: the plan is built from boxes that carry none.
+    """
+
+    @staticmethod
+    def forward(ctx, storage, *flat_specs):
+        specs = [flat_specs[i: i + 3] for i in range(0, len(flat_specs), 3)]
+        ctx.plane_shape = tuple(storage.shape)
+        ctx.plane_dtype = storage.dtype
+        ctx.save_for_backward(*flat_specs)
+        return tuple(roi_patch_interpolate(storage, st, wy, wx) for st, wy, wx in specs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = ctx.saved_tensors
+        specs = [flat[i: i + 3] for i in range(0, len(flat), 3)]
+        acc = None
+        for g, (st, wy, wx) in zip(grads, specs):
+            if g is None:
+                continue
+            acc = roi_patch_backward(g.contiguous(), st, wy, wx, ctx.plane_shape, init=acc)
+        grad = None if acc is None else acc.to(ctx.plane_dtype)
+        return (grad,) + (None,) * len(flat)
+
+
+def _plan(meta: StorageMeta, boxes: torch.Tensor, output_size: int,
+          sampling_ratio: int, canonical_box_size: int, canonical_level: int,
+          valid: torch.Tensor | None):
+    starts, wy, wx = plan_rois(meta, boxes.detach().float(), output_size,
+                               sampling_ratio, canonical_box_size, canonical_level,
+                               valid=valid)
+    return starts.contiguous(), wy.contiguous(), wx.contiguous()
+
+
 def pool_from_storage(storage: torch.Tensor, meta: StorageMeta,
                       boxes: torch.Tensor, output_size: int,
                       sampling_ratio: int, canonical_box_size: int = 224,
                       canonical_level: int = 4,
                       valid: torch.Tensor | None = None) -> torch.Tensor:
     """ROIAlign ``[B, N, 4]`` boxes from a built ``[B, Htot, Wm, C]`` storage
-    -> ``[B, N, S, S, C]``; invalid slots pool exact zeros."""
-    starts, wy, wx = plan_rois(meta, boxes.float(), output_size, sampling_ratio,
-                               canonical_box_size, canonical_level, valid=valid)
-    return roi_patch_interpolate(storage, starts.contiguous(), wy.contiguous(),
-                                 wx.contiguous())
+    -> ``[B, N, S, S, C]``; invalid slots pool exact zeros. Differentiable
+    in the storage (:class:`RoiPatchPoolMulti` with one ROI set)."""
+    plan = _plan(meta, boxes, output_size, sampling_ratio, canonical_box_size,
+                 canonical_level, valid)
+    return RoiPatchPoolMulti.apply(storage, *plan)[0]
+
+
+def pool_multi_from_storage(storage: torch.Tensor, meta: StorageMeta,
+                            requests: Sequence[dict]):
+    """Pool several ROI sets from one storage plane in one differentiable
+    op whose backward chains through one float32 accumulator
+    (:class:`RoiPatchPoolMulti`). Each request is ``dict(boxes,
+    output_size, sampling_ratio, canonical_box_size, canonical_level,
+    valid)``, the arguments of :func:`pool_from_storage` (``valid`` may be
+    None). Returns one ``[B, N, S, S, C]`` tensor per request."""
+    flat = []
+    for r in requests:
+        flat.extend(_plan(meta, r["boxes"], r["output_size"], r["sampling_ratio"],
+                          r["canonical_box_size"], r["canonical_level"], r["valid"]))
+    return RoiPatchPoolMulti.apply(storage, *flat)
 
 
 def plan_patch(max_image_size: int, top_stride: int, target: int = TARGET_PATCH) -> int:

@@ -1,13 +1,17 @@
-"""Fast R-CNN output layers and fixed-shape inference.
+"""Fast R-CNN output layers, losses and fixed-shape inference.
 
 Port of the JAX package's ``models/roi_heads/fast_rcnn.py``
-(``FastRCNNOutputLayers``, ``fast_rcnn_inference``): softmax, per-class
+(``FastRCNNOutputLayers``, ``fast_rcnn_losses``, ``fast_rcnn_inference``).
+Losses: softmax CE over the sampled slots and class-specific L1 on the
+foreground deltas, both normalized by the sampled count. Inference: softmax, per-class
 decode and clip, an exact top-2000 of the (proposal, class) scores, the
 score threshold as a validity mask, then class-aware NMS to
 ``DETECTIONS_PER_IMAGE`` fixed slots.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 from torch import nn
@@ -17,6 +21,7 @@ from ...ops.topk import flat_top_k
 from ...structures import Instances, boxes as box_ops
 from ..box_regression import Box2BoxTransform
 from ..layers import Linear
+from ..losses import smooth_l1_loss, softmax_cross_entropy
 
 
 class FastRCNNOutputLayers(nn.Module):
@@ -29,6 +34,33 @@ class FastRCNNOutputLayers(nn.Module):
 
     def forward(self, x: torch.Tensor):
         return self.cls_score(x), self.bbox_pred(x)
+
+
+def fast_rcnn_losses(
+    class_logits: torch.Tensor,  # [N, K+1]
+    deltas: torch.Tensor,  # [N, K*4 or 4]
+    gt_classes: torch.Tensor,  # [N] in [0, K]; K = background
+    gt_proposal_deltas: torch.Tensor,  # [N, 4]
+    valid: torch.Tensor,  # [N]
+    smooth_l1_beta: float,
+    num_classes: int,
+    cls_agnostic: bool,
+) -> Dict[str, torch.Tensor]:
+    """Softmax CE and class-specific smooth L1, both normalized by the
+    number of valid sampled slots (Detectron2's rule, not the fg count)."""
+    n = class_logits.shape[0]
+    count = torch.clamp(valid.sum().float(), min=1.0)
+    ce = softmax_cross_entropy(class_logits, gt_classes)
+    loss_cls = torch.sum(ce * valid) / count
+    fg = valid & (gt_classes < num_classes)
+    if cls_agnostic:
+        fg_deltas = deltas
+    else:
+        d = deltas.reshape(n, num_classes, 4)
+        cls_idx = torch.clamp(gt_classes, 0, num_classes - 1).long()
+        fg_deltas = torch.gather(d, 1, cls_idx[:, None, None].expand(n, 1, 4))[:, 0]
+    reg = smooth_l1_loss(fg_deltas, gt_proposal_deltas, smooth_l1_beta).sum(-1)
+    return {"loss_cls": loss_cls, "loss_box_reg": torch.sum(reg * fg) / count}
 
 
 @torch.no_grad()

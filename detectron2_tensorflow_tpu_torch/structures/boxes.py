@@ -58,3 +58,25 @@ def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     w = boxes[..., 2] - boxes[..., 0]
     h = boxes[..., 3] - boxes[..., 1]
     return (w > threshold) & (h > threshold)
+
+
+def pairwise_ioa(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Intersection over the area of ``boxes2`` for all pairs -> ``[..., N, M]``
+    (crowd-region ignoring). Empty ``boxes2`` give 0."""
+    inter = pairwise_intersection(boxes1, boxes2)
+    a2 = area(boxes2)[..., None, :]
+    ioa = inter / torch.clamp(a2, min=EPS)
+    return torch.where(a2 > 0, ioa, torch.zeros_like(ioa))
+
+
+def inside_image(boxes: torch.Tensor, image_size: torch.Tensor,
+                 boundary_thresh: float = 0.0) -> torch.Tensor:
+    """Mask of ``[B, ..., 4]`` boxes inside per-image ``image_size`` ``[B, 2]``
+    (h, w), tolerating ``boundary_thresh`` pixels."""
+    size = image_size.to(boxes.dtype)
+    shape = (size.shape[0],) + (1,) * (boxes.dim() - 2)
+    h = size[:, 0].reshape(shape)
+    w = size[:, 1].reshape(shape)
+    t = boundary_thresh
+    return ((boxes[..., 0] >= -t) & (boxes[..., 1] >= -t)
+            & (boxes[..., 2] <= w + t) & (boxes[..., 3] <= h + t))

@@ -7,7 +7,7 @@ Builds chip_smoke's model (Mask R-CNN R50-FPN, bf16, seeded random weights,
 size (default 2), and prints: images/s on the host clock around
 synchronized runs; from ``torch.profiler``, the device time per batch, the
 device's idle share (1 - device time / wall time), the device time by
-category (convs, GEMMs, the two hand-written kernels, sorts, the rest) and
+category (convs, GEMMs, the hand-written kernels, sorts, the rest) and
 the top kernels by device time. The full profiler table goes to
 ``chiprun_out/profile_predict_b<batch>.txt``.
 """
@@ -21,14 +21,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity
+from torch.profiler import profile as profile_ctx
 
 from detectron2_tensorflow_tpu_torch import build_model, get_cfg
 
 CATEGORIES = (
     ("nms_keep kernel", ("nms_mask_kernel", "nms_sweep_kernel")),
-    ("roi_patch kernel", ("roi_patch_fwd_kernel",)),
-    ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "nhwc", "fprop", "dgrad")),
+    ("roi_patch_fwd kernel", ("roi_patch_fwd_kernel",)),
+    ("roi_patch_bwd kernel", ("roi_patch_bwd_kernel",)),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
+    ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "nhwc", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "cutlass", "sm90_", "gemv")),
     ("sort / top-k", ("sort", "radix", "topk", "scan")),
     ("gather / index", ("index", "gather", "scatter")),
@@ -64,37 +67,45 @@ def run(batch: int, out_dir: Path) -> None:
     wall = (time.perf_counter() - t0) / iters
     print(f"batch {batch}: {batch / wall:.2f} img/s, {wall * 1000:.2f} ms/batch (host clock)")
 
-    prof_iters = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    profile(lambda: model.predict(inputs), 3, f"batch {batch}",
+            out_dir / f"profile_predict_b{batch}.txt")
+
+
+def profile(fn, runs: int, label: str, out_file: Path) -> None:
+    """Profile ``runs`` calls of ``fn`` and print the device time per call,
+    the device idle share (1 - device time / wall time under the profiler),
+    the device time by category and the top kernels; the full profiler
+    table goes to ``out_file``."""
+    with profile_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(prof_iters):
-            model.predict(inputs)
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) / prof_iters
+        prof_wall = (time.perf_counter() - t0) / runs
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in events) / prof_iters
-    print(f"batch {batch}: device time {total_us / 1000:.2f} ms/batch, wall under the profiler "
-          f"{prof_wall * 1000:.2f} ms/batch, device idle share {1 - total_us / 1e3 / (prof_wall * 1e3):.3f}")
+    total_us = sum(e.self_device_time_total for e in events) / runs
+    print(f"{label}: device time {total_us / 1000:.2f} ms/call, wall under the profiler "
+          f"{prof_wall * 1000:.2f} ms/call, device idle share {1 - total_us / 1e3 / (prof_wall * 1e3):.3f}")
     by_cat = defaultdict(float)
     for e in events:
-        by_cat[category(e.key)] += e.self_device_time_total / prof_iters
+        by_cat[category(e.key)] += e.self_device_time_total / runs
     for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:28s} {us / 1000:8.3f} ms  {us / total_us:6.1%}")
     print("  top kernels:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"    {e.self_device_time_total / prof_iters / 1000:8.3f} ms  x{e.count // prof_iters:<4d} "
+        print(f"    {e.self_device_time_total / runs / 1000:8.3f} ms  x{e.count // runs:<4d} "
               f"{e.key[:110]}")
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / f"profile_predict_b{batch}.txt").write_text(
-        prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80))
+    out_file.parent.mkdir(parents=True, exist_ok=True)
+    out_file.write_text(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80))
 
 
-def main(argv) -> None:
+def main(argv, run_batch=run, default_batch: int = 2) -> None:
+    """``run_batch(batch, out_dir)`` for each batch size in ``argv``."""
     if not torch.cuda.is_available():
-        raise SystemExit("profile_predict: no CUDA device")
+        raise SystemExit("no CUDA device")
     print(torch.cuda.get_device_name(0), torch.__version__)
-    for batch in [int(a) for a in argv] or [2]:
-        run(batch, Path("chiprun_out"))
+    for batch in [int(a) for a in argv] or [default_batch]:
+        run_batch(batch, Path("chiprun_out"))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,14 @@
-"""The port's config module against the JAX package's ``bench_cfg()``, and
-the narrow test configuration the other ``test_torch_*`` files share."""
+"""The port's config module against the JAX package's ``bench_cfg()`` and
+``bench_train.train_cfg()``, and the narrow test configuration the other
+``test_torch_*`` files share."""
 
 import numpy as np
+import pytest
 
 import bench
+import bench_train
 from detectron2_tensorflow_tpu_torch.config import get_cfg as torch_get_cfg
+from detectron2_tensorflow_tpu_torch.config import train_cfg as torch_train_cfg
 
 NARROW = {
     "MODEL.RESNETS.STEM_OUT_CHANNELS": 16,
@@ -54,6 +58,45 @@ def test_config_matches_bench_cfg_key_by_key():
     assert len(leaves) > 50
     for path, value in leaves.items():
         assert _norm(_get(jcfg, path)) == _norm(value), path
+
+
+TRAIN_KEYS = (
+    "MODEL.BACKBONE.FREEZE_AT",
+    "MODEL.RPN.BOUNDARY_THRESH", "MODEL.RPN.IOU_THRESHOLDS", "MODEL.RPN.IOU_LABELS",
+    "MODEL.RPN.BATCH_SIZE_PER_IMAGE", "MODEL.RPN.POSITIVE_FRACTION",
+    "MODEL.RPN.SMOOTH_L1_BETA", "MODEL.RPN.LOSS_WEIGHT",
+    "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "MODEL.RPN.POST_NMS_TOPK_TRAIN",
+    "MODEL.RPN.PRE_NMS_TOPK_TEST", "MODEL.RPN.POST_NMS_TOPK_TEST",
+    "MODEL.ROI_HEADS.IOU_THRESHOLDS", "MODEL.ROI_HEADS.IOU_LABELS",
+    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", "MODEL.ROI_HEADS.POSITIVE_FRACTION",
+    "MODEL.ROI_HEADS.PROPOSAL_APPEND_GT", "MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA",
+    "INPUT.MAX_GT_INSTANCES",
+    "SOLVER.LR_SCHEDULER_NAME", "SOLVER.IMS_PER_BATCH", "SOLVER.AUTO_SCALE_LR_SCHEDULE",
+    "SOLVER.IMS_PER_BATCH_BASE", "SOLVER.MAX_ITER", "SOLVER.BASE_LR", "SOLVER.MOMENTUM",
+    "SOLVER.WEIGHT_DECAY", "SOLVER.WEIGHT_DECAY_NORM", "SOLVER.WEIGHT_DECAY_BIAS",
+    "SOLVER.BIAS_LR_FACTOR", "SOLVER.GAMMA", "SOLVER.STEPS", "SOLVER.WARMUP_FACTOR",
+    "SOLVER.WARMUP_ITERS", "SOLVER.WARMUP_METHOD", "SOLVER.CLIP_GRADIENTS_BY_NORM",
+)
+
+
+@pytest.mark.parametrize("batch_size", [2, 8])
+def test_train_config_matches_bench_train_key_by_key(batch_size):
+    """Every key of the port's ``train_cfg`` (the training keys named one by
+    one, so none can go missing) against ``bench_train.train_cfg()``."""
+    jcfg, tcfg = bench_train.train_cfg(batch_size), torch_train_cfg(batch_size)
+    leaves = dict(tcfg.flatten())
+    assert set(TRAIN_KEYS) <= set(leaves)
+    for path, value in leaves.items():
+        assert _norm(_get(jcfg, path)) == _norm(value), path
+    assert tcfg.SOLVER.IMS_PER_BATCH == batch_size
+    assert (tcfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN, tcfg.MODEL.RPN.POST_NMS_TOPK_TRAIN) == (2000, 1000)
+
+
+def test_serving_config_keeps_its_values():
+    """``get_cfg()`` still holds the serving values ``train_cfg`` overrides."""
+    cfg = torch_get_cfg()
+    assert cfg.MODEL.RPN.PRE_NMS_TOPK_TEST == 1000 and cfg.INPUT.MAX_GT_INSTANCES == 100
+    assert cfg.SOLVER.AUTO_SCALE_LR_SCHEDULE
 
 
 def test_narrow_overrides_apply_to_both():

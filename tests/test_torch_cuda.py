@@ -1,13 +1,15 @@
-"""Edge cases of the two CUDA kernels against their plain PyTorch versions,
-on the card. Marked ``cuda``: they skip where there is no CUDA device, as
-here on the CPU. On a GPU machine (which has no JAX, so the repo's
-conftest cannot load):
+"""Edge cases of the CUDA kernels (NMS keep, ROI patch forward and
+backward) against their plain PyTorch versions, on the card. Marked
+``cuda``: they skip where there is no CUDA device. On a GPU machine (which
+has no JAX, so the repo's conftest cannot load):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Keep masks must be equal; ROI outputs within the tolerances of
 ``chip_smoke.py`` (float32 1e-4 absolute on O(1) features, bf16 one ulp of
-the output's maximum), skipped slots exact zeros.
+the output's maximum), skipped slots exact zeros; ROI backward planes within
+1e-5 of each cell's sum of term magnitudes (float32 sums in other orders,
+atomics across ROIs), skipped slots adding nothing.
 """
 
 import numpy as np
@@ -110,3 +112,70 @@ def test_roi_patch_kernel_counts_launches_and_checks_inputs(dev):
         poolers.roi_patch_interpolate(plane, starts, wy[:, :, :5], wx)  # S mismatch
     with pytest.raises(ValueError):
         poolers.roi_patch_interpolate(plane, starts, wy.transpose(2, 3), wx)
+
+
+def _bwd_case(rng, dev, dtype, b, n, s, p, c):
+    plane, starts, wy, wx, skip = _roi_case(rng, dev, torch.float32, b, n, s, p, c)
+    g = torch.from_numpy(rng.standard_normal((b, n, s, s, c)).astype(np.float32)).to(dev, dtype)
+    return tuple(plane.shape), starts, wy, wx, skip, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,s,p,c", [(1, 1, 7, 32, 256), (2, 13, 7, 16, 40),
+                                       (3, 9, 14, 32, 16), (1, 5, 14, 64, 33),
+                                       (2, 200, 7, 32, 64)])
+def test_roi_patch_backward_kernel_equals_plain(dev, dtype, b, n, s, p, c):
+    rng = np.random.default_rng(n * s + c + 1)
+    shape, starts, wy, wx, skip, g = _bwd_case(rng, dev, dtype, b, n, s, p, c)
+    got = poolers.roi_patch_backward(g, starts, wy, wx, shape)
+    want = poolers.roi_patch_backward_reference(g, starts, wy, wx, shape)
+    bound = poolers.roi_patch_backward_reference(g.abs(), starts, wy, wx, shape)
+    assert got.shape == shape and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-5 * bound).all())
+    only_skipped = torch.where(skip[..., None, None, None], g, torch.zeros_like(g))
+    assert not bool(poolers.roi_patch_backward(only_skipped, starts, wy, wx, shape).any())
+
+
+def test_roi_patch_backward_kernel_accumulates_into_init(dev):
+    rng = np.random.default_rng(1)
+    shape, starts, wy, wx, _, g = _bwd_case(rng, dev, torch.bfloat16, 2, 20, 7, 32, 32)
+    init = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    want = poolers.roi_patch_backward_reference(g, starts, wy, wx, shape, init=init.clone())
+    got = poolers.roi_patch_backward(g, starts, wy, wx, shape, init=init)
+    assert got.data_ptr() == init.data_ptr()  # in place
+    bound = init.abs() + poolers.roi_patch_backward_reference(g.abs(), starts, wy, wx, shape)
+    assert bool(((got - want).abs() <= 1e-5 * bound + 1e-7).all())
+
+
+def test_roi_patch_backward_kernel_counts_launches_and_checks_inputs(dev):
+    rng = np.random.default_rng(0)
+    shape, starts, wy, wx, _, g = _bwd_case(rng, dev, torch.float32, 1, 4, 7, 32, 16)
+    before = poolers.roi_patch_backward.launches
+    poolers.roi_patch_backward(g, starts, wy, wx, shape)
+    assert poolers.roi_patch_backward.launches == before + 1
+    with pytest.raises(ValueError):
+        poolers.roi_patch_backward(g.half(), starts, wy, wx, shape)
+    with pytest.raises(ValueError):
+        poolers.roi_patch_backward(g, starts.long(), wy, wx, shape)
+    with pytest.raises(ValueError):
+        poolers.roi_patch_backward(g[..., :8], starts, wy, wx, shape)  # C mismatch
+    with pytest.raises(ValueError):
+        poolers.roi_patch_backward(g, starts, wy, wx, shape,
+                                   init=torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+
+
+def test_pool_multi_backward_on_the_card_equals_the_cpu(dev):
+    """The fused two-set pool's plane gradient (kernels) against the same
+    op on the CPU (plain versions)."""
+    rng = np.random.default_rng(3)
+    shape, sb, wyb, wxb, _, gb = _bwd_case(rng, dev, torch.float32, 2, 30, 7, 32, 24)
+    _, sm, wym, wxm, _, gm = _bwd_case(rng, dev, torch.float32, 2, 10, 14, 32, 24)
+    outs = {}
+    for where in ("cpu", dev):
+        plane = torch.zeros(shape, device=where, requires_grad=True)
+        specs = [t.to(where) for t in (sb, wyb, wxb, sm, wym, wxm)]
+        box, mask = poolers.RoiPatchPoolMulti.apply(plane, *specs)
+        (box * gb.to(where)).sum().add((mask * gm.to(where)).sum()).backward()
+        outs[str(where)] = plane.grad.cpu()
+    got, want = outs[str(dev)], outs["cpu"]
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))

@@ -75,6 +75,16 @@ def test_every_kernel_source_has_a_signature():
     assert sources == set(kernels.SIGNATURES) == {"nms_keep", "roi_patch"}
 
 
+def test_signatures_name_every_exported_entry_point():
+    """Each library binds exactly the ``extern "C"`` functions its source
+    exports (``roi_patch`` exports the forward and the backward)."""
+    exported = re.compile(r'extern "C" int (\w+)\(')
+    for name, entries in kernels.SIGNATURES.items():
+        source = (PKG / "csrc" / f"{name}.cu").read_text()
+        assert set(exported.findall(source)) == set(entries), name
+    assert set(kernels.SIGNATURES["roi_patch"]) == {"roi_patch_fwd_launch", "roi_patch_bwd_launch"}
+
+
 def test_chip_smoke_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -1,11 +1,14 @@
-"""The port's pooler (storage, plan, plain ROI patch contraction) against the
-JAX package: the Pallas ``roi_patch_interpolate`` in interpret mode and the
+"""The port's pooler (storage, plan, plain ROI patch contraction and its
+gradient) against the JAX package: the Pallas ``roi_patch_interpolate`` and
+``roi_patch_backward`` in interpret mode, ``roi_patch_pool_multi`` and the
 XLA ``pool_from_storage(use_pallas=False)``, float32.
 
 Tolerance: the port and both JAX paths compute the same products; only the
 summation order differs (float32 einsum/matmul orders), so pooled values
-agree to 1e-5 absolute on O(1) features. The plan's integer parts (storage
-rows, tx, tier class) must be equal, and skipped slots exact zeros.
+agree to 1e-5 absolute on O(1) features, and plane gradients, sums of up to
+a few hundred such products per cell, to 1e-4. The plan's integer parts
+(storage rows, tx, tier class) must be equal, and skipped slots exact zeros.
+Interpret mode is slow, so the backward cases are tiny (P=16, C<=8, N<=16).
 """
 
 import jax
@@ -15,11 +18,15 @@ import pytest
 import torch
 
 from detectron2_tensorflow_tpu.models import poolers as jp
+from detectron2_tensorflow_tpu.ops.pallas.roi_patch import full_tier_class
+from detectron2_tensorflow_tpu.ops.pallas.roi_patch import roi_patch_backward as pallas_bwd
 from detectron2_tensorflow_tpu.ops.pallas.roi_patch import roi_patch_interpolate as pallas_roi
+from detectron2_tensorflow_tpu.ops.pallas.roi_patch import roi_patch_pool_multi as pallas_multi
 from detectron2_tensorflow_tpu_torch.models import poolers as tp
 
 STRIDES = [4, 8, 16, 32]
 ATOL = 1e-5
+BWD_ATOL = 1e-4
 
 
 def _features(rng, b=2, h=64, w=96, c=16):
@@ -138,3 +145,142 @@ def test_roi_patch_rejects_other_devices():
         tp.roi_patch_interpolate(st, torch.zeros((1, 1, 3), dtype=torch.int32, device="meta"),
                                  torch.zeros((1, 1, 7, 32), device="meta"),
                                  torch.zeros((1, 1, 7, 32), device="meta"))
+
+
+def _bwd_case(rng, b, n, s, p=16, c=8, htot=48, wm=40, skip_frac=0.0, same_region=False):
+    """Cotangents and a hand-made plan over a ``[b, htot, wm, c]`` plane."""
+    g = rng.standard_normal((b, n, s, s, c)).astype(np.float32)
+    wy = rng.uniform(0, 1, (b, n, s, p)).astype(np.float32)
+    wx = rng.uniform(0, 1, (b, n, s, p)).astype(np.float32)
+    if same_region:
+        rows, txs = np.full((b, n), 8), np.full((b, n), 16)
+    else:
+        rows = rng.integers(0, htot - p + 1, (b, n))
+        txs = rng.integers(0, (wm - p) // 8 + 1, (b, n)) * 8
+    cls = np.where(rng.uniform(0, 1, (b, n)) < skip_frac, tp.skip_tier_class(p), full_tier_class(p))
+    starts = np.stack([rows, txs, cls], -1).astype(np.int32)
+    return g, starts, wy, wx, (b, htot, wm, c)
+
+
+@pytest.mark.parametrize("case", ["random", "all_overlapping", "skipped_slots", "init"])
+def test_backward_reference_matches_pallas_interpret(case):
+    """The plain backward against the Pallas kernel: random regions, every
+    ROI on one region (the kernel's hazard path), skipped slots, and
+    accumulation into a given plane (``init``)."""
+    rng = np.random.default_rng(len(case))
+    g, starts, wy, wx, shape = _bwd_case(rng, 2, 9, 7, skip_frac=0.3 if case == "skipped_slots" else 0,
+                                         same_region=case == "all_overlapping")
+    init = rng.standard_normal(shape).astype(np.float32) if case == "init" else None
+    want = np.asarray(pallas_bwd(jnp.asarray(g), jnp.asarray(starts), jnp.asarray(wy),
+                                 jnp.asarray(wx), out_shape=shape, interpret=True,
+                                 init=None if init is None else jnp.asarray(init)))
+    t_init = None if init is None else torch.from_numpy(init.copy())
+    got = tp.roi_patch_backward(torch.from_numpy(g), torch.from_numpy(starts),
+                                torch.from_numpy(wy), torch.from_numpy(wx), shape, init=t_init)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    if t_init is not None:
+        assert got.data_ptr() == t_init.data_ptr()  # accumulated in place
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=BWD_ATOL)
+    if case == "skipped_slots":
+        keep = starts[..., 2] != tp.skip_tier_class(16)
+        g0 = np.where(keep[..., None, None, None], 0.0, g).astype(np.float32)
+        zero = tp.roi_patch_backward_reference(torch.from_numpy(g0), torch.from_numpy(starts),
+                                               torch.from_numpy(wy), torch.from_numpy(wx), shape)
+        assert not zero.any()
+
+
+def test_batched_backward_matches_single_image_interpret():
+    """The batched plain backward, image by image, against the Pallas kernel
+    on each image alone (unbatched inputs)."""
+    rng = np.random.default_rng(9)
+    g, starts, wy, wx, shape = _bwd_case(rng, 2, 6, 14)
+    got = tp.roi_patch_backward_reference(torch.from_numpy(g), torch.from_numpy(starts),
+                                          torch.from_numpy(wy), torch.from_numpy(wx), shape)
+    for b in range(2):
+        want = pallas_bwd(jnp.asarray(g[b]), jnp.asarray(starts[b]), jnp.asarray(wy[b]),
+                          jnp.asarray(wx[b]), out_shape=shape[1:], interpret=True)
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(want), rtol=1e-5, atol=BWD_ATOL)
+
+
+def test_autograd_function_matches_autograd_of_plain_forward():
+    """``pool_from_storage``'s plane gradient (``RoiPatchPoolMulti`` with one
+    ROI set, through ``roi_patch_backward``) against autograd through the
+    plain forward."""
+    rng = np.random.default_rng(31)
+    feats = _features(rng, c=8)
+    boxes = _boxes(rng, 2, 12)
+    valid = rng.uniform(0, 1, (2, 12)) > 0.2
+    _, (ts, tmeta, tst, twy, twx) = _plans(feats, boxes, valid, 7)
+    cot = torch.from_numpy(rng.standard_normal((2, 12, 7, 7, 8)).astype(np.float32))
+    grads = []
+    for fn in (lambda st: tp.RoiPatchPoolMulti.apply(st, tst, twy, twx)[0],
+               lambda st: tp.roi_patch_interpolate_reference(st, tst, twy, twx)):
+        st = ts.clone().requires_grad_(True)
+        (fn(st) * cot).sum().backward()
+        grads.append(st.grad)
+    assert grads[0].abs().sum() > 0
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_valid_skip_gradients_match_unskipped():
+    """For a loss that masks invalid slots, as every consumer does, the
+    storage gradient is the same with and without skipping them."""
+    rng = np.random.default_rng(12)
+    feats = _features(rng, c=8)
+    boxes = torch.from_numpy(_boxes(rng, 2, 10))
+    valid = torch.from_numpy(rng.uniform(0, 1, (2, 10)) > 0.5)
+    _, (ts, tmeta, *_) = _plans(feats, boxes.numpy(), None, 7)
+    grads = []
+    for v in (None, valid):
+        st = ts.clone().requires_grad_(True)
+        o = tp.pool_from_storage(st, tmeta, boxes, 7, 0, valid=v)
+        (torch.where(valid[..., None, None, None], o, torch.zeros_like(o)) ** 2).sum().backward()
+        grads.append(st.grad.numpy())
+    np.testing.assert_allclose(grads[1], grads[0], rtol=1e-5, atol=1e-5)
+
+
+def test_pool_multi_fused_backward_matches_jax_interpret():
+    """Box (7x7) and mask (14x14) sets on one storage plane: the fused op's
+    outputs and its chained plane gradient against the JAX package's
+    ``roi_patch_pool_multi`` in interpret mode, and against the sum of the
+    two sets' independent gradients."""
+    rng = np.random.default_rng(21)
+    feats = _features(rng, c=8)
+    boxes_a, boxes_b = _boxes(rng, 2, 8), _boxes(rng, 2, 5)
+    valid_a = rng.uniform(0, 1, (2, 8)) > 0.25
+    (js, _, jsa, jwya, jwxa), (ts, tmeta, tsa, twya, twxa) = _plans(feats, boxes_a, valid_a, 7)
+    (_, _, jsb, jwyb, jwxb), (_, _, tsb, twyb, twxb) = _plans(feats, boxes_b, None, 14)
+    ga = rng.standard_normal((2, 8, 7, 7, 8)).astype(np.float32)
+    gb = rng.standard_normal((2, 5, 14, 14, 8)).astype(np.float32)
+
+    outs, vjp = jax.vjp(lambda st: pallas_multi(st, ((jsa, jwya, jwxa), (jsb, jwyb, jwxb)), True), js)
+    (want_grad,) = vjp((jnp.asarray(ga), jnp.asarray(gb)))
+
+    st = ts.clone().requires_grad_(True)
+    out_a, out_b = tp.RoiPatchPoolMulti.apply(st, tsa, twya, twxa, tsb, twyb, twxb)
+    ((out_a * torch.from_numpy(ga)).sum() + (out_b * torch.from_numpy(gb)).sum()).backward()
+    np.testing.assert_allclose(out_a.detach().numpy(), np.asarray(outs[0]), rtol=1e-5, atol=ATOL)
+    np.testing.assert_allclose(out_b.detach().numpy(), np.asarray(outs[1]), rtol=1e-5, atol=ATOL)
+    np.testing.assert_allclose(st.grad.numpy(), np.asarray(want_grad), rtol=1e-5, atol=BWD_ATOL)
+
+    separate = sum(
+        tp.roi_patch_backward_reference(torch.from_numpy(g), s_, wy_, wx_, tuple(ts.shape))
+        for g, (s_, wy_, wx_) in ((ga, (tsa, twya, twxa)), (gb, (tsb, twyb, twxb))))
+    np.testing.assert_allclose(st.grad.numpy(), separate.numpy(), rtol=1e-5, atol=BWD_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_avgpool_alias_gradient_matches_jax_custom_vjp(dtype):
+    """Autograd of the port's 2x2 alias pool equals the JAX package's
+    hand-written transpose (a 2x2 spread at weight 1/4; odd edges get none)."""
+    rng = np.random.default_rng(6)
+    f = rng.standard_normal((2, 13, 22, 4)).astype(np.float32)
+    g = rng.standard_normal((2, 6, 11, 4)).astype(np.float32)
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    x = torch.from_numpy(f).to(tdtype).requires_grad_(True)
+    (tp._avgpool2x(x) * torch.from_numpy(g).to(tdtype)).sum().backward()
+    for i in range(2):
+        _, vjp = jax.vjp(jp._avgpool2x, jnp.asarray(f[i], dtype))
+        (want,) = vjp(jnp.asarray(g[i], dtype))
+        assert want.dtype == dtype
+        np.testing.assert_array_equal(x.grad[i].float().numpy(), np.asarray(want, np.float32))
