@@ -44,6 +44,25 @@
 // the ROI's hat support) are not added: adding +0 changes no sum.
 // What bounds it on the H100: the atomics into device memory (P*P*C per
 // ROI), then the P*P*S FMAs per channel.
+//
+// The forward kernel takes a compile-time variant, the GPU counterpart of
+// the ablations of the TPU kernel's body in the JAX package's
+// tools/exp_roi_variants.py make_kernel, so that the ablations measure this
+// kernel itself (kFull is the production instantiation). A block holds one
+// ROI and one 32-channel tile, so "the first element" and "out[0, 0, 0]" of
+// the TPU kernel's per-ROI block are, here, those of the block's channel
+// tile (channel c0, the tile's first):
+//   kNoDma   no patch reads, writes 1.0;
+//   kOneDma  every block of a group of 4 ROIs reads the group's first patch
+//            (its channel tile) and writes that patch's element [0, 0, c0];
+//   kNoDot   writes patch[:S, :S] cast (reads only that corner);
+//   kM1Only  the first contraction only, writes a[:, :S] of a = Wy . patch;
+//   kNoSwap  both contractions, written [u, o, c] instead of [o, u, c];
+//   kNoWrite both contractions, writes the constant out[0, 0, c0];
+//   kFull    the production output.
+// Values an ablation computes but does not write are kept alive by a store
+// under a condition no float32 sum can meet (a signalling-NaN bit pattern),
+// so the compiler cannot drop the work being measured.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,7 +85,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+enum Variant { kFull = 0, kNoDma, kOneDma, kNoDot, kM1Only, kNoSwap, kNoWrite, kNumVariants };
+
+// A store no float32 sum can trigger: adds and FMAs never return a
+// signalling NaN (the card gives the canonical quiet NaN 0x7fffffff).
 template <typename T>
+__device__ __forceinline__ void keep_alive(float v, T* dst) {
+  if (__float_as_uint(v) == 0x7f800001u) *dst = from_f32<T>(v);
+}
+
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 roi_patch_fwd_kernel(const T* __restrict__ plane, const int* __restrict__ starts,
                      const float* __restrict__ wy, const float* __restrict__ wx,
@@ -98,6 +126,43 @@ roi_patch_fwd_kernel(const T* __restrict__ plane, const int* __restrict__ starts
     return;
   }
 
+  const T* base = plane + (size_t)b * htot * wm * c;
+  auto patch = [&](int r, int col) -> float {  // plane[b, r, col, ch], 0 outside
+    return (ch_ok && col >= 0 && col < wm && r >= 0 && r < htot)
+               ? to_f32(base[((size_t)r * wm + col) * c + ch]) : 0.f;
+  };
+
+  if (V == kNoDma) {
+    for (int i = warp; i < s * s; i += kWarps) {
+      if (ch_ok) o_ptr[(size_t)i * c + ch] = from_f32<T>(1.f);
+    }
+    return;
+  }
+  if (V == kOneDma) {
+    const size_t first = (size_t)b * n + (roi / 4) * 4;
+    const int grow = starts[first * 3 + 0];
+    const int gtx = starts[first * 3 + 1];
+    float sum = 0.f;
+    for (int q = warp; q < p; q += kWarps) {
+      for (int pp = 0; pp < p; ++pp) sum += patch(grow + pp, gtx + q);
+    }
+    const bool in0 = grow >= 0 && grow < htot && gtx >= 0 && gtx < wm;
+    const T v = in0 ? base[((size_t)grow * wm + gtx) * c + c0] : from_f32<T>(0.f);
+    for (int i = warp; i < s * s; i += kWarps) {
+      if (ch_ok) o_ptr[(size_t)i * c + ch] = v;
+    }
+    if (ch_ok) keep_alive(sum, o_ptr + ch);
+    return;
+  }
+  if (V == kNoDot) {
+    for (int i = warp; i < s * s; i += kWarps) {
+      const int o = i / s;
+      const int u = i - o * s;
+      if (ch_ok) o_ptr[(size_t)i * c + ch] = from_f32<T>(patch(row + o, tx + u));
+    }
+    return;
+  }
+
   const float* wy_g = wy + slot * s * p;
   const float* wx_g = wx + slot * s * p;
   for (int i = threadIdx.x; i < s * p; i += kThreads) {
@@ -107,19 +172,12 @@ roi_patch_fwd_kernel(const T* __restrict__ plane, const int* __restrict__ starts
   __syncthreads();
 
   // a[o, q, c] = sum_p wy[o, p] * patch[p, q, c]
-  const T* base = plane + (size_t)b * htot * wm * c;
   for (int q = warp; q < p; q += kWarps) {
     float acc[kMaxS];
 #pragma unroll
     for (int o = 0; o < kMaxS; ++o) acc[o] = 0.f;
-    const int col = tx + q;
-    const bool col_ok = col >= 0 && col < wm;
     for (int pp = 0; pp < p; ++pp) {
-      const int r = row + pp;
-      float v = 0.f;
-      if (ch_ok && col_ok && r >= 0 && r < htot) {
-        v = to_f32(base[((size_t)r * wm + col) * c + ch]);
-      }
+      const float v = patch(row + pp, tx + q);
 #pragma unroll
       for (int o = 0; o < kMaxS; ++o) {
         if (o < s) acc[o] += wy_s[o * p + pp] * v;
@@ -132,29 +190,69 @@ roi_patch_fwd_kernel(const T* __restrict__ plane, const int* __restrict__ starts
   }
   __syncthreads();
 
+  if (V == kM1Only) {
+    for (int i = warp; i < s * s; i += kWarps) {
+      const int o = i / s;
+      const int u = i - o * s;
+      if (ch_ok) o_ptr[(size_t)i * c + ch] = from_f32<T>(a_s[(o * p + u) * kCT + lane]);
+    }
+    return;
+  }
+
   // out[o, u, c] = sum_q wx[u, q] * a[o, q, c]
+  __shared__ float konst;  // kNoWrite: out[0, 0, c0]
   for (int i = warp; i < s * s; i += kWarps) {
-    const int o = i / s;
-    const int u = i - o * s;
+    const int o = (V == kNoSwap) ? i - (i / s) * s : i / s;
+    const int u = (V == kNoSwap) ? i / s : i - o * s;
     float acc = 0.f;
     for (int q = 0; q < p; ++q) acc += wx_s[u * p + q] * a_s[(o * p + q) * kCT + lane];
-    if (ch_ok) o_ptr[(size_t)i * c + ch] = from_f32<T>(acc);
+    if (V == kNoWrite) {
+      if (i == 0 && lane == 0) konst = acc;
+      if (ch_ok) keep_alive(acc, o_ptr + ch);
+    } else if (ch_ok) {
+      o_ptr[(size_t)i * c + ch] = from_f32<T>(acc);
+    }
+  }
+  if (V == kNoWrite) {
+    __syncthreads();
+    const T v = from_f32<T>(konst);
+    for (int i = warp; i < s * s; i += kWarps) {
+      if (ch_ok) o_ptr[(size_t)i * c + ch] = v;
+    }
   }
 }
 
-template <typename T>
+template <typename T, int V>
 int launch(const void* plane, const int* starts, const float* wy, const float* wx,
            void* out, int batch, int n, int htot, int wm, int c, int p, int s,
            int n_classes, cudaStream_t stream) {
   const size_t smem = (size_t)(2 * s * p + s * p * kCT) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      roi_patch_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      roi_patch_fwd_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n, (c + kCT - 1) / kCT, batch);
-  roi_patch_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  roi_patch_fwd_kernel<T, V><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(plane), starts, wy, wx, static_cast<T*>(out), n,
       htot, wm, c, p, s, n_classes);
   return (int)cudaGetLastError();
+}
+
+template <int V>
+int launch_dtype(const void* plane, const void* starts, const void* wy, const void* wx,
+                 void* out, int batch, int n, int htot, int wm, int c, int p, int s,
+                 int n_classes, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sp = static_cast<const int*>(starts);
+  const float* wyp = static_cast<const float*>(wy);
+  const float* wxp = static_cast<const float*>(wx);
+  if (dtype == 0) {
+    return launch<float, V>(plane, sp, wyp, wxp, out, batch, n, htot, wm, c, p, s, n_classes, st);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16, V>(plane, sp, wyp, wxp, out, batch, n, htot, wm, c, p, s,
+                                    n_classes, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -280,16 +378,35 @@ extern "C" int roi_patch_fwd_launch(const void* plane, const void* starts,
   if (s > kMaxS || p > kMaxP || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* sp = static_cast<const int*>(starts);
-  const float* wyp = static_cast<const float*>(wy);
-  const float* wxp = static_cast<const float*>(wx);
-  if (dtype == 0) {
-    return launch<float>(plane, sp, wyp, wxp, out, batch, n, htot, wm, c, p, s, n_classes, st);
+  return launch_dtype<kFull>(plane, starts, wy, wx, out, batch, n, htot, wm, c, p, s,
+                             n_classes, dtype, stream);
+}
+
+// roi_patch_fwd_launch with the ablation `variant` (enum Variant above:
+// 0 full, 1 nodma, 2 onedma, 3 nodot, 4 m1only, 5 noswap, 6 nowrite).
+extern "C" int roi_patch_variant_launch(const void* plane, const void* starts,
+                                        const void* wy, const void* wx, void* out,
+                                        int batch, int n, int htot, int wm, int c,
+                                        int p, int s, int n_classes, int dtype,
+                                        int variant, void* stream) {
+  if (batch <= 0 || n <= 0 || c <= 0) return (int)cudaGetLastError();
+  if (s > kMaxS || p > kMaxP || batch > 65535) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(plane, sp, wyp, wxp, out, batch, n, htot, wm, c, p, s,
-                                 n_classes, st);
+#define D2_VARIANT(V)                                                                   \
+  case V:                                                                               \
+    return launch_dtype<V>(plane, starts, wy, wx, out, batch, n, htot, wm, c, p, s,     \
+                           n_classes, dtype, stream);
+  switch (variant) {
+    D2_VARIANT(kFull)
+    D2_VARIANT(kNoDma)
+    D2_VARIANT(kOneDma)
+    D2_VARIANT(kNoDot)
+    D2_VARIANT(kM1Only)
+    D2_VARIANT(kNoSwap)
+    D2_VARIANT(kNoWrite)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+#undef D2_VARIANT
 }

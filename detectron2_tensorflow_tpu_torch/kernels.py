@@ -39,7 +39,10 @@ _F = ctypes.c_float
 _ROI_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
     "nms_keep": {"nms_keep_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _P]},
-    "roi_patch": {"roi_patch_fwd_launch": _ROI_ARGS, "roi_patch_bwd_launch": _ROI_ARGS},
+    "roi_patch": {"roi_patch_fwd_launch": _ROI_ARGS, "roi_patch_bwd_launch": _ROI_ARGS,
+                  "roi_patch_variant_launch": _ROI_ARGS[:-1] + [_I, _P]},
+    "fused_residual": {
+        "fused_conv1x1_bn_add_relu_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
@@ -102,7 +105,7 @@ def build_all() -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (``nms_keep`` or ``roi_patch``), built on first use."""
+    """The loaded library ``name`` (a key of ``SIGNATURES``), built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

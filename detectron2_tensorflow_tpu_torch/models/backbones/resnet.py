@@ -8,6 +8,12 @@ Stages up to ``FREEZE_AT`` (1 = the stem, 2 = the stem and res2) are
 frozen as in the JAX package: their outputs are detached (its
 ``stop_gradient``), and the solver leaves their parameters out of the
 optimizer (``solver.trainable_parameters``).
+
+``build_resnet_backbone`` reads the user's switch for the fused bottleneck
+tail (``D2TPU_ENABLE_FUSED_EPILOGUE``, see ``ops/fused_residual.py``) once,
+when the model is built, as the JAX package reads it when it traces; with it
+on, every block's ``conv3`` runs the tail as one fused kernel, in frozen
+stages too (their forward still runs).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Dict, List
 import torch
 from torch import nn
 
+from ...ops.fused_residual import fused_epilogue_enabled
 from ..layers import Conv2d, max_pool
 
 BLOCKS_PER_STAGE = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -39,7 +46,8 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  bottleneck_channels: int, stride: int, num_groups: int,
-                 stride_in_1x1: bool, norm: str, has_shortcut: bool):
+                 stride_in_1x1: bool, norm: str, has_shortcut: bool,
+                 fused_tail: bool = False):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.shortcut = (
@@ -51,7 +59,8 @@ class BottleneckBlock(nn.Module):
         self.conv2 = Conv2d(bottleneck_channels, bottleneck_channels, 3,
                             stride=s3, groups=num_groups, norm=norm,
                             activation="relu")
-        self.conv3 = Conv2d(bottleneck_channels, out_channels, 1, norm=norm)
+        self.conv3 = Conv2d(bottleneck_channels, out_channels, 1, norm=norm,
+                            fuse_residual=fused_tail)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv2(self.conv1(x))
@@ -65,7 +74,7 @@ class ResNet(nn.Module):
     def __init__(self, depth: int, num_groups: int, width_per_group: int,
                  stem_out_channels: int, res2_out_channels: int,
                  stride_in_1x1: bool, norm: str, out_features: List[str],
-                 freeze_at: int = 0):
+                 freeze_at: int = 0, fused_tail: bool = False):
         super().__init__()
         self.freeze_at = freeze_at
         if depth not in BLOCKS_PER_STAGE:
@@ -84,7 +93,7 @@ class ResNet(nn.Module):
                 stride = 2 if (i == 0 and idx > 0) else 1
                 blocks.append(BottleneckBlock(in_ch, out_ch, bott, stride,
                                               num_groups, stride_in_1x1, norm,
-                                              has_shortcut=i == 0))
+                                              has_shortcut=i == 0, fused_tail=fused_tail))
                 in_ch = out_ch
             self.add_module(name, nn.Sequential(*blocks))
             self.stage_names.append(name)
@@ -127,4 +136,5 @@ def build_resnet_backbone(cfg) -> ResNet:
         norm=r.NORM,
         out_features=r.OUT_FEATURES,
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
+        fused_tail=fused_epilogue_enabled(),
     )

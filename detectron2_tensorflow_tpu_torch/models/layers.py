@@ -14,11 +14,15 @@ What carries over exactly:
   * a conv runs in its input's dtype (its weight and bias are cast, so
     float32 training parameters compute in bf16), as the JAX package's
     convs do.
-Not ported: the JAX package's ``D2TPU_DOT_TAIL`` branch, a TPU dead end,
-and its fused 1x1 epilogue (``fused_conv1x1_bn_add_relu``). The epilogue
-rounds once in float32 where this path rounds after the conv, so it is not
-the same result; it is opt-in in the JAX package and queued in ROADMAP
-Queue 2 item 4.
+The fused bottleneck tail is ported as the JAX package has it: a
+``Conv2d`` built with ``fuse_residual=True`` (the caller read the user's
+switch, ``ops.fused_residual.fused_epilogue_enabled``) whose shape passes
+``epilogue_shape_supported`` computes ``forward(x, residual=sc)`` as one
+:func:`~..ops.fused_residual.fused_conv1x1_bn_add_relu` with the folded
+float32 FrozenBN affine. That rounds once in float32 where the unfused path
+rounds after the conv, the affine and the add. The module, its parameters
+and buffers are the same either way, so a state dict loads into both. Not
+ported: the JAX package's ``D2TPU_DOT_TAIL`` branch, a TPU dead end.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import fused_residual
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -69,11 +75,14 @@ class Conv2d(nn.Conv2d):
     ``bias`` defaults to "no norm => bias", the D2 convention. Padding is
     ``(k - 1) // 2 * dilation`` on every side: the same as "SAME" at stride
     1 for odd kernels, and D2's symmetric rule at stride 2.
+    ``fuse_residual``: take the fused tail for ``forward(x, residual=...)``
+    when the conv's shape allows it (see the module docstring).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, groups: int = 1,
-                 norm: str = "", activation: str = "", bias: Optional[bool] = None):
+                 norm: str = "", activation: str = "", bias: Optional[bool] = None,
+                 fuse_residual: bool = False):
         if bias is None:
             bias = norm == ""
         super().__init__(
@@ -85,10 +94,16 @@ class Conv2d(nn.Conv2d):
         if activation not in ("", "relu"):
             raise NotImplementedError(f"activation '{activation}' is not ported")
         self.activation = activation
+        self.fuse_residual = fuse_residual and fused_residual.epilogue_shape_supported(
+            kernel_size, stride, groups, dilation, norm, bias)
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``residual`` given: ``relu(norm(conv(x)) + residual)``."""
+        if residual is not None and self.fuse_residual:
+            scale, shift = self.norm.folded_affine()
+            return fused_residual.fused_conv1x1_bn_add_relu(
+                x, self.weight.to(x.dtype), scale, shift, residual)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         x = F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
                      self.dilation, self.groups)

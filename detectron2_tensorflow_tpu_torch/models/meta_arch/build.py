@@ -7,9 +7,11 @@ import torch
 from .rcnn import DTYPES, GeneralizedRCNN, init_weights
 
 
-def build_model(cfg, device="cpu", generator: torch.Generator | None = None,
+def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
                 state_dict=None, training: bool = False) -> GeneralizedRCNN:
-    """Build the model on ``device``, computing in ``cfg.MODEL.DTYPE``.
+    """Build the model on ``device`` (the card unless the caller passes
+    ``device="cpu"``; without a card that raises), computing in
+    ``cfg.MODEL.DTYPE``.
 
     Weights come from ``state_dict`` (for example ``convert.py``'s output)
     or, without one, from :func:`init_weights` drawn from ``generator``
@@ -19,6 +21,8 @@ def build_model(cfg, device="cpu", generator: torch.Generator | None = None,
     parameters. The FrozenBN buffers stay float32, as the JAX package folds
     them in float32. On CUDA the weights are put in ``channels_last`` layout.
     """
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")
     model = GeneralizedRCNN(cfg)
     if state_dict is not None:
         model.load_state_dict(state_dict)

@@ -9,7 +9,9 @@ synchronized runs; from ``torch.profiler``, the device time per batch, the
 device's idle share (1 - device time / wall time), the device time by
 category (convs, GEMMs, the hand-written kernels, sorts, the rest) and
 the top kernels by device time. The full profiler table goes to
-``chiprun_out/profile_predict_b<batch>.txt``.
+``profile_predict_b<batch>[_fused].txt`` in ``main``'s output directory. Set
+``D2TPU_ENABLE_FUSED_EPILOGUE=1`` to profile the model with the fused
+bottleneck tail (``_fused`` in the file name).
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ from torch.profiler import ProfilerActivity
 from torch.profiler import profile as profile_ctx
 
 from detectron2_tensorflow_tpu_torch import build_model, get_cfg
+from detectron2_tensorflow_tpu_torch.ops.fused_residual import fused_epilogue_enabled
 
 CATEGORIES = (
+    ("fused_residual kernel", ("fused_epilogue",)),
     ("nms_keep kernel", ("nms_mask_kernel", "nms_sweep_kernel")),
     ("roi_patch_fwd kernel", ("roi_patch_fwd_kernel",)),
     ("roi_patch_bwd kernel", ("roi_patch_bwd_kernel",)),
@@ -68,7 +72,12 @@ def run(batch: int, out_dir: Path) -> None:
     print(f"batch {batch}: {batch / wall:.2f} img/s, {wall * 1000:.2f} ms/batch (host clock)")
 
     profile(lambda: model.predict(inputs), 3, f"batch {batch}",
-            out_dir / f"profile_predict_b{batch}.txt")
+            out_dir / f"profile_predict_b{batch}{suffix()}.txt")
+
+
+def suffix() -> str:
+    """File-name suffix of a run with the fused bottleneck tail switched on."""
+    return "_fused" if fused_epilogue_enabled() else ""
 
 
 def profile(fn, runs: int, label: str, out_file: Path) -> None:
@@ -103,7 +112,8 @@ def main(argv, run_batch=run, default_batch: int = 2) -> None:
     """``run_batch(batch, out_dir)`` for each batch size in ``argv``."""
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
-    print(torch.cuda.get_device_name(0), torch.__version__)
+    print(torch.cuda.get_device_name(0), torch.__version__,
+          f"fused bottleneck tail {'on' if fused_epilogue_enabled() else 'off'}")
     for batch in [int(a) for a in argv] or [default_batch]:
         run_batch(batch, Path("chiprun_out"))
 

@@ -8,8 +8,9 @@ bf16, float32 parameters, seeded random weights), steps on a seeded
 images/s on the host clock around synchronized steps, the peak device
 memory, and from ``torch.profiler`` the device time per step, the device's
 idle share, the device time by category (as ``profile_predict``) and the top
-kernels. The full profiler table goes to ``profile_train_b<batch>.txt``
-beside ``profile_predict``'s.
+kernels. The full profiler table goes to
+``profile_train_b<batch>[_fused].txt`` beside ``profile_predict``'s
+(``D2TPU_ENABLE_FUSED_EPILOGUE=1``: the fused bottleneck tail).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def run(batch: int, out_dir: Path) -> None:
     print(f"batch {batch}: {batch / wall:.2f} img/s, {wall * 1000:.2f} ms/step (host clock), "
           f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     profile_predict.profile(lambda: step(data), 3, f"batch {batch}",
-                            out_dir / f"profile_train_b{batch}.txt")
+                            out_dir / f"profile_train_b{batch}{profile_predict.suffix()}.txt")
 
 
 def main(argv) -> None:

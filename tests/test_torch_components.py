@@ -130,7 +130,7 @@ def trunk_pair():
     prep = jax_prep(batch["image"], jcfg.MODEL.PIXEL_MEAN, jcfg.MODEL.PIXEL_STD, "BGR")
     trunk = jmodel.module.apply(variables, prep, method=lambda m, x: m.backbone(x))
     pyramid = jmodel.module.apply(variables, prep, method="compute_features")
-    tmodel = build_model(tcfg, state_dict=convert_variables(variables))
+    tmodel = build_model(tcfg, device="cpu", state_dict=convert_variables(variables))
     return image, trunk, pyramid, tmodel
 
 

@@ -1,7 +1,8 @@
 """Edge cases of the CUDA kernels (NMS keep, ROI patch forward and
-backward) against their plain PyTorch versions, on the card. Marked
-``cuda``: they skip where there is no CUDA device. On a GPU machine (which
-has no JAX, so the repo's conftest cannot load):
+backward, the ROI forward's ablation variants, the fused bottleneck tail)
+against their plain PyTorch versions, on the card. Marked ``cuda``: they
+skip where there is no CUDA device. On a GPU machine (which has no JAX, so
+the repo's conftest cannot load):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -9,7 +10,11 @@ Keep masks must be equal; ROI outputs within the tolerances of
 ``chip_smoke.py`` (float32 1e-4 absolute on O(1) features, bf16 one ulp of
 the output's maximum), skipped slots exact zeros; ROI backward planes within
 1e-5 of each cell's sum of term magnitudes (float32 sums in other orders,
-atomics across ROIs), skipped slots adding nothing.
+atomics across ROIs), skipped slots adding nothing. Ablations that only move
+values are equal to their plain versions, the others within the ROI
+tolerances. The fused tail: float32 within 1e-5 of the largest value, bf16
+within one bf16 ulp of each value plus that (float32 sums in other orders,
+one rounding on each side).
 """
 
 import numpy as np
@@ -17,7 +22,9 @@ import pytest
 import torch
 
 from detectron2_tensorflow_tpu_torch.models import poolers
+from detectron2_tensorflow_tpu_torch.ops import fused_residual as fr
 from detectron2_tensorflow_tpu_torch.ops.nms import greedy_keep, greedy_keep_reference
+from detectron2_tensorflow_tpu_torch.tools import exp_roi_variants as tv
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +186,117 @@ def test_pool_multi_backward_on_the_card_equals_the_cpu(dev):
         outs[str(where)] = plane.grad.cpu()
     got, want = outs[str(dev)], outs["cpu"]
     assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", list(tv.VARIANTS))
+def test_roi_variant_kernel_equals_plain(dev, variant, dtype):
+    rng = np.random.default_rng(len(variant))
+    plane, starts, wy, wx, skip = _roi_case(rng, dev, dtype, 2, 10, 14, 32, 40)
+    got = tv.roi_patch_variant(plane, starts, wy, wx, variant)
+    want = tv.roi_patch_variant_reference(plane, starts, wy, wx, variant)
+    assert got.shape == want.shape == (2, 10, 14, 14, 40) and got.dtype == dtype
+    assert bool((got[skip] == 0).all())
+    if variant in ("nodma", "onedma", "nodot"):
+        assert torch.equal(got, want)
+    else:
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        assert err <= (1e-4 if dtype == torch.float32 else 2.0 ** -7) * max(1.0, scale)
+
+
+def test_roi_variant_full_is_the_production_kernel(dev):
+    rng = np.random.default_rng(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        plane, starts, wy, wx, _ = _roi_case(rng, dev, dtype, 2, 9, 7, 32, 64)
+        full = tv.roi_patch_variant(plane, starts, wy, wx, "full")
+        assert torch.equal(full, poolers.roi_patch_interpolate(plane, starts, wy, wx))
+        noswap = tv.roi_patch_variant(plane, starts, wy, wx, "noswap")
+        assert torch.equal(noswap, full.transpose(2, 3))
+
+
+def test_roi_variant_kernel_counts_launches_and_checks_inputs(dev):
+    rng = np.random.default_rng(0)
+    plane, starts, wy, wx, _ = _roi_case(rng, dev, torch.float32, 1, 4, 7, 32, 16)
+    before = tv.roi_patch_variant.launches
+    tv.roi_patch_variant(plane, starts, wy, wx, "nodma")
+    assert tv.roi_patch_variant.launches == before + 1
+    with pytest.raises(ValueError):
+        tv.roi_patch_variant(plane, starts, wy, wx, "nothing")
+    with pytest.raises(ValueError):
+        tv.roi_patch_variant(plane.half(), starts, wy, wx, "full")
+    with pytest.raises(ValueError):
+        tv.roi_patch_variant(plane, starts.cpu(), wy, wx, "full")
+
+
+def _tail_case(rng, dev, dtype, b, h, w, k, n):
+    x = torch.from_numpy(rng.standard_normal((b, h, w, k)).astype(np.float32))
+    weight = torch.from_numpy((rng.standard_normal((n, k, 1, 1)) / np.sqrt(k)).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    shift = torch.from_numpy(rng.normal(0, 0.2, n).astype(np.float32))
+    sc = torch.from_numpy(rng.standard_normal((b, h, w, n)).astype(np.float32))
+    return (x.to(dev, dtype).permute(0, 3, 1, 2), weight.to(dev, dtype), scale.to(dev),
+            shift.to(dev), sc.to(dev, dtype).permute(0, 3, 1, 2))
+
+
+def _tail_errors(got, want):
+    """|got - want|, 1e-5 of the largest value, and one bf16 ulp of each value."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    return (got - want).abs(), 1e-5 * float(want.abs().max()), torch.exp2(
+        torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,k,n", [(2, 5, 7, 8, 32), (1, 3, 3, 64, 256), (2, 9, 11, 128, 512),
+                                       (1, 1, 1, 16, 8), (3, 7, 5, 24, 40), (1, 4, 5, 12, 20),
+                                       (1, 5, 5, 7, 13), (1, 41, 50, 256, 1024)])
+def test_fused_residual_kernel_equals_plain(dev, dtype, b, h, w, k, n):
+    rng = np.random.default_rng(k * n + h)
+    args = _tail_case(rng, dev, dtype, b, h, w, k, n)
+    got = fr.fused_conv1x1_bn_add_relu(*args)
+    want = fr.fused_conv1x1_bn_add_relu_reference(*args)
+    assert got.shape == (b, n, h, w) and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    err, slack, ulp = _tail_errors(got, want)
+    if dtype == torch.float32:
+        assert float(err.max()) <= slack
+    else:
+        assert bool((err <= ulp + slack).all())
+    assert bool((got >= 0).all())
+
+
+def test_fused_residual_kernel_counts_launches_and_checks_inputs(dev):
+    rng = np.random.default_rng(0)
+    x, weight, scale, shift, sc = _tail_case(rng, dev, torch.bfloat16, 2, 4, 6, 16, 32)
+    before = fr.fused_conv1x1_bn_add_relu.launches
+    fr.fused_conv1x1_bn_add_relu(x, weight, scale, shift, sc)
+    assert fr.fused_conv1x1_bn_add_relu.launches == before + 1
+    bad = [
+        (x.contiguous(), weight, scale, shift, sc),           # NCHW memory, not channels_last
+        (x, weight, scale, shift, sc.contiguous()),
+        (x.half(), weight.half(), scale, shift, sc.half()),   # dtype the kernel does not take
+        (x, weight.float(), scale, shift, sc),                 # weight in another dtype
+        (x, weight, scale.bfloat16(), shift, sc),              # scale not float32
+        (x, weight, scale.cpu(), shift, sc),                   # another device
+        (x, weight[:, :8].contiguous(), scale, shift, sc),     # K mismatch
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            fr.fused_conv1x1_bn_add_relu(*args)
+
+
+def test_fused_residual_gradients_on_the_card_equal_the_cpu(dev):
+    rng = np.random.default_rng(1)
+    args = _tail_case(rng, "cpu", torch.float32, 2, 6, 5, 32, 64)
+    grads = {}
+    for where in ("cpu", dev):
+        x, weight, scale, shift, sc = (t.to(where) for t in args)
+        if where != "cpu":
+            x, sc = (t.contiguous(memory_format=torch.channels_last) for t in (x, sc))
+        x, weight, sc = (t.detach().requires_grad_(True) for t in (x, weight, sc))
+        out = fr.fused_conv1x1_bn_add_relu(x, weight, scale, shift, sc)
+        (out * torch.cos(out)).sum().backward()
+        grads[str(where)] = [t.grad.cpu() for t in (x, weight, sc)]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -72,17 +72,31 @@ def test_kernel_builder_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_every_kernel_source_has_a_signature():
     sources = {p.stem for p in (PKG / "csrc").glob("*.cu")}
-    assert sources == set(kernels.SIGNATURES) == {"nms_keep", "roi_patch"}
+    assert sources == set(kernels.SIGNATURES) == {"nms_keep", "roi_patch", "fused_residual"}
 
 
 def test_signatures_name_every_exported_entry_point():
     """Each library binds exactly the ``extern "C"`` functions its source
-    exports (``roi_patch`` exports the forward and the backward)."""
+    exports (``roi_patch`` exports the forward, its ablation variants and
+    the backward)."""
     exported = re.compile(r'extern "C" int (\w+)\(')
     for name, entries in kernels.SIGNATURES.items():
         source = (PKG / "csrc" / f"{name}.cu").read_text()
         assert set(exported.findall(source)) == set(entries), name
-    assert set(kernels.SIGNATURES["roi_patch"]) == {"roi_patch_fwd_launch", "roi_patch_bwd_launch"}
+    assert set(kernels.SIGNATURES["roi_patch"]) == {
+        "roi_patch_fwd_launch", "roi_patch_variant_launch", "roi_patch_bwd_launch"}
+    assert set(kernels.SIGNATURES["fused_residual"]) == {"fused_conv1x1_bn_add_relu_launch"}
+
+
+def test_build_model_defaults_to_the_card():
+    """``build_model(cfg)`` builds on the card; without one it raises
+    instead of building on the CPU."""
+    from detectron2_tensorflow_tpu_torch import build_model, get_cfg
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_cfg())
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -8,7 +8,15 @@ the references of the two kernels. Tolerance: both sides run float32 convs
 with different summation orders (XLA vs oneDNN), so continuous outputs agree
 to about 1e-5 relative; integer outputs (validity, classes, which boxes
 survive NMS and in which slot) must be equal.
+
+Every test runs twice: with ``D2TPU_ENABLE_FUSED_EPILOGUE`` unset, and with
+it set on both sides, where each bottleneck tail is the fused function (the
+JAX package's ``custom_vjp``, the port's ``fused_conv1x1_bn_add_relu``);
+``test_slice_takes_the_switch`` shows that each side took the path asked for.
 """
+
+import contextlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +34,7 @@ from detectron2_tensorflow_tpu_torch.models import build_model
 from detectron2_tensorflow_tpu_torch.models.meta_arch.postprocess import (
     detector_postprocess,
 )
+from detectron2_tensorflow_tpu_torch.ops import fused_residual
 from test_torch_config import narrow_cfgs
 
 H, W = 128, 160
@@ -48,19 +57,66 @@ def tame_variables(variables):
     return v
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg, tcfg = narrow_cfgs()
-    rng = np.random.default_rng(0)
-    image = rng.uniform(0, 255, (2, H, W, 3)).astype(np.float32)
-    batch = {"image": jnp.asarray(image), "image_size": jnp.asarray(SIZES)}
-    jmodel = jax_build_model(jcfg)
-    variables = tame_variables(jax.jit(jmodel.init)(jax.random.PRNGKey(0), batch))
-    jout = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.predict)(variables, batch))
-    tmodel = build_model(tcfg, state_dict=convert_variables(variables))
-    tbatch = {"image": torch.from_numpy(image), "image_size": torch.from_numpy(SIZES)}
-    tout = tmodel.predict(tbatch)
-    return jcfg, tcfg, variables, batch, tbatch, jmodel, tmodel, jout, tout
+@contextlib.contextmanager
+def fused_switch(on: bool):
+    """``D2TPU_ENABLE_FUSED_EPILOGUE`` set (or unset) for the block, with
+    JAX's trace caches cleared: the JAX package reads the switch when it
+    traces, so a cached trace of the other path must not stand in."""
+    with pytest.MonkeyPatch.context() as mp:
+        if on:
+            mp.setenv(fused_residual.ENV_SWITCH, "1")
+        else:
+            mp.delenv(fused_residual.ENV_SWITCH, raising=False)
+        jax.clear_caches()
+        yield
+    jax.clear_caches()
+
+
+def fused_custom_vjp_calls(jaxpr: str) -> int:
+    """``custom_vjp_call`` equations of the JAX package's fused tail in a
+    printed jaxpr (the model has other custom VJPs)."""
+    return len(re.findall(r"custom_vjp_call\[\s*name=fused_conv1x1_bn_add_relu\b", jaxpr))
+
+
+def count_fused_calls(mp):
+    """Count the port's calls of the fused tail from now on."""
+    calls = []
+    real = fused_residual.fused_conv1x1_bn_add_relu
+    mp.setattr(fused_residual, "fused_conv1x1_bn_add_relu",
+               lambda *args: calls.append(1) or real(*args))
+    return calls
+
+
+@pytest.fixture(scope="module", params=["unfused", "fused"])
+def pair(request):
+    """Shared weights, one image batch, both packages' ``predict``; the
+    switch stays as the param says for the tests that use it."""
+    with fused_switch(request.param == "fused"), pytest.MonkeyPatch.context() as mp:
+        jcfg, tcfg = narrow_cfgs()
+        rng = np.random.default_rng(0)
+        image = rng.uniform(0, 255, (2, H, W, 3)).astype(np.float32)
+        batch = {"image": jnp.asarray(image), "image_size": jnp.asarray(SIZES)}
+        jmodel = jax_build_model(jcfg)
+        variables = tame_variables(jax.jit(jmodel.init)(jax.random.PRNGKey(0), batch))
+        jaxpr = str(jax.make_jaxpr(jmodel.predict)(variables, batch))
+        jout = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.predict)(variables, batch))
+        tmodel = build_model(tcfg, device="cpu", state_dict=convert_variables(variables))
+        tbatch = {"image": torch.from_numpy(image), "image_size": torch.from_numpy(SIZES)}
+        calls = count_fused_calls(mp)
+        tout = tmodel.predict(tbatch)
+        taken = {"jax_fused_custom_vjp": fused_custom_vjp_calls(jaxpr),
+                 "port_fused_calls": len(calls)}
+        mp.undo()
+        yield (request.param, taken, jcfg, tcfg, variables, batch, tbatch, jmodel, tmodel,
+               jout, tout)
+
+
+def test_slice_takes_the_switch(pair):
+    """Switch on: the JAX trace holds a ``custom_vjp_call`` of the fused tail
+    and the port called its fused tail, each once for every one of R50's 16
+    bottlenecks; off: neither."""
+    tails = 16 if pair[0] == "fused" else 0
+    assert pair[1] == {"jax_fused_custom_vjp": tails, "port_fused_calls": tails}
 
 
 def test_slice_detections_match_jax(pair):
@@ -82,7 +138,7 @@ def test_slice_masks_match_jax(pair):
 
 def test_slice_proposals_match_jax(pair):
     """RPN proposals (top-k, decode, NMS keep decisions) slot by slot."""
-    jcfg, _, variables, batch, tbatch, _, tmodel, _, _ = pair
+    _, _, jcfg, _, variables, batch, tbatch, _, tmodel, _, _ = pair
     drv = _RCNNDrivers(jcfg, *_build_rcnn_parts(jcfg))
 
     def props(v, b):
@@ -116,7 +172,7 @@ def test_postprocess_conventional_matches_jax(pair):
     )
     from detectron2_tensorflow_tpu_torch.structures.masks import paste_masks_in_image
 
-    jcfg, tcfg, _, batch, tbatch, _, _, _, tout = pair
+    _, _, jcfg, tcfg, _, batch, tbatch, _, _, _, tout = pair
     masks = np.random.default_rng(1).uniform(0, 1, (2, 100, 28, 28)).astype(np.float32)
     boxes = tout.boxes.numpy()
     soft_t = paste_masks_in_image(torch.from_numpy(masks[0]), tout.boxes[0], (H, W), -1.0)

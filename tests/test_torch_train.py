@@ -38,6 +38,14 @@ image on the port alone), so the JAX package initializes from
 ``PRNGKey(1)``, where no such input exists. The updates the two solvers
 make from the same gradients agree to 1e-5 relative. The LR schedule agrees
 to 1e-6 relative (float32 on both sides).
+
+The step runs twice (``run``'s two params): with ``D2TPU_ENABLE_FUSED_EPILOGUE``
+unset, and with it set on both sides, where every bottleneck tail is the fused
+function and its hand-written backward (the JAX package's ``custom_vjp``,
+the port's ``autograd.Function``); ``test_train_step_takes_the_switch``
+shows that each side took the path asked for. Tests of parts the trunk does
+not reach (the heads' losses on given logits, the solver, crowd handling)
+run with it unset only.
 """
 
 import contextlib
@@ -79,7 +87,12 @@ from detectron2_tensorflow_tpu_torch.models.sampling import subsample_labels
 from detectron2_tensorflow_tpu_torch.structures import Instances
 from detectron2_tensorflow_tpu_torch.structures import boxes as tboxes
 from test_torch_config import NARROW, _set
-from test_torch_slice import tame_variables
+from test_torch_slice import (
+    count_fused_calls,
+    fused_custom_vjp_calls,
+    fused_switch,
+    tame_variables,
+)
 
 B, H, W, G = 2, 128, 160, 5
 LOSS_RTOL, MASK_LOSS_RTOL = 1e-5, 3e-4
@@ -166,8 +179,18 @@ def assert_update_close(got, want, start, tol, name):
     assert not bad.any(), f"{name}: {bad.sum()} updates differ, max {np.abs(du - dw).max()}"
 
 
-@pytest.fixture(scope="module")
-def run():
+UNFUSED_ONLY = pytest.mark.parametrize("run", ["unfused"], indirect=True)
+
+
+@pytest.fixture(scope="module", params=["unfused", "fused"])
+def run(request):
+    """One step of both packages from shared weights, noise and proposals;
+    the switch stays as the param says for the tests that use it."""
+    with fused_switch(request.param == "fused"), pytest.MonkeyPatch.context() as mp:
+        yield dict(_run_step(mp), switch=request.param)
+
+
+def _run_step(mp):
     jcfg, tcfg = train_cfgs()
     nb = make_train_batch(tcfg, H, W)
     jbatch = {k: jnp.asarray(v) for k, v in nb.items()}
@@ -183,18 +206,23 @@ def run():
 
     j_rpn, j_raw, j_props, j_sampled = jax_pieces(drv, variables, jbatch, step_rng)
     with fixed_jax_proposals(drv, j_raw):
+        jaxpr = str(jax.make_jaxpr(lambda p: total_loss(p)[0])(variables["params"]))
         (j_total, j_losses), j_grads = jax.jit(jax.value_and_grad(total_loss, has_aux=True))(
             variables["params"])
 
-    tmodel = build_model(tcfg, state_dict=convert_variables(variables), training=True)
+    tmodel = build_model(tcfg, device="cpu", state_dict=convert_variables(variables),
+                         training=True)
     n_anchors = sum(int(np.prod(x.shape[1:3])) * 3 for x in _port_logits(tmodel, tbatch))
     noise = {"rpn": jax_noise(rng_rpn, B, n_anchors),
              "roi": jax_noise(rng_roi, B, j_props.is_valid.shape[1])}
+    calls = count_fused_calls(mp)
     with jax_proposals(tmodel, j_raw):
         t_losses = tmodel.losses(tbatch, noise=noise)
+    taken = {"jax_fused_custom_vjp": fused_custom_vjp_calls(jaxpr), "port_fused_calls": len(calls)}
+    mp.undo()
     sum(t_losses.values()).backward()
     t_grads = {n: p.grad.numpy().copy() for n, p in tmodel.named_parameters() if p.grad is not None}
-    return dict(
+    return dict(taken=taken,
         jcfg=jcfg, tcfg=tcfg, jbatch=jbatch, tbatch=tbatch, variables=variables, drv=drv,
         j_rpn=j_rpn, j_raw=j_raw, j_props=j_props, j_sampled=j_sampled,
         j_total=float(j_total),
@@ -308,6 +336,15 @@ def test_make_train_batch_matches_bench_train():
 
 # -- the slice on shared weights and noise -------------------------------------
 
+def test_train_step_takes_the_switch(run):
+    """Switch on: the JAX loss's trace holds a ``custom_vjp_call`` of the
+    fused tail and the port's forward called its fused tail, each once for
+    every one of R50's 16 bottlenecks (frozen res2's three included); off:
+    neither."""
+    tails = 16 if run["switch"] == "fused" else 0
+    assert run["taken"] == {"jax_fused_custom_vjp": tails, "port_fused_calls": tails}
+
+
 def test_rpn_losses_match_jax(run):
     m = run["tmodel"]
     with torch.no_grad():
@@ -364,6 +401,7 @@ def test_label_and_sample_proposals_match_jax(run):
     assert got.valid.numpy().all() and got.is_fg.numpy().sum() >= B * G
 
 
+@UNFUSED_ONLY
 def test_box_and_mask_losses_match_jax(run):
     """Both heads' losses on the JAX package's sample and the same logits."""
     js, heads, jroi = run["j_sampled"], run["tmodel"].roi_heads, run["drv"].roi
@@ -410,6 +448,7 @@ def test_gradients_match_jax(run):
     assert len(trainable) == len(want) - 11  # stem conv + res2's 10 convs
 
 
+@UNFUSED_ONLY
 @pytest.mark.parametrize("overrides", [
     {},
     {"SOLVER.BIAS_LR_FACTOR": 2.0, "SOLVER.WEIGHT_DECAY_BIAS": 0.0,
@@ -424,7 +463,8 @@ def test_optimizer_steps_match_optax(run, overrides):
     params = run["variables"]["params"]
     tx = jsolver.build_optimizer(jcfg, params)
     opt_state = tx.init(params)
-    model = build_model(tcfg, state_dict=convert_variables(run["variables"]), training=True)
+    model = build_model(tcfg, device="cpu", state_dict=convert_variables(run["variables"]),
+                        training=True)
     opt = tsolver.build_optimizer(tcfg, model)
     grads = convert_variables({"params": run["j_grads"]})
     tparams = dict(model.named_parameters())
@@ -457,7 +497,7 @@ def test_train_step_matches_jax_update(run):
     optax chain."""
     jcfg, tcfg = run["jcfg"], run["tcfg"]
     start = convert_variables(run["variables"])
-    model = build_model(tcfg, state_dict=start, training=True)
+    model = build_model(tcfg, device="cpu", state_dict=start, training=True)
     state = create_train_state(tcfg, model, torch.Generator().manual_seed(0))
     with jax_proposals(model, run["j_raw"]):
         metrics = build_train_step(tcfg, state)(run["tbatch"], noise=run["noise"])
@@ -482,7 +522,8 @@ def test_train_step_draws_noise_from_the_generator():
     batch = {k: torch.from_numpy(v) for k, v in make_train_batch(tcfg, H, W).items()}
     totals = []
     for seed in (5, 5, 6):
-        model = build_model(tcfg, generator=torch.Generator().manual_seed(0), training=True)
+        model = build_model(tcfg, device="cpu", generator=torch.Generator().manual_seed(0),
+                            training=True)
         state = create_train_state(tcfg, model, torch.Generator().manual_seed(seed))
         metrics = build_train_step(tcfg, state)(batch)
         assert all(np.isfinite(float(v)) for v in metrics.values())
@@ -510,7 +551,8 @@ def crowd(run):
     j_rpn, j_raw, j_props, j_sampled = jax_pieces(drv, variables, jbatch, step_rng)
     with fixed_jax_proposals(drv, j_raw):
         _, (j_losses, _) = jax.jit(lambda v, b: drv.loss_fn(v, b, step_rng, {}))(variables, jbatch)
-    tmodel = build_model(tcfg, state_dict=convert_variables(variables), training=True)
+    tmodel = build_model(tcfg, device="cpu", state_dict=convert_variables(variables),
+                         training=True)
     with torch.no_grad(), jax_proposals(tmodel, j_raw):
         t_losses = tmodel.losses(tbatch, noise=run["noise"])
     return dict(tbatch=tbatch, j_rpn=j_rpn, j_raw=j_raw, j_props=j_props, j_sampled=j_sampled,
@@ -518,6 +560,7 @@ def crowd(run):
                 t_losses={k: float(v) for k, v in t_losses.items()})
 
 
+@UNFUSED_ONLY
 def test_crowd_rpn_losses_match_jax(run, crowd):
     """Anchors mostly inside a crowd region and anchors across the image
     border are ignored as the JAX package ignores them."""
@@ -536,6 +579,7 @@ def test_crowd_rpn_losses_match_jax(run, crowd):
     assert abs(loc - loc0) > 1e-2 * loc0
 
 
+@UNFUSED_ONLY
 def test_crowd_label_and_sample_proposals_match_jax(run, crowd):
     """Crowd GT is not appended as a proposal, and proposals mostly inside a
     crowd region are ignored: the same proposals and the same sample as the
@@ -555,6 +599,7 @@ def test_crowd_label_and_sample_proposals_match_jax(run, crowd):
     assert not np.array_equal(js.boxes, run["j_sampled"].boxes)  # the crowd moved the sample
 
 
+@UNFUSED_ONLY
 def test_crowd_loss_dict_matches_jax(crowd):
     got, want = crowd["t_losses"], crowd["j_losses"]
     assert set(want) == set(got) == set(LOSS_KEYS)
