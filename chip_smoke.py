@@ -66,6 +66,7 @@ from detectron2_tensorflow_tpu_torch.models import build_model
 from detectron2_tensorflow_tpu_torch.models.meta_arch.postprocess import detector_postprocess
 from detectron2_tensorflow_tpu_torch.models.poolers import (
     build_storage,
+    hat_support,
     plan_patch,
     plan_rois,
     roi_patch_backward,
@@ -313,35 +314,60 @@ def roi_inputs(rng, dev, dtype, n, s, valid_frac=0.9, objects=None):
     return storage.contiguous(), starts.contiguous(), wy.contiguous(), wx.contiguous(), valid
 
 
-def covered_cells(starts, p: int, htot: int, wm: int) -> int:
-    """Plane cells ``(b, row, col)`` inside the patch of some slot that is not
-    skipped: what a ROI kernel must read (or, backward, add into)."""
-    b, n = starts.shape[:2]
-    keep = (starts[..., 2] < skip_tier_class(p))[..., None, None].expand(b, n, p, p)
+def covered_cells(starts, wy, wx, htot: int, wm: int) -> int:
+    """Plane cells ``(b, row, col)`` in the hat support of some slot that is
+    not skipped: what a ROI kernel must read (or, backward, add into)."""
+    b, n, _, p = wy.shape
     ar = torch.arange(p, device=starts.device)
-    rows = (starts[..., 0, None].long() + ar).clamp(0, htot - 1)[..., :, None].expand(b, n, p, p)
-    cols = (starts[..., 1, None].long() + ar).clamp(0, wm - 1)[..., None, :].expand(b, n, p, p)
+    sy, sx = hat_support(wy), hat_support(wx)
+    in_y = (ar >= sy[..., :1]) & (ar < sy[..., 1:])  # [B, N, P]
+    in_x = (ar >= sx[..., :1]) & (ar < sx[..., 1:])
+    rows = starts[..., 0, None].long() + ar
+    cols = starts[..., 1, None].long() + ar
+    in_y &= (rows >= 0) & (rows < htot)
+    in_x &= (cols >= 0) & (cols < wm)
+    keep = ((starts[..., 2] < skip_tier_class(p))[..., None, None]
+            & in_y[..., :, None] & in_x[..., None, :])
     bidx = torch.arange(b, device=starts.device)[:, None, None, None].expand(b, n, p, p)
     mask = torch.zeros((b, htot, wm), dtype=torch.bool, device=starts.device)
-    mask[bidx[keep], rows[keep], cols[keep]] = True
+    mask[bidx[keep], rows[..., :, None].expand(b, n, p, p)[keep],
+         cols[..., None, :].expand(b, n, p, p)[keep]] = True
     return int(mask.sum())
 
 
-def roi_bound(storage_shape, dtype, starts, wy, backward: bool):
-    """Bound of one ROI patch pass: the covered plane cells read (forward,
-    in the plane's dtype) or read and written (backward, into a float32
-    plane given as ``init``), the plan, the ``[B, N, S, S, C]`` result (or
-    cotangent) once; the two contractions of every slot not skipped, at the
-    rate of the plane's (or cotangent's) dtype."""
+def support_spans(starts, wy, wx):
+    """Row and column spans ``(hy, hx)`` of the hat support of each slot that
+    is not skipped (``[active]`` int64 each)."""
+    active = starts[..., 2] < skip_tier_class(wy.shape[-1])
+    sy, sx = hat_support(wy)[active], hat_support(wx)[active]
+    return sy[:, 1] - sy[:, 0], sx[:, 1] - sx[:, 0]
+
+
+def support_share(starts, wy, wx) -> float:
+    """Mean share of the P x P patch inside the hat support, over the slots
+    that are not skipped."""
+    hy, hx = support_spans(starts, wy, wx)
+    return float((hy * hx).double().mean()) / wy.shape[-1] ** 2
+
+
+def roi_bound(storage_shape, dtype, starts, wy, wx, backward: bool):
+    """Bound of one ROI patch pass: the plane cells in the union of the hat
+    supports read (forward, in the plane's dtype) or read and written
+    (backward, into a float32 plane given as ``init``), the plan, the
+    ``[B, N, S, S, C]`` result (or cotangent) once; the two contractions
+    over each slot's support (forward ``S*hy*hx + S*S*hx`` products per
+    channel, backward ``S*S*hy + S*hy*hx``), at the rate of the plane's (or
+    cotangent's) dtype."""
     b, htot, wm, c = storage_shape
     n, s, p = wy.shape[1:]
     esize = torch.empty((), dtype=dtype).element_size()
-    cells = covered_cells(starts, p, htot, wm) * c
+    cells = covered_cells(starts, wy, wx, htot, wm) * c
     plane_bytes = cells * (8 if backward else esize)
     plan_bytes = b * n * (3 * 4 + 2 * s * p * 4)
     io_bytes = b * n * s * s * c * esize
-    active = int((starts[..., 2] < skip_tier_class(p)).sum())
-    ops = active * (2 * s * p * p * c + 2 * s * s * p * c)
+    hy, hx = (t.double() for t in support_spans(starts, wy, wx))
+    per_slot = s * s * hy + s * hy * hx if backward else s * hy * hx + s * s * hx
+    ops = 2 * c * float(per_slot.sum())
     return bound(plane_bytes + plan_bytes + io_bytes, ops, dtype)
 
 
@@ -364,26 +390,42 @@ def check_roi(rng, dev):
             ms = cuda_ms(lambda: roi_patch_interpolate(storage, starts, wy, wx), reps=20)
             plain_ms = cuda_ms(lambda: roi_patch_interpolate_reference(storage, starts, wy, wx),
                                reps=3, warmup=1)
-            bound_ms, bound_by = roi_bound(storage.shape, dtype, starts, wy, backward=False)
+            bound_ms, bound_by = roi_bound(storage.shape, dtype, starts, wy, wx, backward=False)
             name = f"{label} {str(dtype).replace('torch.', '')}"
             log(f"roi_patch  {name}: max|err| {err:.3g} (tol {tol:.3g}, max|out| {scale:.3g}), "
-                f"skipped {int(skipped.sum())}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"skipped {int(skipped.sum())}, support {support_share(starts, wy, wx):.1%} of "
+                f"the patch, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by})")
             results.append({"case": name, "err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by})
     return results
 
 
+def spread_starts(starts, p: int, htot: int, wm: int, seed: int):
+    """``starts`` with every slot's origin moved to a uniform random row and
+    8-aligned column of the plane: the same supports (the same work), with
+    little overlap between ROIs."""
+    gen = torch.Generator(device=starts.device).manual_seed(seed)
+    b, n = starts.shape[:2]
+    spread = starts.clone()
+    spread[..., 0] = torch.randint(0, htot - p + 1, (b, n), generator=gen, device=starts.device)
+    spread[..., 1] = torch.randint(0, (wm - p) // 8 + 1, (b, n), generator=gen,
+                                   device=starts.device) * 8
+    return spread
+
+
 def check_roi_bwd(rng, dev):
     """``roi_patch_bwd`` against ``roi_patch_backward_reference`` at the train
     step's box and mask sets, clustered heavily overlapping boxes, 10% of the
     slots skipped, bf16 and float32 cotangents, and box chained into mask
-    through ``init``."""
+    through ``init``. The atomics' contention: the bf16 sets timed again
+    with their ROIs spread over the plane (the same supports)."""
     results = []
     planes = {}
     for label, n, s in (("box B=2 N=512 S=7", 512, 7), ("mask B=2 N=128 S=14", 128, 14)):
         storage, starts, wy, wx, valid = roi_inputs(rng, dev, torch.bfloat16, n, s, objects=12)
         shape = tuple(storage.shape)
+        share = support_share(starts, wy, wx)
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.from_numpy(rng.standard_normal((2, n, s, s, 256)).astype(np.float32)).to(dev, dtype)
             got = roi_patch_backward(g, starts, wy, wx, shape)
@@ -403,14 +445,22 @@ def check_roi_bwd(rng, dev):
             plain_ms = cuda_ms(lambda: roi_patch_backward_reference(g, starts, wy, wx, shape,
                                                                     init=acc_ref),
                                reps=3, warmup=1)
-            bound_ms, bound_by = roi_bound(shape, dtype, starts, wy, backward=True)
+            bound_ms, bound_by = roi_bound(shape, dtype, starts, wy, wx, backward=True)
             name = f"{label} {str(dtype).replace('torch.', '')}"
             log(f"roi_bwd    {name}: max|err| {err:.3g} (max|want| {float(want.abs().max()):.3g}, "
                 f"max sum|terms| {float(terms.max()):.3g}), skipped {int((~valid).sum())}, "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                f"support {share:.1%} of the patch, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
             results.append({"case": name, "err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by})
             planes[label, dtype] = (g, starts, wy, wx, shape)
+        g = planes[label, torch.bfloat16][0]
+        spread = spread_starts(starts, wy.shape[-1], shape[1], shape[2], SEED + n)
+        acc = torch.zeros(shape, device=dev)
+        spread_ms = cuda_ms(lambda: roi_patch_backward(g, spread, wy, wx, shape, init=acc), reps=20)
+        ms = results[-2]["ms"]
+        log(f"roi_bwd    {label} bf16 contention: clustered on 12 objects {ms:.4f} ms, the same "
+            f"ROIs spread over the plane {spread_ms:.4f} ms, clustered / spread {ms / spread_ms:.2f}")
     # Chained: the box set's gradient into a fresh plane, then the mask set's
     # added into it, in the order the fused pool's backward takes them.
     gb, sb, wyb, wxb, shape = planes["box B=2 N=512 S=7", torch.bfloat16]
@@ -517,7 +567,7 @@ def check_variants(dev):
             raise AssertionError("roi variant full differs from roi_patch_interpolate")
     plain_ms = cuda_ms(lambda: roi_patch_variant_reference(plane, starts, wy, wx, "full"),
                        reps=3, warmup=1)
-    bound_ms, bound_by = roi_bound(plane.shape, plane.dtype, starts, wy, backward=False)
+    bound_ms, bound_by = roi_bound(plane.shape, plane.dtype, starts, wy, wx, backward=False)
     log("variants   2 images x 1000 ROIs, P=32 C=256 S=14 bf16, max|err| against plain: "
         + ", ".join(f"{v} {e:.3g}" for v, e in errs.items())
         + f"; full bit-equal to roi_patch_interpolate; plain full {plain_ms:.4f} ms, "

@@ -252,6 +252,19 @@ def plan_rois(meta: StorageMeta, boxes: torch.Tensor, output_size: int,
     return starts, wy, wx
 
 
+def hat_support(w: torch.Tensor) -> torch.Tensor:
+    """``[..., 2]`` int64 ``[lo, hi)`` per slot of hat weights ``w [..., S, P]``:
+    the patch rows (of ``wy``) or columns (of ``wx``) where some of the S
+    weights is nonzero, ``[0, 0)`` where none is. The ROI kernels derive the
+    same range from the weights and loop over it alone."""
+    p = w.shape[-1]
+    nz = (w != 0).any(dim=-2)
+    pos = torch.arange(p, device=w.device)
+    hi = torch.where(nz, pos + 1, 0).amax(dim=-1)
+    lo = torch.where(nz, pos, p).amin(dim=-1)
+    return torch.stack([torch.where(hi > 0, lo, 0), hi], dim=-1)
+
+
 def roi_patch_interpolate_reference(storage: torch.Tensor, starts: torch.Tensor,
                                     wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch ROI patch contraction ``[B, N, S, S, C]``.

@@ -38,7 +38,7 @@ from ..models.poolers import (
 VARIANTS = {"nodma": 1, "onedma": 2, "nodot": 3, "m1only": 4, "noswap": 5, "nowrite": 6,
             "full": 0}
 GROUP = 4  # ROIs per group of the TPU tool's grid step (onedma reads one patch per group)
-TILE = 32  # channels per block of csrc/roi_patch.cu: "first element" is per tile
+TILE = 32  # channels per tile of csrc/roi_patch.cu's forward: "first element" is per tile
 
 
 def _patches(plane: torch.Tensor, starts: torch.Tensor, p: int) -> torch.Tensor:

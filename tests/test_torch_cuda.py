@@ -188,14 +188,136 @@ def test_pool_multi_backward_on_the_card_equals_the_cpu(dev):
     assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
 
 
+SUPPORT_CASES = ("far_edge", "one_row_col", "zero_area", "dense", "last_rows_cols", "random")
+# (B, N, S, P, C): P = 16, 24, 32, 64; C a multiple of the forward's 32-channel
+# tile and of the backward's 128 or not (33, 40); S at both sides of 8.
+SUPPORT_SHAPES = [(2, 12, 7, 16, 33), (1, 10, 14, 24, 40), (2, 9, 8, 32, 256),
+                  (1, 6, 16, 64, 40)]
+
+
+def _support_case(rng, dev, dtype, b, n, s, p, c, case):
+    """A plane ``[b, 3p, 2p, c]`` and a plan whose weights are nonzero only on
+    each slot's window ``[y0, y1) x [x0, x1)`` of the patch (tier class 0, 15%
+    of the slots skipped): ``far_edge`` windows end at the patch's last row
+    and column; ``one_row_col`` are one row by one column; ``zero_area``
+    has a third of the slots with all-zero weights, not skipped; ``dense``
+    covers the whole patch; ``last_rows_cols`` puts far-edge windows of
+    patches at the plane's last rows and columns; ``random`` windows are
+    random. Returns the plane, the plan, the skip mask and the all-zero
+    mask."""
+    htot, wm = 3 * p, 2 * p
+    plane = torch.from_numpy(rng.standard_normal((b, htot, wm, c)).astype(np.float32)).to(dev, dtype)
+    if case == "last_rows_cols":
+        rows, tx = np.full((b, n), htot - p), np.full((b, n), (wm - p) // 8 * 8)
+    else:
+        rows = rng.integers(0, htot - p + 1, (b, n))
+        tx = rng.integers(0, (wm - p) // 8 + 1, (b, n)) * 8
+    skip = rng.uniform(0, 1, (b, n)) < 0.15
+    cls = np.where(skip, poolers.skip_tier_class(p), 0)
+    starts = torch.from_numpy(np.stack([rows, tx, cls], -1).astype(np.int32)).to(dev)
+    weights = []
+    for _ in range(2):  # wy over rows, wx over columns
+        if case == "dense":
+            lo, hi = np.zeros((b, n), int), np.full((b, n), p)
+        elif case in ("far_edge", "last_rows_cols"):
+            lo, hi = rng.integers(1, p, (b, n)), np.full((b, n), p)
+        elif case == "one_row_col":
+            lo = rng.integers(0, p, (b, n))
+            hi = lo + 1
+        else:
+            ends = np.sort(rng.integers(0, p, (b, n, 2)), -1)
+            lo, hi = ends[..., 0], ends[..., 1] + 1
+        pos = np.arange(p)
+        inside = (pos >= lo[..., None]) & (pos < hi[..., None])
+        w = rng.uniform(0.05, 0.3, (b, n, s, p)) * inside[:, :, None, :]
+        weights.append(w)
+    zero = rng.uniform(0, 1, (b, n)) < (1 / 3 if case == "zero_area" else 0)
+    wy, wx = (torch.from_numpy(np.where(zero[..., None, None], 0, w).astype(np.float32)).to(dev)
+              for w in weights)
+    return plane, starts, wy, wx, torch.from_numpy(skip).to(dev), torch.from_numpy(zero).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,b,n,s,p,c", [
+    (case, *shape) for case in SUPPORT_CASES for shape in SUPPORT_SHAPES] + [
+    # enough ROIs that a block walks several channel tiles of its ROI (the
+    # last one ragged at C = 72), over one or several row and column chunks
+    ("random", 2, 1500, 7, 32, 72), ("dense", 2, 1200, 14, 64, 40),
+    ("far_edge", 1, 3000, 7, 32, 256)])
+def test_roi_patch_kernel_on_hat_supports_equals_plain(dev, dtype, case, b, n, s, p, c):
+    """The forward narrows its loops to each slot's support, derived from the
+    weights: at the patch's far edge, one row and one column, all-zero
+    (exact zeros out), dense under tier class 0, at the plane's last rows and
+    columns, for P = 16-64, C off the channel tile, and with several channel
+    tiles per block."""
+    rng = np.random.default_rng(SUPPORT_CASES.index(case) * 100 + n + p + c)
+    plane, starts, wy, wx, skip, zero = _support_case(rng, dev, dtype, b, n, s, p, c, case)
+    got = poolers.roi_patch_interpolate(plane, starts, wy, wx)
+    want = poolers.roi_patch_interpolate_reference(plane, starts, wy, wx)
+    assert got.shape == (b, n, s, s, c) and got.dtype == dtype
+    assert bool((got[skip | zero] == 0).all())
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    tol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -7 * max(1.0, scale)
+    assert err <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,s,p,c", SUPPORT_SHAPES)
+@pytest.mark.parametrize("case", SUPPORT_CASES)
+def test_roi_patch_backward_kernel_on_hat_supports_equals_plain(dev, dtype, case, b, n, s, p, c):
+    """The backward over the same supports: each cell within 1e-5 of its sum
+    of term magnitudes; all-zero and skipped slots add nothing."""
+    rng = np.random.default_rng(SUPPORT_CASES.index(case) * 100 + p + c + 1)
+    plane, starts, wy, wx, skip, zero = _support_case(rng, dev, torch.float32, b, n, s, p, c, case)
+    shape = tuple(plane.shape)
+    g = torch.from_numpy(rng.standard_normal((b, n, s, s, c)).astype(np.float32)).to(dev, dtype)
+    got = poolers.roi_patch_backward(g, starts, wy, wx, shape)
+    want = poolers.roi_patch_backward_reference(g, starts, wy, wx, shape)
+    terms = poolers.roi_patch_backward_reference(g.abs(), starts, wy, wx, shape)
+    assert bool(((got - want).abs() <= 1e-5 * terms).all())
+    silent = torch.where((skip | zero)[..., None, None, None], g, torch.zeros_like(g))
+    assert not bool(poolers.roi_patch_backward(silent, starts, wy, wx, shape).any())
+
+
+@pytest.mark.parametrize("layout", ["one_window", "spread"])
+def test_roi_patch_backward_kernel_contention_chained(dev, layout):
+    """A box set (S=7) then a mask set (S=14) chained through ``init=``, with
+    every ROI on one window of the plane (the worst contention for the
+    atomics) or spread over it; each cell within 1e-5 of its sum of term
+    magnitudes."""
+    rng = np.random.default_rng(11 if layout == "spread" else 12)
+    c, p = 256, 32
+    plane, sb, wyb, wxb, _, _ = _support_case(rng, dev, torch.float32, 2, 300, 7, p, c, "random")
+    _, sm, wym, wxm, _, _ = _support_case(rng, dev, torch.float32, 2, 80, 14, p, c, "random")
+    shape = tuple(plane.shape)
+    if layout == "one_window":
+        for st in (sb, sm):
+            st[..., 0], st[..., 1] = p, 8
+    gb = torch.from_numpy(rng.standard_normal((2, 300, 7, 7, c)).astype(np.float32)).to(dev, torch.bfloat16)
+    gm = torch.from_numpy(rng.standard_normal((2, 80, 14, 14, c)).astype(np.float32)).to(dev, torch.bfloat16)
+    init = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    got = poolers.roi_patch_backward(gm, sm, wym, wxm, shape,
+                                     init=poolers.roi_patch_backward(gb, sb, wyb, wxb, shape,
+                                                                     init=init.clone()))
+    want = poolers.roi_patch_backward_reference(
+        gm, sm, wym, wxm, shape,
+        init=poolers.roi_patch_backward_reference(gb, sb, wyb, wxb, shape, init=init.clone()))
+    terms = init.abs() + poolers.roi_patch_backward_reference(
+        gm.abs(), sm, wym, wxm, shape,
+        init=poolers.roi_patch_backward_reference(gb.abs(), sb, wyb, wxb, shape))
+    assert bool(((got - want).abs() <= 1e-5 * terms + 1e-7).all())
+
+
+@pytest.mark.parametrize("n,c", [(10, 40), (1200, 72)])  # 1200: blocks of several tiles
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", list(tv.VARIANTS))
-def test_roi_variant_kernel_equals_plain(dev, variant, dtype):
-    rng = np.random.default_rng(len(variant))
-    plane, starts, wy, wx, skip = _roi_case(rng, dev, dtype, 2, 10, 14, 32, 40)
+def test_roi_variant_kernel_equals_plain(dev, variant, dtype, n, c):
+    rng = np.random.default_rng(len(variant) + n)
+    plane, starts, wy, wx, skip = _roi_case(rng, dev, dtype, 2, n, 14, 32, c)
     got = tv.roi_patch_variant(plane, starts, wy, wx, variant)
     want = tv.roi_patch_variant_reference(plane, starts, wy, wx, variant)
-    assert got.shape == want.shape == (2, 10, 14, 14, 40) and got.dtype == dtype
+    assert got.shape == want.shape == (2, n, 14, 14, c) and got.dtype == dtype
     assert bool((got[skip] == 0).all())
     if variant in ("nodma", "onedma", "nodot"):
         assert torch.equal(got, want)

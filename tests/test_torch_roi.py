@@ -269,6 +269,130 @@ def test_pool_multi_fused_backward_matches_jax_interpret():
     np.testing.assert_allclose(st.grad.numpy(), separate.numpy(), rtol=1e-5, atol=BWD_ATOL)
 
 
+def _serving_plans(out_size, seed, n=160):
+    """JAX and port plans at the 800x1344 serving shapes (p2-p5 of an
+    800x1344 image, C=1), for detector-like boxes (12-600 px, aspect
+    e^[-0.7, 0.7], a few of zero width), 10% of the slots skipped."""
+    rng = np.random.default_rng(seed)
+    feats = _features(rng, h=200, w=336, c=1)
+    ctr = rng.uniform([0, 0], [1333, 800], (2, n, 2))
+    size = np.exp(rng.uniform(np.log(12), np.log(600), (2, n, 1)))
+    ar = np.exp(rng.uniform(-0.7, 0.7, (2, n, 1)))
+    half = np.concatenate([size * ar, size / ar], -1) / 2
+    half[:, :4, 0] = 0  # zero-area boxes: planned, all-zero weights
+    boxes = np.clip(np.concatenate([ctr - half, ctr + half], -1), 0, [1333, 800, 1333, 800])
+    valid = rng.uniform(0, 1, (2, n)) > 0.1
+    return _plans(feats, boxes.astype(np.float32), valid, out_size)
+
+
+def _support_np(w):
+    """[lo, hi) of the nonzero positions of each slot's [S, P] weights, numpy."""
+    nz = (np.asarray(w) != 0).any(axis=-2)
+    p = nz.shape[-1]
+    lo = np.where(nz.any(-1), nz.argmax(-1), 0)
+    hi = np.where(nz.any(-1), p - nz[..., ::-1].argmax(-1), 0)
+    return np.stack([lo, hi], -1)
+
+
+def _outside(support, p):
+    """``[..., P]`` True at the positions outside each slot's ``[lo, hi)``."""
+    pos = np.arange(p)
+    return (pos < support[..., :1]) | (pos >= support[..., 1:])
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_hat_support_holds_every_nonzero_weight(out_size):
+    """The port's ``hat_support`` equals the support of the JAX package's
+    plan, and both plans' weights are exactly zero outside it."""
+    (_, _, _, jwy, jwx), (_, tmeta, _, twy, twx) = _serving_plans(out_size, out_size)
+    p = tmeta.patch_size
+    for jw, tw in ((jwy, twy), (jwx, twx)):
+        sup = tp.hat_support(tw).numpy()
+        np.testing.assert_array_equal(sup, _support_np(jw))
+        assert (sup[..., 1] > sup[..., 0]).any() and (sup[..., 1] == 0).any()
+        out = _outside(sup, p)[..., None, :]
+        for w in (np.asarray(jw), tw.numpy()):
+            assert not np.where(out, w, 0).any()
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_tier_class_bounds_the_support_in_production_plans(out_size):
+    """In a plan's slots that are not skipped, the support lies inside the
+    row and column tier window its tier class names (the window the TPU
+    kernel reads); the span is what the kernels loop over."""
+    _, (_, tmeta, tst, twy, twx) = _serving_plans(out_size, 30 + out_size)
+    p = tmeta.patch_size
+    rows = [r for r in tp.ROW_TIERS if r < p] + [p]
+    cols = [c for c in tp.COL_TIERS if c < p] + [p]
+    cls = tst[..., 2].numpy()
+    keep = cls < tp.skip_tier_class(p)
+    sy, sx = tp.hat_support(twy).numpy()[keep], tp.hat_support(twx).numpy()[keep]
+    assert (sy[:, 1] <= np.array(rows)[cls[keep] // len(cols)]).all()
+    assert (sx[:, 1] <= np.array(cols)[cls[keep] % len(cols)]).all()
+    share = ((sy[:, 1] - sy[:, 0]) * (sx[:, 1] - sx[:, 0])).mean() / p ** 2
+    assert 0 < share < 0.5
+
+
+def _restricted_forward(storage, starts, wy, wx):
+    """The plain forward, slot by slot, over each slot's support alone."""
+    b, n, s, _ = wy.shape
+    out = torch.zeros((b, n, s, s, storage.shape[-1]))
+    sy, sx = tp.hat_support(wy), tp.hat_support(wx)
+    for i in range(b):
+        for j in range(n):
+            if starts[i, j, 2] >= tp.skip_tier_class(wy.shape[-1]):
+                continue
+            (y0, y1), (x0, x1) = sy[i, j].tolist(), sx[i, j].tolist()
+            row, tx = starts[i, j, 0].item(), starts[i, j, 1].item()
+            patch = storage[i, row + y0: row + y1, tx + x0: tx + x1]  # [hy, hx, C]
+            a = torch.einsum("op,pqc->oqc", wy[i, j, :, y0:y1], patch)
+            out[i, j] = torch.einsum("uq,oqc->ouc", wx[i, j, :, x0:x1], a)
+    return out
+
+
+def _restricted_backward(g, starts, wy, wx, shape):
+    """The plain backward, slot by slot, adding each slot's gradient over its
+    support alone."""
+    acc = torch.zeros(shape)
+    sy, sx = tp.hat_support(wy), tp.hat_support(wx)
+    for i in range(g.shape[0]):
+        for j in range(g.shape[1]):
+            if starts[i, j, 2] >= tp.skip_tier_class(wy.shape[-1]):
+                continue
+            (y0, y1), (x0, x1) = sy[i, j].tolist(), sx[i, j].tolist()
+            row, tx = starts[i, j, 0].item(), starts[i, j, 1].item()
+            t = torch.einsum("op,ouc->puc", wy[i, j, :, y0:y1], g[i, j])
+            acc[i, row + y0: row + y1, tx + x0: tx + x1] += torch.einsum(
+                "puc,uq->pqc", t, wx[i, j, :, x0:x1])
+    return acc
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_support_restricted_forward_equals_dense(out_size):
+    _, (ts, tmeta, tst, twy, twx) = _serving_plans(out_size, 50 + out_size)
+    want = tp.roi_patch_interpolate_reference(ts, tst, twy, twx)
+    got = _restricted_forward(ts, tst, twy, twx)
+    assert float(want.abs().max()) > 0
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_support_restricted_backward_equals_dense(out_size):
+    """The plane gradient over the supports alone against the dense plain
+    backward, each cell to 1e-6 of the sum of its terms' magnitudes (the
+    same plane made from |g|): the sums differ in order only."""
+    rng = np.random.default_rng(70 + out_size)
+    _, (ts, tmeta, tst, twy, twx) = _serving_plans(out_size, 70 + out_size)
+    shape = tuple(ts.shape)
+    g = torch.from_numpy(rng.standard_normal(tst.shape[:2] + (out_size, out_size, 1))
+                         .astype(np.float32))
+    want = tp.roi_patch_backward_reference(g, tst, twy, twx, shape)
+    terms = tp.roi_patch_backward_reference(g.abs(), tst, twy, twx, shape)
+    got = _restricted_backward(g, tst, twy, twx, shape)
+    assert float(want.abs().max()) > 0
+    assert bool(((got - want).abs() <= 1e-6 * terms).all())
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_avgpool_alias_gradient_matches_jax_custom_vjp(dtype):
     """Autograd of the port's 2x2 alias pool equals the JAX package's

@@ -111,7 +111,7 @@ def test_full_variant_is_the_production_plain_version():
 
 def test_first_element_variants_are_per_channel_tile():
     """With C = 40 the second 32-channel tile (channels 32-39) takes its own
-    first channel, 32: the GPU block's "first element"."""
+    first channel, 32: the GPU kernel's "first element" of that tile."""
     plane, starts, wy, wx = (torch.from_numpy(a) for a in _inputs(5, b=1, n=8, c=40))
     full = roi_patch_interpolate(plane, starts, wy, wx)
     nowrite = tv.roi_patch_variant(plane, starts, wy, wx, "nowrite")
