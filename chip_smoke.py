@@ -14,7 +14,10 @@ any failure exits non-zero:
      card at the slices' shapes (inputs from a seeded numpy generator) and
      both are timed with CUDA events after warm-up, beside the least time
      the card could take (bound) and, for the fused bottleneck tail, the
-     port's unfused tail as the PyTorch yardstick;
+     port's unfused tail as the PyTorch yardstick. ``nms_keep``'s keep masks
+     are bit-equal at serving's RPN (10 x 1000, and stacked with p6's 819
+     rows padded to 1000), the box head (2 x 2000, ``max_keep`` 100) and
+     training's stacked RPN (40 x 2000, ``max_keep`` 1000);
   4. variants: the ROI forward's seven ablations at the ROI tool's shapes
      with 2 images, each held against its plain version (``full`` bit-equal
      to ``roi_patch_interpolate``), then timed through the tool's own
@@ -26,16 +29,18 @@ any failure exits non-zero:
      random 2 x 800 x 1344 bf16 batch through ``model.predict(batch)`` in
      turns (off, on, on, off, twice); the kernels' launch counts are read
      around that run (16 fused tails per ``predict`` with the switch on, 0
-     off); outputs are checked, and a narrow float32 model is held against
-     the same model run on the CPU (where every kernel takes its plain
-     version) on a small input, switch off and on;
+     off; 2 ``nms_keep`` launches per ``predict``); outputs are checked,
+     and a narrow float32 model is held against the same model run on the
+     CPU (where every kernel takes its plain version) on a small input,
+     switch off and on;
   6. train: the same model at ``train_cfg(8)`` (bf16, float32 parameters,
      seeded random weights), switch off and on, takes 2 warm-up steps each
      and 8 x 3 timed steps in turns on a seeded 8 x 800 x 1344 batch
      through ``create_train_state`` + ``build_train_step``; the launch
      counts are read around the timed steps (16 fused tails per step with
-     the switch on); losses must be finite, the frozen stem and res2
-     unchanged bit for bit, every trainable parameter changed; and a narrow
+     the switch on, 1 ``nms_keep`` launch per step); losses must be finite,
+     the frozen stem and res2 unchanged bit for bit, every trainable
+     parameter changed; and a narrow
      float32 train step on 2 x 128 x 160 is held against the same step on
      the CPU (same weights, noise and proposals), switch off and on.
 
@@ -81,7 +86,11 @@ from detectron2_tensorflow_tpu_torch.ops.fused_residual import (
     fused_conv1x1_bn_add_relu,
     fused_conv1x1_bn_add_relu_reference,
 )
-from detectron2_tensorflow_tpu_torch.ops.nms import greedy_keep, greedy_keep_reference
+from detectron2_tensorflow_tpu_torch.ops.nms import (
+    PAD_BOX,
+    greedy_keep,
+    greedy_keep_reference,
+)
 from detectron2_tensorflow_tpu_torch.solver import trainable_parameters
 from detectron2_tensorflow_tpu_torch.tools import exp_roi_variants
 from detectron2_tensorflow_tpu_torch.tools.exp_roi_variants import (
@@ -135,6 +144,10 @@ FUSED_TOL_F32 = 1e-5
 R50_TAILS = (("res2", 64, 256, 200, 336), ("res3", 128, 512, 100, 168),
              ("res4", 256, 1024, 50, 84), ("res5", 512, 2048, 25, 42))
 FUSED_TAILS = 16  # R50's bottleneck blocks, each with one fused tail
+# nms_keep launches: per predict the RPN's five levels in one, the box
+# head's class-aware NMS in another; per train step the RPN's alone.
+NMS_PER_PREDICT = 2
+NMS_PER_STEP = 1
 
 
 def tpu_kernel(pattern: str, line: int) -> str:
@@ -260,15 +273,47 @@ def class_offset(boxes, classes):
 
 # -- phase 3: kernels -------------------------------------------------------
 
+def stacked_levels(rng, images, n, last=819):
+    """The RPN's stacked candidates: per image four levels of ``n`` boxes and
+    p6's ``last`` (13 x 21 x 3 at 800x1344) padded to ``n`` with invalid rows
+    holding the far-away box, as ``ops.nms.nms_fixed_levels`` pads them."""
+    boxes, valid = clustered_boxes(rng, images * 5, n)
+    p6 = np.arange(images) * 5 + 4
+    boxes[p6, last:] = PAD_BOX
+    valid[p6, last:] = False
+    return boxes, valid
+
+
+def nms_pairs(valid, keep, max_keep):
+    """IoU pairs of valid boxes the greedy needs per batch row: all of them,
+    or with ``max_keep`` those up to the row of the last survivor kept."""
+    total = 0.0
+    for v, k in zip(valid, keep):
+        rows = np.flatnonzero(k)
+        end = len(v) if max_keep is None or len(rows) < max_keep else rows[max_keep - 1] + 1
+        m = float(v[:end].sum())
+        total += m * (m - 1) / 2
+    return total
+
+
 def check_nms(rng, dev):
+    """``nms_keep`` bit-equal to its plain version at the main path's shapes:
+    serving's RPN (2 images x 5 levels of 1000, unpadded as in PR 5's check
+    and stacked with p6 padded), the box head (class-offset candidates,
+    ``max_keep`` 100) and training's RPN (8 images x 5 levels of 2000,
+    ``max_keep`` 1000); each timed beside its bound and the plain version."""
     cases = []
     b, v = clustered_boxes(rng, 10, 1000)  # RPN: 2 images x 5 levels
     cases.append(("rpn 2x5 levels N=1000 iou=0.7", b, v, 0.7, None))
+    b, v = stacked_levels(rng, 2, 1000)
+    cases.append(("rpn stacked 2x(4x1000 + 819 padded) iou=0.7", b, v, 0.7, None))
     b, v = clustered_boxes(rng, 2, 2000)  # box head: class-offset candidates
     cls = rng.integers(0, 80, (2, 2000))
     cases.append(("box head B=2 N=2000 iou=0.5 max_keep=100", class_offset(b, cls), v, 0.5, 100))
+    b, v = stacked_levels(rng, 8, 2000)
+    cases.append(("train rpn stacked 8x(4x2000 + 819 padded) iou=0.7 max_keep=1000",
+                  b, v, 0.7, 1000))
     results = []
-    errs = []
     for name, boxes, valid, thr, mk in cases:
         tb = torch.from_numpy(boxes).to(dev)
         tv = torch.from_numpy(valid).to(dev)
@@ -276,26 +321,19 @@ def check_nms(rng, dev):
         want = greedy_keep_reference(tb, tv, thr, max_keep=mk)
         torch.cuda.synchronize()
         got, want = got.cpu().numpy(), want.cpu().numpy()
-        if mk is None:
-            if not np.array_equal(got, want):
-                raise AssertionError(f"nms_keep {name}: keep mask differs from the plain version")
-        for i in range(got.shape[0]):  # the prefix of max_keep survivors, what consumers read
-            g, w = np.flatnonzero(got[i]), np.flatnonzero(want[i])
-            k = len(w) if mk is None else min(mk, len(w))
-            if not np.array_equal(g[:k], w[:k]):
-                raise AssertionError(f"nms_keep {name}: survivors differ (image {i})")
-        equal = bool(np.array_equal(got, want))
-        errs.append(int(np.abs(got.astype(np.int8) - want.astype(np.int8)).max()))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"nms_keep {name}: keep mask differs from the plain version")
+        err = int(np.abs(got.astype(np.int8) - want.astype(np.int8)).max())
         ms = cuda_ms(lambda: greedy_keep(tb, tv, thr, max_keep=mk), reps=50)
-        plain_ms = cuda_ms(lambda: greedy_keep_reference(tb, tv, thr, max_keep=mk), reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: greedy_keep_reference(tb, tv, thr, max_keep=mk),
+                           reps=3, warmup=1)
         # Boxes and valid flags in, the keep mask out; the IoU of every pair
-        # of valid boxes.
-        v = valid.sum(axis=1).astype(np.float64)
+        # of valid boxes the greedy reaches.
         bound_ms, bound_by = bound(boxes.nbytes + 2 * valid.size,
-                                   NMS_OPS_PER_PAIR * float((v * (v - 1) / 2).sum()), torch.float32)
-        log(f"nms_keep   {name}: kept {int(got.sum())}, keep mask equal={equal}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        results.append({"case": name, "err": errs[-1], "ms": ms, "plain_ms": plain_ms,
+                                   NMS_OPS_PER_PAIR * nms_pairs(valid, want, mk), torch.float32)
+        log(f"nms_keep   {name}: kept {int(got.sum())}, keep mask equal, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        results.append({"case": name, "err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by})
     return results
 
@@ -715,6 +753,9 @@ def run_model(rng, dev):
     for name in ("nms_keep", "roi_patch_fwd", "fused_residual"):
         if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
+    if launches["nms_keep"] != NMS_PER_PREDICT * len(TURNS) * iters:
+        raise AssertionError(f"{launches['nms_keep']} nms_keep launches in {len(TURNS) * iters} "
+                             f"predicts, expected {NMS_PER_PREDICT} per predict")
     for fused, out in outs.items():
         check_outputs(cfg, out, batch, b, h, w, f"fused tail {'on' if fused else 'off'}")
     return launches, img_s
@@ -857,6 +898,9 @@ def run_train(dev):
     for name in ("nms_keep", "roi_patch_fwd", "roi_patch_bwd", "fused_residual"):
         if launches[name] == 0:
             raise AssertionError(f"the train step never launched {name}")
+    if launches["nms_keep"] != NMS_PER_STEP * len(TURNS) * iters:
+        raise AssertionError(f"{launches['nms_keep']} nms_keep launches in {len(TURNS) * iters} "
+                             f"steps, expected {NMS_PER_STEP} per step")
 
     for fused, (model, start, _, metrics) in runs.items():
         label = f"fused tail {'on' if fused else 'off'}"
@@ -920,9 +964,9 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
-    print(json.dumps({"kernels": [
+    print(json.dumps({"kernels": [  # nms_keep at the RPN's stacked levels, the main path's input
         kernel_line("nms_keep", NMS_SRC, tpu_kernel("*/ops/pallas/nms_keep.py", 161),
-                    launches["nms_keep"], nms[0], max(r["err"] for r in nms)),
+                    launches["nms_keep"], nms[1], max(r["err"] for r in nms)),
         kernel_line("roi_patch_fwd", ROI_SRC, tpu_kernel("*/ops/pallas/roi_patch.py", 667),
                     launches["roi_patch_fwd"], roi[0], max(r["err"] for r in roi)),
         kernel_line("roi_patch_bwd", ROI_SRC, tpu_kernel("*/ops/pallas/roi_patch.py", 440),

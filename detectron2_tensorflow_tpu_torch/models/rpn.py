@@ -4,8 +4,9 @@ selection.
 Port of the JAX package's ``models/rpn.py`` (``StandardRPNHead``,
 ``RPN.losses``, ``RPN.proposals``, ``add_ground_truth_to_proposals``).
 Proposals, per level and image: exact top-k of the objectness map in its own
-dtype, decode, clip, min-size mask, greedy NMS to a fixed budget; then a
-cross-level top-k to the ``POST_NMS_TOPK_*`` budget (``_TRAIN`` or ``_TEST``).
+dtype, decode, clip, min-size mask, greedy NMS to a fixed budget (all levels
+in one batch, ``ops.nms.nms_fixed_levels``); then a cross-level top-k to the
+``POST_NMS_TOPK_*`` budget (``_TRAIN`` or ``_TEST``).
 Losses: anchors matched to the GT by IoU, subsampled to
 ``BATCH_SIZE_PER_IMAGE``, sigmoid CE on objectness and L1 on the deltas of
 positives. All shapes are fixed and every image is independent, as under the
@@ -19,7 +20,7 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from ..ops.nms import nms_fixed
+from ..ops.nms import nms_fixed_levels
 from ..ops.topk import spatial_top_k, top_k
 from ..structures import Instances, boxes as box_ops
 from .anchors import build_anchor_generator
@@ -133,7 +134,7 @@ class RPN(nn.Module):
         pre_k = self.pre_nms_topk[training]
         post_k = self.post_nms_topk[training]
         b = logits[0].shape[0]
-        cand_boxes, cand_scores, cand_valid = [], [], []
+        levels = []
         for logit, delta, anchors in zip(logits, deltas, level_anchors):
             k = min(pre_k, logit[0].numel())
             top_scores, top_idx = spatial_top_k(logit, k)
@@ -143,13 +144,10 @@ class RPN(nn.Module):
             sel_deltas = torch.gather(flat, 1, top_idx[..., None].expand(b, k, 4)).float()
             boxes = self.box2box.apply_deltas(sel_deltas, sel_anchors)
             boxes = box_ops.clip(boxes, image_sizes)
-            valid = box_ops.nonempty(boxes, float(self.min_size))
-            nb, ns, _, nv = nms_fixed(boxes, top_scores, self.nms_thresh,
-                                      min(post_k, k), valid=valid,
-                                      presorted=True)
-            cand_boxes.append(nb)
-            cand_scores.append(ns)
-            cand_valid.append(nv)
+            levels.append((boxes, top_scores, box_ops.nonempty(boxes, float(self.min_size))))
+        # Every level's NMS in one keep-mask launch.
+        cand_boxes, cand_scores, cand_valid = zip(
+            *nms_fixed_levels(levels, self.nms_thresh, post_k))
         boxes = torch.cat(cand_boxes, 1)
         scores = torch.cat(cand_scores, 1)
         valid = torch.cat(cand_valid, 1)

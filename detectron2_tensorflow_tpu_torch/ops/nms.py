@@ -12,7 +12,9 @@ to the plain PyTorch version (:func:`greedy_keep_reference`), a CUDA tensor
 to the hand-written kernel ``csrc/nms_keep.cu``, which replaces the TPU
 kernel ``ops/pallas/nms_keep.py`` ``greedy_keep``. Both give the keep mask
 of the JAX package bit for bit (the IoU is ``structures.boxes.pairwise_iou``'s
-float32 arithmetic).
+float32 arithmetic). :func:`nms_fixed_levels` runs the NMS of several
+candidate sets (the RPN's levels) as one batch, so one keep-mask launch
+serves them all.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from ..structures import boxes as box_ops
 from .topk import top_k
 
 NEG_INF = -1e10
-MAX_N = 16384  # csrc/nms_keep.cu: 64-bit words, at most 8 per lane of one warp
+MAX_N = 16384  # csrc/nms_keep.cu: the sweep's "removed" vector of N / 64 words
+PAD_BOX = -1e8  # csrc/nms_keep.cu: a far-away box, which overlaps nothing
 
 
 def _mk(max_keep, n):
@@ -79,8 +82,9 @@ def _greedy_keep_cuda(sorted_boxes: torch.Tensor, sorted_valid: torch.Tensor,
     if sorted_boxes.data_ptr() % 16:
         raise ValueError("greedy_keep: boxes must be 16-byte aligned")
     lib = kernels.load("nms_keep")
-    col_blocks = -(-n // 64)
-    mask = torch.empty((b, n, col_blocks), dtype=torch.int64, device=sorted_boxes.device)
+    # The mask pass writes the upper triangle of [B, N, ceil(N / 64)] words
+    # and the sweep reads nothing else, so the scratch is left uninitialized.
+    mask = torch.empty((b, n, -(-n // 64)), dtype=torch.int64, device=sorted_boxes.device)
     keep = torch.empty((b, n), dtype=torch.bool, device=sorted_boxes.device)
     mk = _mk(max_keep, n)
     stream = torch.cuda.current_stream(sorted_boxes.device).cuda_stream
@@ -197,3 +201,39 @@ def class_aware_nms(boxes: torch.Tensor, scores: torch.Tensor,
     out_boxes = _gather_rows(boxes, out_indices)
     out_boxes = torch.where(out_valid[..., None], out_boxes, torch.zeros_like(out_boxes))
     return out_boxes, out_scores, out_indices, out_valid
+
+
+def nms_fixed_levels(levels, iou_threshold: float, max_outputs: int):
+    """:func:`nms_fixed` of each candidate set in ``levels``, in one batch.
+
+    ``levels`` holds ``(boxes [B, k_l, 4], scores [B, k_l], valid [B, k_l])``
+    per set, each score-sorted (``presorted``). The sets are padded at the
+    end to the largest ``k_l`` with invalid rows (score NEG_INF, the kernel's
+    far-away box) and stacked as ``[B x L, N]`` rows of one
+    :func:`nms_fixed` call with ``min(max_outputs, N)`` outputs. Returns
+    ``(boxes, scores, valid)`` per set, each cut to ``min(max_outputs,
+    k_l)`` slots: equal to the set's own ``nms_fixed(..., min(max_outputs,
+    k_l), presorted=True)``, since an invalid row is never kept and
+    suppresses nothing, a cap of ``min(max_outputs, N)`` binds only where
+    ``min(max_outputs, k_l)`` does, and the stable top-k puts the padded
+    rows after the set's own.
+    """
+    b = levels[0][1].shape[0]
+    n = max(scores.shape[1] for _, scores, _ in levels)
+
+    def pad(x, value):
+        extra = n - x.shape[1]
+        return x if extra == 0 else torch.cat([x, x.new_full((b, extra) + x.shape[2:], value)], 1)
+
+    boxes = torch.stack([pad(bx, PAD_BOX) for bx, _, _ in levels], 1).reshape(-1, n, 4)
+    scores = torch.stack([pad(s, NEG_INF) for _, s, _ in levels], 1).reshape(-1, n)
+    valid = torch.stack([pad(v, False) for _, _, v in levels], 1).reshape(-1, n)
+    m = min(max_outputs, n)
+    out_boxes, out_scores, _, out_valid = nms_fixed(boxes, scores, iou_threshold, m,
+                                                    valid=valid, presorted=True)
+    out_boxes = out_boxes.reshape(b, len(levels), m, 4)
+    out_scores = out_scores.reshape(b, len(levels), m)
+    out_valid = out_valid.reshape(b, len(levels), m)
+    cuts = [min(max_outputs, s.shape[1]) for _, s, _ in levels]
+    return [(out_boxes[:, l, :k], out_scores[:, l, :k], out_valid[:, l, :k])
+            for l, k in enumerate(cuts)]

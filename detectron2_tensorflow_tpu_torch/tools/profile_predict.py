@@ -7,8 +7,9 @@ Builds chip_smoke's model (Mask R-CNN R50-FPN, bf16, seeded random weights,
 size (default 2), and prints: images/s on the host clock around
 synchronized runs; from ``torch.profiler``, the device time per batch, the
 device's idle share (1 - device time / wall time), the device time by
-category (convs, GEMMs, the hand-written kernels, sorts, the rest) and
-the top kernels by device time. The full profiler table goes to
+category (convs, GEMMs, the hand-written kernels, sorts, the rest), each
+hand-written kernel's own device time (``nms_keep``'s mask pass and sweep
+apart) and the top kernels by device time. The full profiler table goes to
 ``profile_predict_b<batch>[_fused].txt`` in ``main``'s output directory. Set
 ``D2TPU_ENABLE_FUSED_EPILOGUE=1`` to profile the model with the fused
 bottleneck tail (``_fused`` in the file name).
@@ -100,6 +101,11 @@ def profile(fn, runs: int, label: str, out_file: Path) -> None:
         by_cat[category(e.key)] += e.self_device_time_total / runs
     for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {cat:28s} {us / 1000:8.3f} ms  {us / total_us:6.1%}")
+    print("  hand-written kernels, each:")
+    for e in sorted(events, key=lambda e: e.key):
+        if category(e.key).endswith(" kernel"):
+            print(f"    {e.self_device_time_total / runs / 1000:8.4f} ms  x{e.count // runs:<4d} "
+                  f"{e.key[:110]}")
     print("  top kernels:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / runs / 1000:8.3f} ms  x{e.count // runs:<4d} "

@@ -21,9 +21,18 @@ import numpy as np
 import pytest
 import torch
 
+from detectron2_tensorflow_tpu_torch import get_cfg, train_cfg
 from detectron2_tensorflow_tpu_torch.models import poolers
+from detectron2_tensorflow_tpu_torch.models.rpn import RPN
 from detectron2_tensorflow_tpu_torch.ops import fused_residual as fr
-from detectron2_tensorflow_tpu_torch.ops.nms import greedy_keep, greedy_keep_reference
+from detectron2_tensorflow_tpu_torch.ops.nms import (
+    MAX_N,
+    PAD_BOX,
+    greedy_keep,
+    greedy_keep_reference,
+    nms_fixed,
+    nms_fixed_levels,
+)
 from detectron2_tensorflow_tpu_torch.tools import exp_roi_variants as tv
 
 pytestmark = pytest.mark.cuda
@@ -44,10 +53,17 @@ def _boxes(rng, b, n, size=300.0):
     return np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
 
 
-@pytest.mark.parametrize("b,n", [(1, 1), (2, 63), (3, 64), (1, 65), (2, 1000), (1, 4097)])
-@pytest.mark.parametrize("thr,mk", [(0.3, None), (0.7, None), (0.5, 5)])
-def test_nms_keep_kernel_equals_plain(dev, b, n, thr, mk):
-    rng = np.random.default_rng(n)
+# (rows, N): every N at 1, 10 and 40 rows while the plain version's [R, N, N]
+# IoU temporaries stay a few GB (4097 up to 10 rows, 16384 at 1).
+NMS_SHAPES = [(r, n) for n in (1, 63, 64, 65, 819, 1000, 2000) for r in (1, 10, 40)] + [
+    (1, 4097), (10, 4097), (1, 16384)]
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.5, 0.7])
+@pytest.mark.parametrize("mk", [None, 5, 64, 100, 1000])
+@pytest.mark.parametrize("b,n", NMS_SHAPES)
+def test_nms_keep_kernel_equals_plain(dev, b, n, mk, thr):
+    rng = np.random.default_rng(n + b)
     boxes = torch.from_numpy(_boxes(rng, b, n)).to(dev)
     valid = torch.from_numpy(rng.uniform(0, 1, (b, n)) > 0.1).to(dev)
     got = greedy_keep(boxes, valid, thr, max_keep=mk)
@@ -55,14 +71,35 @@ def test_nms_keep_kernel_equals_plain(dev, b, n, thr, mk):
     assert torch.equal(got.cpu(), want.cpu())
 
 
-def test_nms_keep_kernel_degenerate_inputs(dev):
-    same = torch.tensor([[10.0, 10.0, 50.0, 50.0]], device=dev).repeat(1, 130, 1)
-    keep = greedy_keep(same, torch.ones(1, 130, dtype=torch.bool, device=dev), 0.5)
-    assert keep.cpu().tolist() == [[True] + [False] * 129]
-    none = greedy_keep(same, torch.zeros(1, 130, dtype=torch.bool, device=dev), 0.5)
-    assert not none.any()
-    empty = torch.zeros(1, 70, 4, device=dev)  # zero-area boxes never overlap
-    assert greedy_keep(empty, torch.ones(1, 70, dtype=torch.bool, device=dev), 0.5).all()
+@pytest.mark.parametrize("b,n,mk", [(10, 1000, None), (40, 2000, 1000), (3, 130, 5)])
+def test_nms_keep_kernel_rows_with_other_valid_counts(dev, b, n, mk):
+    """Rows of one call end their valid boxes at other places, as the RPN's
+    stacked levels do (p6's 819 rows padded to N with the far-away box)."""
+    rng = np.random.default_rng(b * n)
+    boxes = _boxes(rng, b, n)
+    valid = rng.uniform(0, 1, (b, n)) > 0.05
+    ends = rng.integers(0, n + 1, b)
+    ends[0], ends[-1] = n, min(819, n)
+    for r, e in enumerate(ends):
+        boxes[r, e:] = PAD_BOX
+        valid[r, e:] = False
+    boxes, valid = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+    want = greedy_keep_reference(boxes, valid, 0.7, max_keep=mk)
+    assert torch.equal(greedy_keep(boxes, valid, 0.7, max_keep=mk).cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("n", [1, 64, 65, 130, 1000])
+def test_nms_keep_kernel_degenerate_inputs(dev, n):
+    """All boxes identical (only the first kept), every row invalid (none),
+    zero-area boxes (never overlap: all kept, up to max_keep)."""
+    ones = torch.ones(3, n, dtype=torch.bool, device=dev)
+    same = torch.tensor([10.0, 10.0, 50.0, 50.0], device=dev).repeat(3, n, 1)
+    keep = greedy_keep(same, ones, 0.5)
+    assert keep.cpu().tolist() == [[True] + [False] * (n - 1)] * 3
+    assert not greedy_keep(same, torch.zeros_like(ones), 0.5).any()
+    flat = torch.zeros(3, n, 4, device=dev)
+    assert greedy_keep(flat, ones, 0.5).all()
+    assert greedy_keep(flat, ones, 0.5, max_keep=5).sum(1).tolist() == [min(5, n)] * 3
 
 
 def test_nms_keep_kernel_counts_launches_and_checks_inputs(dev):
@@ -71,10 +108,53 @@ def test_nms_keep_kernel_counts_launches_and_checks_inputs(dev):
     before = greedy_keep.launches
     greedy_keep(boxes, valid, 0.5)
     assert greedy_keep.launches == before + 1
-    with pytest.raises(ValueError):
-        greedy_keep(boxes.double(), valid, 0.5)
-    with pytest.raises(ValueError):
-        greedy_keep(boxes, valid.int(), 0.5)
+    big = MAX_N + 1
+    misaligned = torch.zeros(2 * 10 * 4 + 1, device=dev)[1:].view(2, 10, 4)
+    bad = [(boxes.double(), valid), (boxes, valid.int()), (misaligned, valid),
+           (torch.zeros(1, big, 4, device=dev), torch.ones(1, big, dtype=torch.bool, device=dev))]
+    for bad_boxes, bad_valid in bad:  # rejected before any launch, and not counted
+        with pytest.raises(ValueError):
+            greedy_keep(bad_boxes, bad_valid, 0.5)
+        assert greedy_keep.launches == before + 1
+
+
+def _rpn_inputs(rng, dev, b):
+    """Objectness logits and deltas of R50-FPN's RPN head at 800x1344 (p2-p6,
+    3 anchors), random."""
+    shapes = [(200, 336), (100, 168), (50, 84), (25, 42), (13, 21)]
+    logits = [torch.from_numpy(rng.normal(0, 2, (b, h, w, 3)).astype(np.float32)).to(dev)
+              for h, w in shapes]
+    deltas = [torch.from_numpy(rng.normal(0, 0.3, (b, h, w, 12)).astype(np.float32)).to(dev)
+              for h, w in shapes]
+    return logits, deltas, torch.tensor([[800, 1333]] * b, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_rpn_proposals_launch_nms_keep_once(dev, training):
+    """One RPN ``proposals`` call on the card (serving and training budgets)
+    launches the keep mask once for its five levels, and the stacked levels'
+    NMS equals the per-level loop."""
+    cfg = train_cfg(2) if training else get_cfg()
+    rpn = RPN(cfg, [4, 8, 16, 32, 64], 16).to(dev)
+    logits, deltas, sizes = _rpn_inputs(np.random.default_rng(int(training)), dev, 2)
+    before = greedy_keep.launches
+    props = rpn.proposals(logits, deltas, sizes, training=training)
+    assert greedy_keep.launches == before + 1
+    assert 0 < int(props.is_valid.sum()) <= props.is_valid.numel()
+    # The stacked levels against the per-level loop, on the card.
+    pre_k, post_k = rpn.pre_nms_topk[training], rpn.post_nms_topk[training]
+    levels = []
+    for logit in logits:
+        k = min(pre_k, logit[0].numel())
+        scores = torch.sort(logit.reshape(2, -1), dim=1, descending=True, stable=True)[0][:, :k]
+        boxes = torch.from_numpy(_boxes(np.random.default_rng(k), 2, k)).to(dev)
+        levels.append((boxes, scores.contiguous(), scores > -1.0))
+    stacked = nms_fixed_levels(levels, rpn.nms_thresh, post_k)
+    for (boxes, scores, valid), got in zip(levels, stacked):
+        want = nms_fixed(boxes, scores, rpn.nms_thresh, min(post_k, boxes.shape[1]),
+                         valid=valid, presorted=True)
+        for g, w in zip(got, (want[0], want[1], want[3])):
+            assert torch.equal(g, w)
 
 
 def _roi_case(rng, dev, dtype, b, n, s, p, c):

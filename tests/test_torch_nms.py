@@ -1,7 +1,14 @@
-"""The port's NMS (plain keep mask, ``nms_fixed``, ``class_aware_nms``)
-against the JAX package's Pallas kernel in interpret mode and its XLA sweep.
-Keep masks are compared exactly; with ``max_keep``, on the prefix of
-``max_keep`` survivors, which is what every consumer reads."""
+"""The port's NMS (plain keep mask, ``nms_fixed``, ``class_aware_nms``,
+``nms_fixed_levels``) against the JAX package's Pallas kernel in interpret
+mode and its XLA sweep. Keep masks are compared exactly; against the JAX
+package with ``max_keep``, on the prefix of ``max_keep`` survivors, which is
+what every consumer reads (the Pallas kernel stops after the block that
+reaches ``max_keep``, the port after that survivor).
+
+``block_sweep_model`` is a numpy model of ``csrc/nms_keep.cu``, which cannot
+run here: the upper-triangle mask of 64-bit words with the validity bit on
+the diagonal, and the sweep settled one 64-row block at a time with the
+``max_keep`` cut inside a block."""
 
 import jax
 import jax.numpy as jnp
@@ -14,11 +21,13 @@ from detectron2_tensorflow_tpu.ops import nms as jax_nms
 from detectron2_tensorflow_tpu.ops import nms_fixed as jax_nms_fixed
 from detectron2_tensorflow_tpu.ops.pallas.nms_keep import greedy_keep as pallas_keep
 from detectron2_tensorflow_tpu_torch.ops.nms import (
+    PAD_BOX,
     class_aware_nms,
     greedy_keep,
     greedy_keep_reference,
     nms,
     nms_fixed,
+    nms_fixed_levels,
 )
 
 
@@ -153,3 +162,169 @@ def test_greedy_keep_rejects_other_devices():
     boxes = torch.zeros((1, 4, 4), device="meta")
     with pytest.raises(RuntimeError, match="no implementation"):
         greedy_keep(boxes, torch.ones((1, 4), dtype=torch.bool, device="meta"), 0.5)
+
+
+def _iou_over(rows, cols, thr):
+    """``[R, C]`` overlap flags in the kernel's float32 operations and order
+    (numpy rounds every operation and never contracts one into an FMA)."""
+    a, c = rows[:, None, :], cols[None, :, :]
+    zero = np.float32(0)
+
+    def area(b):
+        return np.maximum(b[..., 2] - b[..., 0], zero) * np.maximum(b[..., 3] - b[..., 1], zero)
+
+    iw = np.maximum(np.minimum(a[..., 2], c[..., 2]) - np.maximum(a[..., 0], c[..., 0]), zero)
+    ih = np.maximum(np.minimum(a[..., 3], c[..., 3]) - np.maximum(a[..., 1], c[..., 1]), zero)
+    inter = iw * ih
+    uni = (area(a) + area(c)) - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = np.where(uni > 0, inter / np.maximum(uni, np.float32(1e-8)), zero)
+    return iou > np.float32(thr)
+
+
+def block_sweep_model(boxes, valid, thr, max_keep=None):
+    """The kernel's keep mask, step for step: the mask pass writes, for each
+    row i and column block cb >= i's block, a 64-bit word whose bit k says
+    box 64*cb + k (> i) overlaps box i; invalid rows write zero words, and
+    on the diagonal a valid row sets its own bit. The sweep takes the row
+    blocks in order: candidates are the diagonal words' own bits not yet
+    removed; the candidates that overlap a later candidate are visited in
+    order, each still present removing what it overlaps; the rest are kept,
+    cut to the first ``max_keep`` survivors; then the kept rows' words of
+    the later column blocks are ORed into ``removed``. Words below the
+    diagonal do not exist, so reading one raises ``KeyError``."""
+    n = len(boxes)
+    blocks = -(-n // 64)
+    cols = np.concatenate([boxes, np.full((blocks * 64 - n, 4), PAD_BOX, np.float32)])
+    words = {}
+    for rb in range(blocks):
+        rows = np.arange(rb * 64, min(rb * 64 + 64, n))
+        for cb in range(rb, blocks):
+            over = _iou_over(cols[rows], cols[cb * 64:cb * 64 + 64], thr)
+            if cb == rb:
+                over &= np.arange(64)[None, :] > (rows - rb * 64)[:, None]
+                over[np.arange(len(rows)), rows - rb * 64] = True
+            over &= valid[rows][:, None]
+            packed = np.packbits(over, axis=1, bitorder="little").view("<u8")[:, 0]
+            words.update({(int(i), cb): int(w) for i, w in zip(rows, packed)})
+    limit = n if max_keep is None else max_keep
+    removed = [0] * blocks
+    keep = np.zeros(n, bool)
+    kept = 0
+    for rb in range(blocks):
+        diag = [words[rb * 64 + k, rb] if rb * 64 + k < n else 0 for k in range(64)]
+        word = sum(d & (1 << k) for k, d in enumerate(diag)) & ~removed[rb]
+        over = [diag[k] & word & ~(1 << k) if word >> k & 1 else 0 for k in range(64)]
+        for k in range(64):  # the candidates that overlap a later one, in order
+            if over[k] and word >> k & 1:
+                word &= ~over[k]
+        rows = [k for k in range(64) if word >> k & 1][:limit - kept]
+        kept += len(rows)
+        keep[[rb * 64 + k for k in rows]] = True
+        if kept >= limit:
+            break
+        for k in rows:
+            for cb in range(rb + 1, blocks):
+                removed[cb] |= words[rb * 64 + k, cb]
+    return keep
+
+
+def _chained(n):
+    x0 = 6.0 * np.arange(n, dtype=np.float32)
+    boxes = np.stack([x0, np.zeros(n, np.float32), x0 + 10.0,
+                      np.full(n, 10.0, np.float32)], axis=1)
+    return boxes, np.ones(n, bool)
+
+
+def _cut(survivors, cut):
+    """``max_keep`` for a cut ``inside`` a block (between two survivors of
+    the middle block that holds two), ``at`` a block boundary (after the
+    middle block with survivors), or ``above`` the survivors."""
+    blk = survivors // 64
+    if cut == "above":
+        return len(survivors) + 1
+    if cut == "inside":
+        pairs = np.flatnonzero(blk[1:] == blk[:-1]) + 1
+        return int(pairs[len(pairs) // 2])
+    ends = np.flatnonzero(np.diff(blk)) + 1
+    return int(ends[len(ends) // 2]) if len(ends) else len(survivors)
+
+
+@pytest.mark.parametrize("kind,n,cut", [
+    ("random", n, cut) for n in (63, 64, 65, 130, 1000)
+    for cut in (None, "inside", "at", "above")] + [
+    ("chained", 256, cut) for cut in (None, "inside", "at")])
+def test_block_sweep_model_matches_reference_and_pallas(kind, n, cut):
+    """The kernel's algorithm (numpy model) against the plain keep mask and
+    the Pallas kernel in interpret mode; the chained case's suppression chain
+    crosses every block."""
+    thr = 0.2 if kind == "chained" else 0.5
+    if kind == "chained":
+        boxes, valid = _chained(n)
+    else:
+        boxes, valid = _sorted_inputs(np.random.default_rng(n + 7), n)
+    tb, tv = torch.from_numpy(boxes)[None], torch.from_numpy(valid)[None]
+    survivors = np.flatnonzero(greedy_keep_reference(tb, tv, thr)[0].numpy())
+    mk = None if cut is None else _cut(survivors, cut)
+    got = block_sweep_model(boxes, valid, thr, mk)
+    want = greedy_keep_reference(tb, tv, thr, max_keep=mk)[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    pallas = np.asarray(pallas_keep(jnp.asarray(boxes), jnp.asarray(valid), thr,
+                                    max_keep=mk, interpret=True))
+    k = len(survivors) if mk is None else mk
+    np.testing.assert_array_equal(np.flatnonzero(got), np.flatnonzero(pallas)[:k])
+    if kind == "chained":
+        np.testing.assert_array_equal(survivors, np.arange(0, n, 2))
+
+
+def _level_candidates(rng, b, k):
+    """One RPN level's score-sorted candidates on an 800x1333 image: jittered
+    copies of a few objects, scores on a 0.01 grid (ties), 8% invalid."""
+    ctr = rng.uniform([0, 0], [1333, 800], (b, 60, 2))
+    size = np.exp(rng.uniform(np.log(16), np.log(400), (b, 60, 2)))
+    pick = rng.integers(0, 60, (b, k))
+    c = np.take_along_axis(ctr, pick[..., None], 1) + rng.normal(0, 5, (b, k, 2))
+    s = np.take_along_axis(size, pick[..., None], 1) * rng.uniform(0.8, 1.2, (b, k, 2))
+    boxes = np.clip(np.concatenate([c - s / 2, c + s / 2], -1), 0, [1333, 800, 1333, 800])
+    scores = -np.sort(-np.round(rng.normal(0, 2, (b, k)), 2), axis=1)
+    valid = rng.uniform(0, 1, (b, k)) > 0.08
+    return (torch.from_numpy(boxes.astype(np.float32)), torch.from_numpy(scores.astype(np.float32)),
+            torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("pre_k,post_k", [(1000, 1000), (2000, 1000)], ids=["serving", "training"])
+def test_nms_fixed_levels_equal_the_per_level_loop(pre_k, post_k):
+    """The RPN's levels at 800x1344 (p2-p5 at the pre-NMS budget, p6's 13 x
+    21 x 3 = 819), batch 2, stacked into one NMS batch: each level's boxes,
+    scores and valid slots equal its own ``nms_fixed``."""
+    rng = np.random.default_rng(pre_k)
+    levels = [_level_candidates(rng, 2, k) for k in (pre_k,) * 4 + (819,)]
+    got = nms_fixed_levels(levels, 0.7, post_k)
+    assert [g[0].shape[1] for g in got] == [min(post_k, l[1].shape[1]) for l in levels]
+    for (boxes, scores, valid), (g_boxes, g_scores, g_valid) in zip(levels, got):
+        w_boxes, w_scores, _, w_valid = nms_fixed(boxes, scores, 0.7, min(post_k, boxes.shape[1]),
+                                                  valid=valid, presorted=True)
+        assert torch.equal(g_boxes, w_boxes)
+        assert torch.equal(g_scores, w_scores)
+        assert torch.equal(g_valid, w_valid)
+        assert 0 < int(g_valid.sum()) < g_valid.numel()
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.5, 0.7, 0.05, 0.95, 0.123456])
+def test_threshold_test_without_division_equals_divided_iou(thr):
+    """The kernel's threshold test: RN(inter / u) > thr iff inter > mid * u
+    in float64, mid the midpoint between thr and the next float32 up. Held
+    against numpy's correctly rounded float32 division on random pairs and
+    on quotients within a few ulps of the threshold."""
+    rng = np.random.default_rng(int(thr * 1e6))
+    t = np.float32(thr)
+    mid = 0.5 * (np.float64(t) + np.float64(np.nextafter(t, np.float32(np.inf))))
+    u = np.exp(rng.uniform(np.log(1e-8), np.log(1e7), 400_000)).astype(np.float32)
+    near = (np.float64(t) * u).astype(np.float32)
+    steps = rng.integers(-4, 5, u.size).astype(np.int32)
+    near = (near.view(np.int32) + steps).view(np.float32)
+    inter = np.concatenate([(u * rng.uniform(0, 1, u.size)).astype(np.float32), near])
+    u = np.concatenate([u, u])
+    divided = (inter / u) > t
+    assert divided.any() and not divided.all()
+    np.testing.assert_array_equal(inter.astype(np.float64) > mid * u.astype(np.float64), divided)
