@@ -14,7 +14,10 @@ any failure exits non-zero:
      card at the slices' shapes (inputs from a seeded numpy generator) and
      both are timed with CUDA events after warm-up, beside the least time
      the card could take (bound) and, for the fused bottleneck tail, the
-     port's unfused tail as the PyTorch yardstick. ``nms_keep``'s keep masks
+     port's unfused tail as the PyTorch yardstick. The fused tail is held
+     at R50's four tail shapes at batch 2 and 8, each on the persistent
+     ``wgmma`` path, and its host cost per call is read on that path and on
+     the ``mma.sync`` one. ``nms_keep``'s keep masks
      are bit-equal at serving's RPN (10 x 1000, and stacked with p6's 819
      rows padded to 1000), the box head (2 x 2000, ``max_keep`` 100) and
      training's stacked RPN (40 x 2000, ``max_keep`` 1000);
@@ -28,8 +31,9 @@ any failure exits non-zero:
      with ``D2TPU_ENABLE_FUSED_EPILOGUE`` unset and set, and serves a seeded
      random 2 x 800 x 1344 bf16 batch through ``model.predict(batch)`` in
      turns (off, on, on, off, twice); the kernels' launch counts are read
-     around that run (16 fused tails per ``predict`` with the switch on, 0
-     off; 2 ``nms_keep`` launches per ``predict``); outputs are checked,
+     around that run (16 fused tails per ``predict`` with the switch on,
+     all on the ``wgmma`` path, 0 off; 2 ``nms_keep`` launches per
+     ``predict``); outputs are checked,
      and a narrow float32 model is held against the same model run on the
      CPU (where every kernel takes its plain version) on a small input,
      switch off and on;
@@ -38,7 +42,8 @@ any failure exits non-zero:
      and 8 x 3 timed steps in turns on a seeded 8 x 800 x 1344 batch
      through ``create_train_state`` + ``build_train_step``; the launch
      counts are read around the timed steps (16 fused tails per step with
-     the switch on, 1 ``nms_keep`` launch per step); losses must be finite,
+     the switch on, all on the ``wgmma`` path, 1 ``nms_keep`` launch per
+     step); losses must be finite,
      the frozen stem and res2 unchanged bit for bit, every trainable
      parameter changed; and a narrow
      float32 train step on 2 x 128 x 160 is held against the same step on
@@ -138,7 +143,7 @@ TRAIN_GRAD_TOL = 1e-4
 # the same float32 products in other orders and round once. float32: 1e-5 of
 # the largest value. bf16: one bf16 ulp of each value, plus that float32
 # tolerance where the sum cancels near zero (a float32 difference there is
-# larger than the ulp of the tiny result).
+# larger than the ulp of the tiny result): within_tolerance.
 FUSED_TOL_F32 = 1e-5
 # The bottleneck tails of R50 at 800 x 1344: (stage, K, N, H, W).
 R50_TAILS = (("res2", 64, 256, 200, 336), ("res3", 128, 512, 100, 168),
@@ -197,6 +202,8 @@ COUNTERS = {"nms_keep": greedy_keep, "roi_patch_fwd": roi_patch_interpolate,
 def zero_launches() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
+    fused_conv1x1_bn_add_relu.launches_by_path.update(
+        dict.fromkeys(fused_conv1x1_bn_add_relu.launches_by_path, 0))
 
 
 def read_launches() -> dict:
@@ -529,6 +536,20 @@ def tail_inputs(rng, dev, dtype, b, h, w, k, n):
             shift.to(dev), sc.to(dev, dtype).permute(0, 3, 1, 2))
 
 
+def tail_bytes(m: int, k: int, n: int, esize: int) -> int:
+    """Bytes a tail must move: x, the weight and the shortcut in, the output
+    out, each once, and scale and shift (float32)."""
+    return (m * k + n * k + 2 * m * n) * esize + 2 * n * 4
+
+
+def within_tolerance(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """bf16 ``got`` within one ulp of each value plus ``FUSED_TOL_F32`` of the largest."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((got - want).abs() <= ulp + FUSED_TOL_F32 * float(want.abs().max())).all())
+
+
 def unfused_tail(x, weight, scale, shift, sc):
     """The port's unfused tail (``Conv2d`` with FrozenBN, then add and ReLU):
     cuDNN's 1x1 conv, the affine in the activation dtype, the add, the ReLU."""
@@ -540,18 +561,24 @@ def unfused_tail(x, weight, scale, shift, sc):
 
 def check_fused(rng, dev):
     """``fused_residual`` against its plain version at R50's four tail shapes
-    (batch 2, 800 x 1344, bf16), at a ragged shape (M = 63 rows, K = 8,
-    N = 32) in bf16 and float32, and at res4's shape in float32; timed beside
-    the plain version, the bound and the port's unfused tail."""
-    cases = [(f"{st} M={2 * h * w} K={k} N={n}", torch.bfloat16, (2, h, w, k, n))
-             for st, k, n, h, w in R50_TAILS]
+    (800 x 1344, bf16) at batch 2 and 8, where each must take the Hopper
+    (``wgmma``) path, at a ragged shape (M = 63 rows, K = 8, N = 32) in bf16
+    and float32, and at res4's shape in float32; timed beside the plain
+    version, the bound and the port's unfused tail. Then the host cost of a
+    call on each bf16 path (the Hopper path encodes four TMA maps a call)."""
+    cases = [(f"{st} b{b} M={b * h * w} K={k} N={n}", torch.bfloat16, (b, h, w, k, n))
+             for b in (2, 8) for st, k, n, h, w in R50_TAILS]
     cases += [("ragged M=63 K=8 N=32", torch.bfloat16, (1, 7, 9, 8, 32)),
               ("ragged M=63 K=8 N=32", torch.float32, (1, 7, 9, 8, 32)),
               ("res4 M=8400 K=256 N=1024", torch.float32, (2, 50, 84, 256, 1024))]
     results = []
     for label, dtype, (b, h, w, k, n) in cases:
         args = tail_inputs(rng, dev, dtype, b, h, w, k, n)
+        before = fused_conv1x1_bn_add_relu.launches_by_path["wgmma"]
         got = fused_conv1x1_bn_add_relu(*args)
+        if label.startswith("res") and dtype == torch.bfloat16 and (
+                fused_conv1x1_bn_add_relu.launches_by_path["wgmma"] != before + 1):
+            raise AssertionError(f"fused_residual {label}: did not take the wgmma path")
         want = fused_conv1x1_bn_add_relu_reference(*args)
         torch.cuda.synchronize()
         if got.shape != (b, n, h, w) or not got.is_contiguous(memory_format=torch.channels_last):
@@ -559,13 +586,10 @@ def check_fused(rng, dev):
                                  "channels_last [B, N, H, W]")
         gotf, wantf = got.float(), want.float()
         err = (gotf - wantf).abs()
-        slack = FUSED_TOL_F32 * float(wantf.abs().max())
         if dtype == torch.float32:
-            ok = float(err.max()) <= slack
+            ok = float(err.max()) <= FUSED_TOL_F32 * float(wantf.abs().max())
         else:
-            mag = torch.maximum(gotf.abs(), wantf.abs()).clamp_min(torch.finfo(torch.float32).tiny)
-            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-            ok = bool((err <= ulp + slack).all())
+            ok = within_tolerance(got, want)
         name = f"{label} {str(dtype).replace('torch.', '')}"
         if not ok:
             raise AssertionError(f"fused_residual {name}: max |err| {float(err.max())} beyond "
@@ -574,14 +598,43 @@ def check_fused(rng, dev):
         plain_ms = cuda_ms(lambda: fused_conv1x1_bn_add_relu_reference(*args), reps=3, warmup=1)
         library_ms = cuda_ms(lambda: unfused_tail(*args), reps=20)
         m, esize = b * h * w, got.element_size()
-        bound_ms, bound_by = bound((m * k + n * k + 2 * m * n) * esize + 2 * n * 4,
-                                   2.0 * m * n * k, dtype)
+        bound_ms, bound_by = bound(tail_bytes(m, k, n, esize), 2.0 * m * n * k, dtype)
         log(f"fused_res  {name}: max|err| {float(err.max()):.3g} (max|out| "
             f"{float(wantf.abs().max()):.3g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"unfused tail {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"unfused tail {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.0%} of bound")
         results.append({"case": name, "err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+    log(f"fused_res  host cost per call at res4 b2 (host clock, 200 calls): "
+        f"{host_cost_us(rng, dev)}")
     return results
+
+
+def host_cost_us(rng, dev) -> str:
+    """Host microseconds per wrapper call at res4's batch-2 shape on the
+    ``wgmma`` path and on the ``mma`` path (x at a 2-byte storage offset):
+    the difference is mostly the four TMA maps the Hopper path encodes."""
+    _, k, n, h, w = R50_TAILS[2]
+    args = tail_inputs(rng, dev, torch.bfloat16, 2, h, w, k, n)
+    buf = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = buf[1:].view(2, h, w, k).permute(0, 3, 1, 2)
+    shifted.copy_(args[0])
+    per_path = {}
+    for path, xs in (("wgmma", args[0]), ("mma", shifted)):
+        before = fused_conv1x1_bn_add_relu.launches_by_path[path]
+        for _ in range(20):
+            fused_conv1x1_bn_add_relu(xs, *args[1:])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fused_conv1x1_bn_add_relu(xs, *args[1:])
+        per_path[path] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        if fused_conv1x1_bn_add_relu.launches_by_path[path] != before + 220:
+            raise AssertionError(f"host cost: the {path} case took another path")
+    return (f"wgmma {per_path['wgmma']:.1f} us, mma {per_path['mma']:.1f} us, difference x "
+            f"{FUSED_TAILS} tails {(per_path['wgmma'] - per_path['mma']) * FUSED_TAILS / 1e3:.3f} "
+            "ms per predict")
 
 
 def check_variants(dev):
@@ -734,22 +787,25 @@ def run_model(rng, dev):
     zero_launches()
     for fused in TURNS:
         before = fused_conv1x1_bn_add_relu.launches
+        before_wgmma = fused_conv1x1_bn_add_relu.launches_by_path["wgmma"]
         t0 = time.perf_counter()
         for _ in range(iters):
             outs[fused] = models[fused].predict(batch)
         torch.cuda.synchronize()
         rates[fused].append(b * iters / (time.perf_counter() - t0))
         tails = fused_conv1x1_bn_add_relu.launches - before
-        if tails != (FUSED_TAILS * iters if fused else 0):
-            raise AssertionError(f"{tails} fused tails in {iters} predicts with the switch "
-                                 f"{'on' if fused else 'off'}")
+        hopper = fused_conv1x1_bn_add_relu.launches_by_path["wgmma"] - before_wgmma
+        if tails != (FUSED_TAILS * iters if fused else 0) or hopper != tails:
+            raise AssertionError(f"{tails} fused tails ({hopper} on the wgmma path) in "
+                                 f"{iters} predicts with the switch {'on' if fused else 'off'}")
     launches = read_launches()
     img_s = {fused: float(np.median(r)) for fused, r in rates.items()}
     log(f"model      predict in turns {''.join('N' if f else 'F' for f in TURNS)} (F off, N on), "
         f"{iters} runs each, batch {b} at {h}x{w}: fused tail off {img_s[False]:.2f} img/s "
         f"median (windows {', '.join(f'{r:.2f}' for r in rates[False])}), on "
         f"{img_s[True]:.2f} img/s (windows {', '.join(f'{r:.2f}' for r in rates[True])}); "
-        f"launches {launches}, {FUSED_TAILS} fused tails per predict with the switch on")
+        f"launches {launches}, {FUSED_TAILS} fused tails per predict with the switch on, all "
+        f"on the wgmma path ({fused_conv1x1_bn_add_relu.launches_by_path})")
     for name in ("nms_keep", "roi_patch_fwd", "fused_residual"):
         if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
@@ -878,22 +934,25 @@ def run_train(dev):
     for fused in TURNS:
         _, _, step, metrics = runs[fused]
         before = fused_conv1x1_bn_add_relu.launches
+        before_wgmma = fused_conv1x1_bn_add_relu.launches_by_path["wgmma"]
         t0 = time.perf_counter()
         for _ in range(iters):
             metrics.append(step(batch))
         torch.cuda.synchronize()
         rates[fused].append(b * iters / (time.perf_counter() - t0))
         tails = fused_conv1x1_bn_add_relu.launches - before
-        if tails != (FUSED_TAILS * iters if fused else 0):
-            raise AssertionError(f"{tails} fused tails in {iters} steps with the switch "
-                                 f"{'on' if fused else 'off'}")
+        hopper = fused_conv1x1_bn_add_relu.launches_by_path["wgmma"] - before_wgmma
+        if tails != (FUSED_TAILS * iters if fused else 0) or hopper != tails:
+            raise AssertionError(f"{tails} fused tails ({hopper} on the wgmma path) in "
+                                 f"{iters} steps with the switch {'on' if fused else 'off'}")
     launches = read_launches()
     img_s = {fused: float(np.median(r)) for fused, r in rates.items()}
     log(f"train      steps in turns {''.join('N' if f else 'F' for f in TURNS)} (F off, N on), "
         f"{iters} each, batch {b} at {h}x{w}: fused tail off {img_s[False]:.2f} img/s median "
         f"(windows {', '.join(f'{r:.2f}' for r in rates[False])}), on {img_s[True]:.2f} img/s "
         f"(windows {', '.join(f'{r:.2f}' for r in rates[True])}); launches {launches}, "
-        f"{FUSED_TAILS} fused tails per step with the switch on; peak memory "
+        f"{FUSED_TAILS} fused tails per step with the switch on, all on the wgmma path "
+        f"({fused_conv1x1_bn_add_relu.launches_by_path}); peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
     for name in ("nms_keep", "roi_patch_fwd", "roi_patch_bwd", "fused_residual"):
         if launches[name] == 0:

@@ -42,7 +42,7 @@ SIGNATURES = {
     "roi_patch": {"roi_patch_fwd_launch": _ROI_ARGS, "roi_patch_bwd_launch": _ROI_ARGS,
                   "roi_patch_variant_launch": _ROI_ARGS[:-1] + [_I, _P]},
     "fused_residual": {
-        "fused_conv1x1_bn_add_relu_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+        "fused_conv1x1_bn_add_relu_launch": [_P] * 6 + [_I] * 5 + [_P]},
 }
 
 _lock = threading.Lock()

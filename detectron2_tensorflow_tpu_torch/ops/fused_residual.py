@@ -13,6 +13,10 @@ CPU tensor goes to the plain PyTorch version
 (:func:`fused_conv1x1_bn_add_relu_reference`), a CUDA tensor to the
 hand-written kernel ``csrc/fused_residual.cu``, which replaces the TPU
 kernel ``ops/pallas/fused_residual.py`` ``fused_conv1x1_bn_add_relu``.
+:func:`plan_tail` picks the kernel and its launch geometry from the shape,
+the dtype and the alignment alone: the persistent ``wgmma``/TMA kernel for
+bf16 with K and N multiples of 8 on 16-byte-aligned tensors (all of R50's
+tails), the ``mma.sync`` kernel for any other bf16, FFMA for float32.
 
 The path is opt-in, as in the JAX package: :func:`fused_epilogue_supported`
 is true only when ``D2TPU_ENABLE_FUSED_EPILOGUE`` is set to any non-empty
@@ -22,7 +26,10 @@ value (``"0"`` included: the JAX package tests the variable's truthiness).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import os
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -30,7 +37,74 @@ from .. import kernels
 
 ENV_SWITCH = "D2TPU_ENABLE_FUSED_EPILOGUE"
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+# The C entry's path codes.
+PATHS = {"ffma": 0, "mma": 1, "wgmma": 2}
+# The Hopper kernel's output tile (rows, columns) and the stages of its
+# shared-memory ring, as ``csrc/fused_residual.cu`` is built: with the
+# shortcut's two buffers they fill the 227 KB a block may use.
+WGMMA_TILE = (64, 256, 4)
+# The H100 SXM's streaming multiprocessors: the persistent grid's default.
+H100_SMS = 132
+
+
+class TailPlan(NamedTuple):
+    """Which kernel a tail takes and how it is launched: ``path`` (a key of
+    :data:`PATHS`), the output tile ``bm`` x ``bn``, the ``stages`` of the
+    operand ring, the ``grid`` (``wgmma``: the persistent blocks and 1; the
+    others: blocks along N and along M), the output ``tiles`` and the
+    ``rounds``, the most tiles one block takes."""
+    path: str
+    bm: int
+    bn: int
+    stages: int
+    grid: Tuple[int, int]
+    tiles: int
+    rounds: int
+
+
+def plan_tail(m: int, k: int, n: int, dtype: torch.dtype, aligned: bool,
+              sms: int = H100_SMS) -> TailPlan:
+    """The launch of an ``[m, k] x [k, n]`` tail, from the shape, the dtype
+    and whether every operand starts on a 16-byte boundary.
+
+    bf16 with ``k`` and ``n`` multiples of 8 on aligned tensors (what TMA
+    takes) goes to the persistent ``wgmma`` kernel: at most one block per SM
+    (``sms``), each walking 64 x 256 output tiles, N fastest. With 64-row
+    tiles the blocks' rounds are, over all of them, at least 99% full at
+    every R50 tail at batch 2 and 8 (``tiles / (rounds * grid)``). Any other
+    bf16 goes to the ``mma.sync`` kernel, float32 to FFMA, one block a tile.
+    The C entry takes the path and, for ``wgmma``, the grid; the tiles and
+    stages here mirror the kernels' own constants.
+    """
+    if dtype == torch.float32:
+        return _one_tile_a_block("ffma", 64, 64, 1, m, n)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"plan_tail: no kernel for {dtype}")
+    if not (aligned and k % 8 == 0 and n % 8 == 0):
+        return _one_tile_a_block("mma", 128, 128, 2, m, n)
+    bm, bn, stages = WGMMA_TILE
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    grid = min(tiles, sms)
+    return TailPlan("wgmma", bm, bn, stages, (grid, 1), tiles,
+                    math.ceil(tiles / grid) if grid else 0)
+
+
+def _one_tile_a_block(path, bm, bn, stages, m, n):
+    grid = (math.ceil(n / bn), math.ceil(m / bm))
+    return TailPlan(path, bm, bn, stages, grid, grid[0] * grid[1], 1)
+
+
+def operands_aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary, as TMA
+    needs (a view with a storage offset may not)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fused_epilogue_enabled() -> bool:
@@ -85,7 +159,7 @@ def fused_conv1x1_bn_add_relu_reference(x: torch.Tensor, weight: torch.Tensor,
 
 def _check_cuda_inputs(x, weight, scale, shift, shortcut):
     what = "fused_conv1x1_bn_add_relu"
-    if x.dim() != 4 or x.dtype not in _DTYPE_CODES:
+    if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"{what}: x must be a float32/bfloat16 [B, K, H, W]")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"{what}: x must be channels_last-contiguous")
@@ -110,14 +184,17 @@ def _check_cuda_inputs(x, weight, scale, shift, shortcut):
 def _fused_cuda(x, weight, scale, shift, shortcut):
     m, k, n = _check_cuda_inputs(x, weight, scale, shift, shortcut)
     out = torch.empty_like(shortcut, memory_format=torch.channels_last)
+    plan = plan_tail(m, k, n, x.dtype, operands_aligned(x, weight, shortcut, out),
+                     _sm_count(x.device.index))
     lib = kernels.load("fused_residual")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_conv1x1_bn_add_relu_launch(
         x.data_ptr(), weight.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        shortcut.data_ptr(), out.data_ptr(), m, k, n, _DTYPE_CODES[x.dtype],
+        shortcut.data_ptr(), out.data_ptr(), m, k, n, PATHS[plan.path], plan.grid[0],
         ctypes.c_void_p(stream),
     )
     fused_conv1x1_bn_add_relu.launches += 1
+    fused_conv1x1_bn_add_relu.launches_by_path[plan.path] += 1
     kernels.check(rc, "fused_conv1x1_bn_add_relu_launch")
     return out
 
@@ -182,11 +259,13 @@ def fused_conv1x1_bn_add_relu(x: torch.Tensor, weight: torch.Tensor, scale: torc
     ``scale``/``shift`` float32 ``[N]``, ``shortcut`` ``[B, N, H, W]`` in
     ``x``'s dtype; returns ``[B, N, H, W]`` (``channels_last``). CPU tensors
     take :func:`fused_conv1x1_bn_add_relu_reference`; CUDA tensors the
-    kernel (``fused_conv1x1_bn_add_relu.launches`` counts its launches),
-    which takes only ``channels_last``-contiguous ``x`` and ``shortcut`` and
-    raises on any other layout, dtype or device.
+    kernel of :func:`plan_tail` (``fused_conv1x1_bn_add_relu.launches``
+    counts the launches, ``.launches_by_path`` each path's), which takes
+    only ``channels_last``-contiguous ``x`` and ``shortcut`` and raises on
+    any other layout, dtype or device.
     """
     return FusedConv1x1BnAddRelu.apply(x, weight, scale, shift, shortcut)
 
 
 fused_conv1x1_bn_add_relu.launches = 0
+fused_conv1x1_bn_add_relu.launches_by_path = dict.fromkeys(PATHS, 0)

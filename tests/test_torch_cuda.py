@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from detectron2_tensorflow_tpu_torch import get_cfg, train_cfg
 from detectron2_tensorflow_tpu_torch.models import poolers
 from detectron2_tensorflow_tpu_torch.models.rpn import RPN
@@ -486,6 +487,107 @@ def test_fused_residual_kernel_counts_launches_and_checks_inputs(dev):
     for args in bad:
         with pytest.raises(ValueError):
             fr.fused_conv1x1_bn_add_relu(*args)
+
+
+# R50's tails at 800 x 1344 by stage: (K, N, H, W).
+R50_TAILS = {stage: shape for stage, *shape in chip_smoke.R50_TAILS}
+
+
+def _hopper_case(dev, b, h, w, k, n, seed):
+    """A bf16 tail that ``plan_tail`` sends to the ``wgmma`` kernel, run
+    against the plain version; returns the plan and the launches by path."""
+    args = _tail_case(np.random.default_rng(seed), dev, torch.bfloat16, b, h, w, k, n)
+    plan = fr.plan_tail(b * h * w, k, n, torch.bfloat16, True,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.path == "wgmma"
+    before = dict(fr.fused_conv1x1_bn_add_relu.launches_by_path)
+    got = fr.fused_conv1x1_bn_add_relu(*args)
+    after = dict(fr.fused_conv1x1_bn_add_relu.launches_by_path)
+    want = fr.fused_conv1x1_bn_add_relu_reference(*args)
+    assert got.shape == (b, n, h, w) and got.is_contiguous(memory_format=torch.channels_last)
+    err, slack, ulp = _tail_errors(got, want)
+    assert bool((err <= ulp + slack).all()), float(err.max())
+    return plan, {p: after[p] - before[p] for p in after}
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("stage", sorted(R50_TAILS))
+def test_fused_residual_hopper_path_at_r50_shapes(dev, stage, batch):
+    k, n, h, w = R50_TAILS[stage]
+    plan, launched = _hopper_case(dev, batch, h, w, k, n, seed=k + batch)
+    assert launched == {"ffma": 0, "mma": 0, "wgmma": 1}
+    assert plan.rounds * plan.grid[0] >= plan.tiles
+
+
+# (b, h, w, k, n): M not a multiple of the tile's 64 rows (221, 63, 2706,
+# 2100, 2090, 1, 105, 966); tile counts that 132 does not divide (4, 2, 43,
+# 266, 1, 16); K = 8, 16, 24 and 64, each one K stage or less; N = 8, 40
+# and 200 ending inside a 64-column box or the 256-column tile.
+HOPPER_EDGES = [(1, 13, 17, 8, 256), (1, 7, 9, 16, 512), (2, 33, 41, 64, 256),
+                (1, 128, 133, 64, 256), (1, 30, 70, 64, 2048), (1, 19, 110, 512, 2048),
+                (1, 1, 1, 16, 8), (3, 7, 5, 24, 40), (2, 21, 23, 128, 200),
+                (1, 64, 66, 256, 1024)]
+
+
+@pytest.mark.parametrize("b,h,w,k,n", HOPPER_EDGES)
+def test_fused_residual_hopper_path_edges(dev, b, h, w, k, n):
+    plan, launched = _hopper_case(dev, b, h, w, k, n, seed=b * h * w + n)
+    assert launched["wgmma"] == 1
+    assert plan.tiles == -(-b * h * w // 64) * -(-n // 256)
+
+
+def test_fused_residual_launches_by_path(dev):
+    """Each path counts its own launches; the total stays the sum."""
+    rng = np.random.default_rng(3)
+    cases = {"wgmma": _tail_case(rng, dev, torch.bfloat16, 1, 4, 6, 64, 256),
+             "mma": _tail_case(rng, dev, torch.bfloat16, 1, 4, 6, 7, 256),
+             "ffma": _tail_case(rng, dev, torch.float32, 1, 4, 6, 64, 256)}
+    # An unaligned pointer: x at a 2-byte storage offset, still channels_last.
+    x = cases["wgmma"][0]
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = buf[1:].view(1, 4, 6, 64).permute(0, 3, 1, 2)
+    shifted.copy_(x)
+    assert shifted.is_contiguous(memory_format=torch.channels_last)
+    assert not fr.operands_aligned(shifted)
+    cases["unaligned"] = (shifted,) + cases["wgmma"][1:]
+    for name, args in cases.items():
+        path = "mma" if name == "unaligned" else name
+        before = dict(fr.fused_conv1x1_bn_add_relu.launches_by_path)
+        total = fr.fused_conv1x1_bn_add_relu.launches
+        got = fr.fused_conv1x1_bn_add_relu(*args)
+        after = fr.fused_conv1x1_bn_add_relu.launches_by_path
+        assert {p: after[p] - before[p] for p in after} == {
+            p: int(p == path) for p in after}, name
+        assert fr.fused_conv1x1_bn_add_relu.launches == total + 1
+        err, slack, ulp = _tail_errors(got, fr.fused_conv1x1_bn_add_relu_reference(*args))
+        assert bool((err <= (slack if args[0].dtype == torch.float32 else ulp + slack)).all()), name
+
+
+def test_fused_residual_gradients_on_the_card_bf16_hopper_path(dev):
+    """The backward reads the ``wgmma`` kernel's ``out`` for its ReLU mask:
+    the card's gradients (bf16, aligned) against the same hand-written
+    backward computed in float32 from that ``out``. dx and dshortcut round
+    once to bf16 (one ulp of each value plus 1e-5 of the largest); dW is a
+    bf16 rounding of a float32 sum (one ulp plus 1e-3 of the largest, the
+    products of bf16 g * scale summed in another order)."""
+    rng = np.random.default_rng(4)
+    x, weight, scale, shift, sc = _tail_case(rng, dev, torch.bfloat16, 2, 12, 10, 64, 256)
+    x, weight, sc = (t.detach().requires_grad_(True) for t in (x, weight, sc))
+    before = fr.fused_conv1x1_bn_add_relu.launches_by_path["wgmma"]
+    out = fr.fused_conv1x1_bn_add_relu(x, weight, scale, shift, sc)
+    assert fr.fused_conv1x1_bn_add_relu.launches_by_path["wgmma"] == before + 1
+    dy = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)).to(dev, torch.bfloat16)
+    out.backward(dy)
+    g = dy.float() * (out.detach() > 0).float()
+    gs = (g.to(torch.bfloat16) * scale.to(torch.bfloat16).view(1, -1, 1, 1)).float()
+    gs2 = gs.permute(0, 2, 3, 1).reshape(-1, 256)
+    want_dx = (gs2 @ weight.detach().reshape(256, 64).float()).reshape(2, 12, 10, 64).permute(0, 3, 1, 2)
+    want_dw = (gs2.t() @ x.detach().permute(0, 2, 3, 1).reshape(-1, 64).float()).reshape(256, 64, 1, 1)
+    for got, want, rel in ((x.grad, want_dx, 1e-5), (weight.grad, want_dw, 1e-3), (sc.grad, g, 1e-5)):
+        assert got.dtype == torch.bfloat16
+        err, _, ulp = _tail_errors(got, want)
+        assert bool((err <= ulp + rel * float(want.abs().max())).all())
+    assert bool((sc.grad == 0).any()) and bool((sc.grad != 0).any())
 
 
 def test_fused_residual_gradients_on_the_card_equal_the_cpu(dev):

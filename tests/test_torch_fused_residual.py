@@ -12,12 +12,17 @@ port's ``autograd.Function`` and ``jax.grad`` of the JAX ``custom_vjp``, in
 float32, to 1e-5 of each tensor's largest value.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from chip_smoke import R50_TAILS
 from detectron2_tensorflow_tpu.models.backbones.resnet import BottleneckBlock as JaxBottleneck
 from detectron2_tensorflow_tpu.ops.pallas import fused_residual as jfr
 from detectron2_tensorflow_tpu_torch.convert import convert_variables
@@ -190,3 +195,115 @@ def test_bottleneck_block_matches_jax_with_switch_on(monkeypatch, stride, has_sh
     assert len(calls) == 1
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= F32_TOL * np.abs(want).max()
+
+
+CU_SOURCE = Path(tfr.__file__).resolve().parents[1] / "csrc" / "fused_residual.cu"
+
+
+def _walk(plan, m, n):
+    """numpy model of the persistent kernel's walk: block b takes tiles b,
+    b + grid, ...; tile t covers rows from (t // tiles_n) * bm and columns
+    from (t % tiles_n) * bn, clipped at m and n. Returns the times each
+    output element is written and the tiles each block took."""
+    tiles_n = -(-n // plan.bn)
+    tiles = -(-m // plan.bm) * tiles_n
+    cover = np.zeros((m, n), np.int32)
+    taken = np.zeros(plan.grid[0], np.int64)
+    for b in range(plan.grid[0]):
+        for t in range(b, tiles, plan.grid[0]):
+            m0, n0 = t // tiles_n * plan.bm, t % tiles_n * plan.bn
+            cover[m0:m0 + plan.bm, n0:n0 + plan.bn] += 1
+            taken[b] += 1
+    return cover, taken
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8])
+@pytest.mark.parametrize("stage,k,n,h,w", R50_TAILS)
+def test_plan_takes_the_hopper_kernel_at_r50_tails(stage, k, n, h, w, batch):
+    plan = tfr.plan_tail(batch * h * w, k, n, torch.bfloat16, True)
+    assert plan.path == "wgmma"
+    assert (plan.bm, plan.bn, plan.stages) == tfr.WGMMA_TILE
+    assert plan.grid[0] <= tfr.H100_SMS and plan.grid[1] == 1
+
+
+@pytest.mark.parametrize("m,k,n,dtype,aligned,path", [
+    (70, 7, 256, torch.bfloat16, True, "mma"),       # K not a multiple of 8
+    (70, 64, 20, torch.bfloat16, True, "mma"),       # N not a multiple of 8
+    (70, 12, 13, torch.bfloat16, True, "mma"),
+    (134400, 64, 256, torch.bfloat16, False, "mma"),  # an operand off a 16-byte boundary
+    (134400, 64, 256, torch.float32, True, "ffma"),
+    (63, 8, 32, torch.float32, False, "ffma"),
+])
+def test_plan_keeps_the_older_kernels(m, k, n, dtype, aligned, path):
+    plan = tfr.plan_tail(m, k, n, dtype, aligned)
+    assert plan.path == path
+    tile = (128, 128) if path == "mma" else (64, 64)
+    assert (plan.bm, plan.bn) == tile
+    assert plan.grid == (-(-n // tile[1]), -(-m // tile[0])) and plan.rounds == 1
+
+
+def test_alignment_sees_a_storage_offset():
+    buf = torch.zeros(2 * 4 * 6 * 64 + 1, dtype=torch.bfloat16)
+    x = buf[1:].view(2, 4, 6, 64).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert tfr.operands_aligned(buf) and not tfr.operands_aligned(x)
+    plan = tfr.plan_tail(48, 64, 256, torch.bfloat16, tfr.operands_aligned(x, buf))
+    assert plan.path == "mma"
+
+
+@pytest.mark.parametrize("m,n", [(1, 8), (63, 40), (129, 256), (2090, 2048), (17024, 256),
+                                 (300, 520), (4200, 1024), (2100, 2048), (1050, 2048)])
+def test_walk_writes_every_output_once(m, n):
+    plan = tfr.plan_tail(m, 64, n, torch.bfloat16, True)
+    cover, taken = _walk(plan, m, n)
+    assert (cover == 1).all()
+    assert taken.sum() == plan.tiles and taken.max() == plan.rounds
+    assert taken.min() >= plan.rounds - 1  # a block takes a tile every round but the last
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8])
+@pytest.mark.parametrize("stage,k,n,h,w", R50_TAILS)
+def test_walk_covers_r50_tails_once(stage, k, n, h, w, batch):
+    """At R50's widths the walk's tiles partition the output: every tile
+    once, the last row and column of tiles clipped at m and n."""
+    m = batch * h * w
+    plan = tfr.plan_tail(m, k, n, torch.bfloat16, True)
+    tiles_n = -(-n // plan.bn)
+    seen = np.zeros(plan.tiles, np.int32)
+    for b in range(plan.grid[0]):
+        seen[b::plan.grid[0]] += 1
+    assert (seen == 1).all()
+    rows = [min(plan.bm, m - m0) for m0 in range(0, m, plan.bm)]
+    cols = [min(plan.bn, n - n0) for n0 in range(0, n, plan.bn)]
+    assert len(rows) * len(cols) == plan.tiles == len(rows) * tiles_n
+    assert sum(rows) * sum(cols) == m * n
+    assert -(-plan.tiles // plan.grid[0]) == plan.rounds
+
+
+def test_source_note_states_the_plans():
+    """The tiles, grid and rounds the CUDA source's note states for each R50
+    tail are what ``plan_tail`` and the walk give."""
+    rows = re.findall(r"^//\s+(res\d)\s+(\d+)\s+(\d+)\s+(\d+)\s+(\d+)\s+(\d+)x(\d+)\s+(\d+)"
+                      r"\s+(\d+)\s+(\d+)\s*$", CU_SOURCE.read_text(), re.M)
+    stated = {(r[0], int(r[1])): tuple(map(int, r[2:])) for r in rows}
+    assert len(stated) == len(rows) == 12
+    for stage, k, n, h, w in R50_TAILS:
+        for batch in (1, 2, 8):
+            m = batch * h * w
+            plan = tfr.plan_tail(m, k, n, torch.bfloat16, True)
+            rounds = max(len(range(b, plan.tiles, plan.grid[0])) for b in range(plan.grid[0]))
+            assert stated[stage, batch] == (m, k, n, plan.bm, plan.bn, plan.tiles, plan.grid[0],
+                                            rounds), (stage, batch)
+            assert rounds == plan.rounds
+
+
+def test_timing_tool_tolerance_and_bytes():
+    """``chip_smoke``'s bf16 tolerance for the fused tail takes one ulp of
+    each value (plus 1e-5 of the largest) and no more; its byte count reads
+    x, the weight and the shortcut and writes the output once."""
+    want = torch.tensor([1.0, -3.0, 200.0, 0.0])
+    ulp = torch.tensor([2.0 ** -7, 2.0 ** -6, 1.0, 0.0])
+    assert chip_smoke.within_tolerance((want + ulp).bfloat16(), want)
+    assert not chip_smoke.within_tolerance(want + 3 * ulp, want)
+    assert chip_smoke.tail_bytes(8400, 256, 1024, 2) == (
+        8400 * 256 + 1024 * 256 + 2 * 8400 * 1024) * 2 + 2 * 1024 * 4
