@@ -47,7 +47,22 @@ any failure exits non-zero:
      the frozen stem and res2 unchanged bit for bit, every trainable
      parameter changed; and a narrow
      float32 train step on 2 x 128 x 160 is held against the same step on
-     the CPU (same weights, noise and proposals), switch off and on.
+     the CPU (same weights, noise and proposals), switch off and on;
+  7. loop: the user's path with the switch off. ``get_cfg()`` merges
+     ``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml`` and a
+     few overrides (bf16, 8 images per step, a checkpoint every 2 steps,
+     ``SCORE_THRESH_TEST`` 0) and ``finalize`` freezes it on the card: R50-FPN
+     at full width, 80 classes, the YAML's 640-800 training scales, the
+     800x1344 bucket. ``train()`` takes 4 steps from the loader over 16
+     synthetic 480x640 images into a temporary checkpoint directory; a new
+     model resumes there at step 4 (the restored state bit-equal to the
+     saved one) and trains to step 6; ``run_evaluation`` evaluates 8 other
+     images (COCO bbox and segm). Losses and metrics must be finite (an
+     area range without GT gives NaN), each step must launch ``nms_keep``
+     once and each ``predict`` twice. It prints the seconds per iteration
+     and the host seconds of data loading per batch. A probe line then says
+     whether ``cv2``, ``PIL`` and ``torchvision`` import and whether ``g++``
+     finds ``jpeglib.h`` and links ``-ljpeg``.
 
 The last lines are the card's name and power limit, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``.
@@ -57,21 +72,29 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from detectron2_tensorflow_tpu_torch import get_cfg, kernels, train_cfg
+from detectron2_tensorflow_tpu_torch import bench_cfg, kernels, train_cfg
+from detectron2_tensorflow_tpu_torch.config import finalize, get_cfg
+from detectron2_tensorflow_tpu_torch.data import SyntheticDataset, build_dataloader
 from detectron2_tensorflow_tpu_torch.engine import (
     build_train_step,
     create_train_state,
     make_train_batch,
+    run_evaluation,
+    train,
 )
+from detectron2_tensorflow_tpu_torch.engine.checkpoint import all_steps
 from detectron2_tensorflow_tpu_torch.models import build_model
 from detectron2_tensorflow_tpu_torch.models.meta_arch.postprocess import detector_postprocess
 from detectron2_tensorflow_tpu_torch.models.poolers import (
@@ -684,7 +707,7 @@ NARROW = {"STEM_OUT_CHANNELS": 16, "RES2_OUT_CHANNELS": 32, "WIDTH_PER_GROUP": 8
 
 
 def narrow_cfg():
-    cfg = get_cfg()
+    cfg = bench_cfg()
     for k, v in NARROW.items():
         cfg.MODEL.RESNETS[k] = v
     cfg.MODEL.NECK.OUT_CHANNELS = 32
@@ -757,7 +780,7 @@ TURNS = (False, True, True, False) * 2
 def run_model(rng, dev):
     """Serve with the fused tail off and on, in turns; returns the serving
     run's launch counts and the median img/s of each setting."""
-    cfg = get_cfg()
+    cfg = bench_cfg()
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
     models = {}
     for fused in (False, True):
@@ -983,6 +1006,218 @@ def run_train(dev):
     return launches, img_s
 
 
+# -- phase 7: loop -----------------------------------------------------------
+
+LOOP_YAML = "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml"
+LOOP_OPTS = ["MODEL.DTYPE", "bfloat16", "SOLVER.IMS_PER_GPU", "8",
+             "SOLVER.SHORT_TERM_SAVE_STEPS", "2", "SOLVER.SHORT_TERM_NUM_STEPS", "4",
+             "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0"]
+LOOP_STEPS, LOOP_RESUMED_STEPS = 4, 6
+
+
+class TimedBatches:
+    """An iterator over ``batches`` that adds up the host seconds spent in
+    each ``next`` (loading, transforming and padding a batch)."""
+
+    def __init__(self, batches):
+        self.batches, self.seconds = batches, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = next(self.batches)
+        self.seconds.append(time.perf_counter() - t0)
+        return batch
+
+
+def loop_snapshot(state) -> dict:
+    """What a resume restores: parameters and buffers, the SGD momentum
+    buffers, the optimizer count, the generator and the step (on the CPU)."""
+    opt = state.optimizer.sgd
+    return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "momentum": [opt.state[p]["momentum_buffer"].cpu().clone()
+                         for g in opt.param_groups for p in g["params"]],
+            "count": state.optimizer.count, "step": state.step,
+            "generator": state.generator.get_state().clone()}
+
+
+def snapshots_equal(a: dict, b: dict) -> bool:
+    return (a["count"] == b["count"] and a["step"] == b["step"]
+            and torch.equal(a["generator"], b["generator"])
+            and a["model"].keys() == b["model"].keys()
+            and all(torch.equal(v, b["model"][k]) for k, v in a["model"].items())
+            and len(a["momentum"]) == len(b["momentum"]) > 0
+            and all(torch.equal(x, y) for x, y in zip(a["momentum"], b["momentum"])))
+
+
+def loop_cfg():
+    cfg = get_cfg()
+    cfg.merge_from_file(str(ROOT / LOOP_YAML))
+    cfg.merge_from_list(LOOP_OPTS)
+    return finalize(cfg)  # on the card: one device
+
+
+def check_loop_train(state, steps: int, name: str) -> dict:
+    """Losses finite and the launches of ``steps`` steps: one ``nms_keep``
+    each, and the same positive number of ROI forwards and backwards each."""
+    launches = read_launches()
+    losses = [v for _, metrics, _ in state.history for v in metrics.values()]
+    if len(state.history) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"loop {name}: losses {state.history}")
+    if launches["nms_keep"] != NMS_PER_STEP * steps:
+        raise AssertionError(f"loop {name}: {launches['nms_keep']} nms_keep launches in "
+                             f"{steps} steps, expected {NMS_PER_STEP} per step")
+    for k in ("roi_patch_fwd", "roi_patch_bwd"):
+        if launches[k] == 0 or launches[k] % steps:
+            raise AssertionError(f"loop {name}: {launches[k]} {k} launches in {steps} steps")
+    if launches["fused_residual"]:
+        raise AssertionError(f"loop {name}: fused tail launched with the switch off")
+    return launches
+
+
+def check_metrics(metrics: dict, ds) -> None:
+    """Every bbox and segm metric is finite, except an area range's, which
+    is NaN exactly where no GT of the dataset falls in that range."""
+    boxes = np.concatenate([ds[i]["boxes"] for i in range(len(ds))])
+    areas = {"bbox": (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1]),
+             "segm": np.concatenate([ds[i]["masks"].sum((1, 2)) for i in range(len(ds))])}
+    ranges = {"s": (0, 32 ** 2), "m": (32 ** 2, 96 ** 2), "l": (96 ** 2, 1e10)}
+    for kind in ("bbox", "segm"):
+        keys = [k for k in metrics if k.startswith(kind + "/")]
+        if len(keys) < 12:
+            raise AssertionError(f"loop eval: {kind} metrics {keys}")
+        for key in keys:
+            name = key.split("/")[1]
+            value = metrics[key]
+            rng = ranges.get(name[-1]) if name[:2] in ("AP", "AR") and len(name) == 3 else None
+            empty = rng is not None and not ((areas[kind] >= rng[0]) & (areas[kind] <= rng[1])).any()
+            if not (math.isnan(value) if empty else math.isfinite(value)):
+                raise AssertionError(f"loop eval: {key} = {value}")
+
+
+def run_loop():
+    """The user's path: the YAML config, the loader, ``train()`` with
+    checkpoints, a resume from them, and ``run_evaluation``."""
+    t0 = time.perf_counter()
+    cfg = loop_cfg()
+    train_ds = SyntheticDataset(n=16, h=480, w=640, num_classes=80, box_range=(40, 200))
+    val_ds = SyntheticDataset(n=8, h=480, w=640, num_classes=80, box_range=(40, 200),
+                              first_id=16)
+    model = build_model(cfg, training=True, generator=torch.Generator().manual_seed(SEED))
+    if fused_tails(model):
+        raise AssertionError("loop model built with fused tails")
+    log(f"loop       {LOOP_YAML} + {LOOP_OPTS}, finalized on the card: R{cfg.MODEL.RESNETS.DEPTH}"
+        f"-FPN, {cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, {cfg.MODEL.DTYPE}, "
+        f"MIN_SIZE_TRAIN {tuple(cfg.TRANSFORM.RESIZE.MIN_SIZE_TRAIN)}, buckets "
+        f"{tuple(map(tuple, cfg.INPUT.PAD_BUCKETS))}, batch {cfg.SOLVER.IMS_PER_BATCH}; "
+        f"data 16 train + 8 val images of 480x640; model built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    loader = build_dataloader(cfg, train_ds, training=True, seed=SEED)
+    t0 = time.perf_counter()
+    for _ in range(LOOP_STEPS):
+        next(loader)
+    loader.close()
+    log(f"loop       the loader alone: {(time.perf_counter() - t0) / LOOP_STEPS:.3f} host s per "
+        f"batch of {cfg.SOLVER.IMS_PER_BATCH} ({cfg.DATALOADER.NUM_READERS} reader threads)")
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        batches = TimedBatches(build_dataloader(cfg, train_ds, training=True, seed=SEED))
+        zero_launches()
+        t0 = time.perf_counter()
+        state = train(cfg, model, batches, max_iter=LOOP_STEPS, checkpoint_dir=ckpt, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = check_loop_train(state, LOOP_STEPS, "train")
+        saved = loop_snapshot(state)
+        files = all_steps(ckpt)
+        if state.step != LOOP_STEPS or files != [2, 4]:
+            raise AssertionError(f"loop: step {state.step}, checkpoints {files}")
+        times = [dt for _, _, dt in state.history]
+        log(f"loop       train() {LOOP_STEPS} steps in {wall:.2f} s, seconds per iteration "
+            f"{', '.join(f'{t:.3f}' for t in times)} (the checkpoints of steps 1 and 2 are "
+            f"written in iterations 2 and 3); host seconds waiting for each batch "
+            f"{', '.join(f'{t:.3f}' for t in batches.seconds)}; losses at step 1 "
+            + ", ".join(f"{k} {v:.4f}" for k, v in state.history[0][1].items())
+            + f", step {LOOP_STEPS} total_loss {state.history[-1][1]['total_loss']:.4f}; "
+              f"checkpoints {files}; launches {launches}")
+        del state, model
+
+        resumed_model = build_model(cfg, training=True,
+                                    generator=torch.Generator().manual_seed(SEED + 1))
+        batches = TimedBatches(build_dataloader(cfg, train_ds, training=True, seed=SEED + 1))
+        restored = train(cfg, resumed_model, batches, max_iter=LOOP_STEPS, checkpoint_dir=ckpt)
+        if restored.history or not snapshots_equal(loop_snapshot(restored), saved):
+            raise AssertionError("loop: the state restored at step 4 differs from the saved one")
+        zero_launches()
+        t0 = time.perf_counter()
+        final = train(cfg, resumed_model, batches, max_iter=LOOP_RESUMED_STEPS,
+                      checkpoint_dir=ckpt, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = LOOP_RESUMED_STEPS - LOOP_STEPS
+        launches = check_loop_train(final, steps, "resume")
+        files = all_steps(ckpt)
+        if final.step != LOOP_RESUMED_STEPS or files != [4, 6] or final.history[0][0] != 5:
+            raise AssertionError(f"loop resume: step {final.step}, history "
+                                 f"{[h[0] for h in final.history]}, checkpoints {files}")
+        log(f"loop       resumed at step {LOOP_STEPS}: restored state bit-equal to the saved one "
+            f"(parameters, buffers, momentum, count, generator); steps "
+            f"{LOOP_STEPS + 1}-{LOOP_RESUMED_STEPS} in {wall:.2f} s, seconds per iteration "
+            f"{', '.join(f'{dt:.3f}' for _, _, dt in final.history)} (no checkpoint written "
+            f"in either), host seconds waiting for each batch {', '.join(f'{t:.3f}' for t in batches.seconds)}"
+            f"; losses finite; checkpoints {files}; launches {launches}")
+
+    zero_launches()
+    t0 = time.perf_counter()
+    batches = list(build_dataloader(cfg, val_ds, training=False))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = run_evaluation(cfg, final.model, val_ds, batches)
+    eval_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches["nms_keep"] != NMS_PER_PREDICT * len(batches):
+        raise AssertionError(f"loop eval: {launches['nms_keep']} nms_keep launches in "
+                             f"{len(batches)} predict calls")
+    check_metrics(metrics, val_ds)
+    log(f"loop       run_evaluation over {len(val_ds)} images in {len(batches)} batch(es): "
+        f"{eval_s:.2f} s (loading {load_s:.2f} s); {NMS_PER_PREDICT} nms_keep launches per "
+        f"predict; launches {launches}")
+    for kind in ("bbox", "segm"):
+        log(f"loop       {kind} " + json.dumps(
+            {k.split("/")[1]: v for k, v in metrics.items() if k.startswith(kind + "/")}))
+
+
+def probe():
+    """What the card's machine offers a JPEG route (decides nothing here).
+    Each module is imported in a child interpreter, so this one imports none."""
+    found = {}
+    for module in ("cv2", "PIL", "torchvision"):
+        child = subprocess.run([sys.executable, "-c", f"import {module}"],
+                               capture_output=True, text=True, timeout=120)
+        found[module] = "yes" if child.returncode == 0 else "no"
+    gxx = shutil.which("g++")
+    found["g++"] = gxx or "no"
+    if gxx:
+        with tempfile.TemporaryDirectory() as tmp:
+            src = Path(tmp) / "probe.c"
+            src.write_text("#include <stdio.h>\n#include <jpeglib.h>\n"
+                           "int main(void) { struct jpeg_error_mgr e; jpeg_std_error(&e); "
+                           "return 0; }\n")
+            header = subprocess.run([gxx, "-x", "c", "-c", str(src), "-o", f"{tmp}/probe.o"],
+                                    capture_output=True, text=True)
+            found["jpeglib.h"] = "yes" if header.returncode == 0 else "no"
+            if header.returncode == 0:
+                link = subprocess.run([gxx, f"{tmp}/probe.o", "-ljpeg", "-o", f"{tmp}/probe"],
+                                      capture_output=True, text=True)
+                found["libjpeg"] = "yes" if link.returncode == 0 else "no"
+            else:
+                found["libjpeg"] = "not tried"
+    log("probe      " + ", ".join(f"{k} {v}" for k, v in found.items()))
+
+
 def kernel_line(name, src, replaces, launches, result, err):
     return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": float(err), "ms": result["ms"],
@@ -1017,6 +1252,9 @@ def main() -> None:
     for on in (False, True):
         check_train_against_cpu(dev, on)
     train_launches, _ = run_train(dev)
+    with fused_switch(False):
+        run_loop()
+    probe()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

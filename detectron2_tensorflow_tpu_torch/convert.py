@@ -1,9 +1,16 @@
-"""Carry the JAX package's weights into the port's ``state_dict``.
+"""Carry the JAX package's weights, or a Detectron2 checkpoint, into the
+port's ``state_dict``.
 
-Input: the JAX model's ``variables``, nested dicts of numpy (or array-like)
-values with a ``params`` and a ``frozen`` collection. Output: a dict of
-float32 tensors named as the port's modules (Detectron2's names), ready for
-``build_model(cfg, state_dict=...)``.
+:func:`convert_d2_weights` reads a Detectron2 state dict (``.pkl`` model-zoo
+files or ``.pth`` files, through :func:`load_state_dict`). The port's
+modules carry Detectron2's names and PyTorch's layouts, so only the box
+head's ``fc1`` changes: Detectron2 flattens the pooled features in (c, h, w)
+order, the port in (h, w, c), so its columns are permuted.
+
+:func:`convert_variables` reads the JAX model's ``variables``, nested dicts
+of numpy (or array-like) values with a ``params`` and a ``frozen``
+collection. Output: a dict of float32 tensors named as the port's modules
+(Detectron2's names), ready for ``build_model(cfg, state_dict=...)``.
 
 Layout changes:
   * conv kernels HWIO -> OIHW;
@@ -21,7 +28,8 @@ Layout changes:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import pickle
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -83,3 +91,50 @@ def convert_variables(variables) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected frozen variable {'/'.join(path)}")
         out[f"{_module_name(tuple(mod))}.norm.{_FROZEN[leaf]}"] = torch.from_numpy(arr.copy())
     return out
+
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A Detectron2 ``.pkl`` (``{"model": {name: array}}``) or a PyTorch
+    checkpoint (``model``/``state_dict`` or a bare state dict) ->
+    ``{name: np.ndarray}``, without ``num_batches_tracked``."""
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+        sd = data.get("model", data)
+    else:
+        data = torch.load(path, map_location="cpu", weights_only=False)
+        sd = data.get("model", data.get("state_dict", data))
+    return {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
+            for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+
+
+def _port_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """Name -> shape of every tensor of the port's model for ``cfg``, built
+    on the meta device (no memory, no weights)."""
+    from .models.meta_arch.rcnn import GeneralizedRCNN
+
+    with torch.device("meta"):
+        model = GeneralizedRCNN(cfg)
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def convert_d2_weights(sd: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """A Detectron2 state dict -> (the port's float32 ``state_dict``, the
+    checkpoint's names that the model has no place for). Raises
+    ``KeyError`` when the checkpoint lacks a tensor the model has."""
+    shapes = _port_shapes(cfg)
+    missing = sorted(set(shapes) - set(sd))
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} tensors of the model: {missing[:8]}")
+    out: Dict[str, torch.Tensor] = {}
+    for name in shapes:
+        arr = np.asarray(sd[name], np.float32)
+        if name == "roi_heads.box_head.fc1.weight":
+            s = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+            arr = arr.reshape(arr.shape[0], -1, s, s).transpose(0, 2, 3, 1).reshape(arr.shape[0], -1)
+        if arr.shape != shapes[name]:
+            raise ValueError(f"{name}: checkpoint {arr.shape}, model {shapes[name]}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    leftovers = [k for k in sd if k not in shapes and "cell_anchors" not in k
+                 and "anchor_generator" not in k and "pixel_" not in k]
+    return out, leftovers

@@ -1,22 +1,31 @@
-"""The training step: train state, one optimizer step per batch.
+"""Training: the train state, one optimizer step per batch, and the loop.
 
-Port of ``create_train_state`` and the step of ``build_train_step`` in the
-JAX package's ``engine/train.py``, on one device (no mesh). The JAX state is
-an immutable pytree that the jitted step returns anew; here
+Port of ``create_train_state``, the step of ``build_train_step`` and
+``train`` in the JAX package's ``engine/train.py``, on one device. The JAX
+state is an immutable pytree that the jitted step returns anew; here
 :class:`TrainState` holds the model (float32 parameters), the optimizer and
-the sampler's generator, and the step updates them in place.
+the samplers' generator, and the step updates them in place. ``train``
+resumes from the newest checkpoint or loads ``PRETRAINS``, saves and keeps
+checkpoints as the JAX package's Orbax manager does, and evaluates every
+``TEST.EVAL_PERIOD`` steps. The JAX package's mesh, multi-host feeding and
+TensorBoard logger have no counterpart here yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import logging
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.meta_arch.rcnn import GeneralizedRCNN
-from ..solver import Optimizer, build_optimizer
+from ..solver import Optimizer, build_optimizer, scaled_max_iter
+from .checkpoint import CheckpointManager, load_pretrained
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -25,6 +34,8 @@ class TrainState:
     optimizer: Optimizer
     generator: torch.Generator  # the samplers' noise, on the model's device
     step: int = 0
+    # (step, {metric: value}, seconds per iteration) of each line train() logs.
+    history: List[Tuple[int, Dict[str, float], float]] = dataclasses.field(default_factory=list)
 
 
 def create_train_state(cfg, model: GeneralizedRCNN,
@@ -80,3 +91,111 @@ def make_train_batch(cfg, height: int = 800, width: int = 1344) -> Dict[str, np.
         "gt_is_crowd": np.zeros((b, g), bool),
         "gt_masks": masks,
     }
+
+
+def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays (or tensors) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def checkpoint_payload(state: TrainState) -> Dict[str, Any]:
+    """What a checkpoint holds: the model, the SGD state (its momentum
+    buffers), the optimizer's step count, the generator and the step."""
+    return {
+        "step": state.step,
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.sgd.state_dict(),
+        "count": state.optimizer.count,
+        "generator": state.generator.get_state(),
+    }
+
+
+def restore_train_state(state: TrainState, payload: Dict[str, Any]) -> None:
+    """Load a :func:`checkpoint_payload` into ``state``, in place."""
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.sgd.load_state_dict(payload["optimizer"])
+    state.optimizer.count = int(payload["count"])
+    state.generator.set_state(payload["generator"])
+    state.step = int(payload["step"])
+
+
+def train(
+    cfg,
+    model: GeneralizedRCNN,
+    data_iter: Iterator[Dict[str, Any]],
+    max_iter: Optional[int] = None,
+    checkpoint_dir: Optional[str] = None,
+    log_every: int = 10,
+    eval_fn: Optional[Callable[[TrainState, int], Dict[str, float]]] = None,
+) -> TrainState:
+    """Train ``model`` (built with ``build_model(..., training=True)``) on the
+    batches of ``data_iter`` (numpy arrays or tensors, as
+    ``data.build_dataloader`` yields them) up to step ``max_iter``
+    (``scaled_max_iter(cfg)`` when not given). Returns the final state.
+
+    If ``checkpoint_dir`` holds checkpoints, training resumes from the
+    newest (model, momentum, optimizer count, generator, step); otherwise
+    ``PRETRAINS`` initializes the weights. The samplers' generator is seeded
+    with ``max(cfg.SEED, 0)``. Checkpoints are saved every
+    ``SOLVER.SHORT_TERM_SAVE_STEPS`` steps; the newest
+    ``SHORT_TERM_NUM_STEPS // SHORT_TERM_SAVE_STEPS`` stay, and so does every
+    multiple of ``LONG_TERM_SAVE_STEPS``; the last step is saved unless it is
+    on disk already. ``eval_fn(state, step) -> metrics`` runs every
+    ``TEST.EVAL_PERIOD`` steps and at the end. Every ``log_every`` steps
+    the metrics are read (which waits for the device), logged and kept in
+    ``state.history``, where the JAX package writes them to TensorBoard.
+    """
+    if not model.training:
+        raise ValueError("train: build the model with build_model(..., training=True)")
+    max_iter = max_iter if max_iter is not None else scaled_max_iter(cfg)
+    device = next(model.parameters()).device
+    first = next(data_iter)
+    generator = torch.Generator(device).manual_seed(max(cfg.SEED, 0))
+    state = create_train_state(cfg, model, generator)
+
+    s = cfg.SOLVER
+    manager = None
+    if checkpoint_dir:
+        manager = CheckpointManager(
+            checkpoint_dir,
+            save_interval_steps=s.SHORT_TERM_SAVE_STEPS,
+            max_to_keep=max(1, s.SHORT_TERM_NUM_STEPS // max(s.SHORT_TERM_SAVE_STEPS, 1)),
+            keep_period=s.LONG_TERM_SAVE_STEPS,
+        )
+    start_step = 0
+    resume_step = manager.latest_step() if manager is not None else None
+    if resume_step is not None:
+        restore_train_state(state, manager.restore(resume_step))
+        start_step = state.step
+        logger.info("resumed from checkpoint step %d", start_step)
+    else:
+        load_pretrained(cfg, model)
+    step_fn = build_train_step(cfg, state)
+
+    def run_eval(step):
+        metrics = eval_fn(state, step)
+        logger.info("eval @ %d: %s", step, {k: round(float(v), 4) for k, v in metrics.items()})
+
+    eval_period = cfg.TEST.EVAL_PERIOD if eval_fn is not None else 0
+    batch = first
+    t_last = time.time()
+    for it in range(start_step, max_iter):
+        metrics = step_fn(to_device(batch, device))
+        if it + 1 < max_iter:
+            batch = next(data_iter)
+        if (it + 1) % log_every == 0:
+            values = {k: float(v) for k, v in metrics.items()}
+            dt = (time.time() - t_last) / log_every
+            t_last = time.time()
+            state.history.append((it + 1, values, dt))
+            logger.info("iter %d/%d  %s  (%.3fs/it)", it + 1, max_iter,
+                        {k: round(v, 4) for k, v in values.items()}, dt)
+        if manager is not None:
+            manager.save(it + 1, checkpoint_payload(state))
+        if eval_period > 0 and (it + 1) % eval_period == 0 and it + 1 < max_iter:
+            run_eval(it + 1)
+    if manager is not None and max_iter > start_step and manager.latest_step() != max_iter:
+        manager.save(max_iter, checkpoint_payload(state), force=True)
+    if eval_fn is not None and max_iter > start_step:
+        run_eval(max_iter)
+    return state

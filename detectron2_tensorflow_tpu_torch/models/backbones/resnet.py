@@ -124,8 +124,16 @@ def output_shapes(cfg) -> Dict[str, tuple]:
 
 def build_resnet_backbone(cfg) -> ResNet:
     r = cfg.MODEL.RESNETS
+    if cfg.MODEL.BACKBONE.NAME != "ResNet":
+        raise NotImplementedError(f"backbone '{cfg.MODEL.BACKBONE.NAME}' is not ported")
     if r.NORM != "FrozenBN" or r.RES5_DILATION != 1:
         raise NotImplementedError("only the FrozenBN, non-dilated ResNet is ported")
+    for key in ("STEM_SPACE_TO_DEPTH", "REMAT"):
+        if r[key]:
+            raise NotImplementedError(f"MODEL.RESNETS.{key} is not ported")
+    if any(r.DEFORM_ON_PER_STAGE):
+        raise NotImplementedError("deformable convolutions (MODEL.RESNETS.DEFORM_ON_PER_STAGE) "
+                                  "are not ported")
     return ResNet(
         depth=r.DEPTH,
         num_groups=r.NUM_GROUPS,

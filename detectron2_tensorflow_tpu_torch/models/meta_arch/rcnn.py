@@ -46,6 +46,12 @@ class GeneralizedRCNN(nn.Module):
                 "only Mask R-CNN with StandardROIHeads (no keypoints, no loaded "
                 "proposals) is ported"
             )
+        for key, ported in (("PROPOSAL_GENERATOR.NAME", "RPN"),
+                            ("ROI_BOX_HEAD.NAME", "FastRCNNConvFCHead"),
+                            ("ROI_MASK_HEAD.NAME", "MaskRCNNConvUpsampleHead")):
+            group, leaf = key.split(".")
+            if m[group][leaf] != ported:
+                raise NotImplementedError(f"MODEL.{key} '{m[group][leaf]}' is not ported")
         self.dtype = DTYPES[m.DTYPE]
         self.pixel_mean = list(m.PIXEL_MEAN)
         self.pixel_std = list(m.PIXEL_STD)

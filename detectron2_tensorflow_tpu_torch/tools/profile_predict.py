@@ -27,7 +27,7 @@ import torch
 from torch.profiler import ProfilerActivity
 from torch.profiler import profile as profile_ctx
 
-from detectron2_tensorflow_tpu_torch import build_model, get_cfg
+from detectron2_tensorflow_tpu_torch import bench_cfg, build_model
 from detectron2_tensorflow_tpu_torch.ops.fused_residual import fused_epilogue_enabled
 
 CATEGORIES = (
@@ -53,7 +53,7 @@ def category(name: str) -> str:
 
 def run(batch: int, out_dir: Path) -> None:
     dev = torch.device("cuda", 0)
-    cfg = get_cfg()
+    cfg = bench_cfg()
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
     model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)

@@ -1,13 +1,13 @@
-"""The port's config module against the JAX package's ``bench_cfg()`` and
-``bench_train.train_cfg()``, and the narrow test configuration the other
-``test_torch_*`` files share."""
+"""The port's presets against the JAX package's ``bench_cfg()`` and
+``bench_train.train_cfg()``, on the full default tree, and the narrow test
+configuration the other ``test_torch_*`` files share."""
 
 import numpy as np
 import pytest
 
 import bench
 import bench_train
-from detectron2_tensorflow_tpu_torch.config import get_cfg as torch_get_cfg
+from detectron2_tensorflow_tpu_torch.config import bench_cfg as torch_bench_cfg
 from detectron2_tensorflow_tpu_torch.config import train_cfg as torch_train_cfg
 
 NARROW = {
@@ -39,7 +39,7 @@ def _get(cfg, path):
 
 def narrow_cfgs(**overrides):
     """(JAX cfg, port cfg): R50 depth at narrow widths, 5 classes, float32."""
-    jcfg, tcfg = bench.bench_cfg(), torch_get_cfg()
+    jcfg, tcfg = bench.bench_cfg(), torch_bench_cfg()
     for path, value in {**NARROW, **overrides}.items():
         _set(jcfg, path, value)
         _set(tcfg, path, value)
@@ -52,12 +52,35 @@ def _norm(v):
     return v
 
 
+def jax_flatten(cfg, prefix=""):
+    """``{"MODEL.RPN.NMS_THRESH": value}`` for every leaf of a JAX tree."""
+    out = {}
+    for k, v in cfg.items():
+        if isinstance(v, dict):
+            out.update(jax_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+# The one default that differs: the JAX package's XLA cache directory, which
+# the port has no use for (``config/defaults.py``).
+PORT_ONLY_DEFAULTS = {"LOGS.COMPILATION_CACHE_DIR": ""}
+
+
+def assert_same_tree(jcfg, tcfg):
+    """The same keys, and equal values of the same types, leaf by leaf."""
+    want = {**jax_flatten(jcfg), **PORT_ONLY_DEFAULTS}
+    got = dict(tcfg.flatten())
+    assert set(got) == set(want), set(got) ^ set(want)
+    for path, value in want.items():
+        assert got[path] == value and type(got[path]) is type(value), path
+
+
 def test_config_matches_bench_cfg_key_by_key():
-    jcfg, tcfg = bench.bench_cfg(), torch_get_cfg()
-    leaves = dict(tcfg.flatten())
-    assert len(leaves) > 50
-    for path, value in leaves.items():
-        assert _norm(_get(jcfg, path)) == _norm(value), path
+    jcfg, tcfg = bench.bench_cfg(), torch_bench_cfg()
+    assert len(jax_flatten(jcfg)) > 300
+    assert_same_tree(jcfg, tcfg)
 
 
 TRAIN_KEYS = (
@@ -86,15 +109,14 @@ def test_train_config_matches_bench_train_key_by_key(batch_size):
     jcfg, tcfg = bench_train.train_cfg(batch_size), torch_train_cfg(batch_size)
     leaves = dict(tcfg.flatten())
     assert set(TRAIN_KEYS) <= set(leaves)
-    for path, value in leaves.items():
-        assert _norm(_get(jcfg, path)) == _norm(value), path
+    assert_same_tree(jcfg, tcfg)
     assert tcfg.SOLVER.IMS_PER_BATCH == batch_size
     assert (tcfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN, tcfg.MODEL.RPN.POST_NMS_TOPK_TRAIN) == (2000, 1000)
 
 
 def test_serving_config_keeps_its_values():
-    """``get_cfg()`` still holds the serving values ``train_cfg`` overrides."""
-    cfg = torch_get_cfg()
+    """``bench_cfg()`` still holds the serving values ``train_cfg`` overrides."""
+    cfg = torch_bench_cfg()
     assert cfg.MODEL.RPN.PRE_NMS_TOPK_TEST == 1000 and cfg.INPUT.MAX_GT_INSTANCES == 100
     assert cfg.SOLVER.AUTO_SCALE_LR_SCHEDULE
 

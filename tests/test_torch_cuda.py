@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import chip_smoke
-from detectron2_tensorflow_tpu_torch import get_cfg, train_cfg
+from detectron2_tensorflow_tpu_torch import bench_cfg, train_cfg
 from detectron2_tensorflow_tpu_torch.models import poolers
 from detectron2_tensorflow_tpu_torch.models.rpn import RPN
 from detectron2_tensorflow_tpu_torch.ops import fused_residual as fr
@@ -135,7 +135,7 @@ def test_rpn_proposals_launch_nms_keep_once(dev, training):
     """One RPN ``proposals`` call on the card (serving and training budgets)
     launches the keep mask once for its five levels, and the stacked levels'
     NMS equals the per-level loop."""
-    cfg = train_cfg(2) if training else get_cfg()
+    cfg = train_cfg(2) if training else bench_cfg()
     rpn = RPN(cfg, [4, 8, 16, 32, 64], 16).to(dev)
     logits, deltas, sizes = _rpn_inputs(np.random.default_rng(int(training)), dev, 2)
     before = greedy_keep.launches

@@ -1,6 +1,7 @@
-"""Packaging rules of the port: it imports without JAX, Flax or PyYAML, its
-sources name nothing of the JAX package, the kernel builder refuses clearly
-without ``nvcc``, and ``chip_smoke.py`` refuses without a CUDA device."""
+"""Packaging rules of the port: it imports without JAX, Flax, PyYAML or
+``cv2`` (the GPU machine has none of them), its sources name nothing of the
+JAX package, the kernel builder refuses clearly without ``nvcc``, and
+``chip_smoke.py`` refuses without a CUDA device."""
 
 import re
 import subprocess
@@ -19,7 +20,7 @@ BLOCKER = """
 import importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "yaml"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "cv2"):
             raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, Block())
@@ -32,6 +33,9 @@ def _run(code: str, cwd=REPO):
 
 
 def test_package_and_chip_smoke_import_without_jax_flax_yaml():
+    """Every module of the package (the config, data, engine and evaluation
+    modules included) and ``chip_smoke.py`` import with JAX, Flax, PyYAML
+    and ``cv2`` blocked."""
     code = """
 import pkgutil, importlib
 import detectron2_tensorflow_tpu_torch as pkg
@@ -39,7 +43,10 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
 assert "detectron2_tensorflow_tpu" not in sys.modules
-assert not any(k.split(".")[0] in ("jax", "flax", "yaml") for k in sys.modules)
+assert not any(k.split(".")[0] in ("jax", "flax", "yaml", "cv2") for k in sys.modules)
+for m in ("config.yaml_subset", "data.loader", "engine.checkpoint", "engine.evaluator",
+          "evaluation.coco_eval"):
+    assert pkg.__name__ + "." + m in sys.modules, m
 print("ok")
 """
     proc = _run(code)
@@ -49,9 +56,12 @@ print("ok")
 
 def test_sources_name_nothing_of_jax():
     """No line of the package (Python or CUDA) or of chip_smoke.py names
-    JAX, Flax, PyYAML or the JAX package."""
-    pattern = re.compile(r"import jax|from jax|flax|import yaml|detectron2_tensorflow_tpu\b")
+    JAX, Flax, PyYAML, ``cv2`` or the JAX package."""
+    pattern = re.compile(r"import jax|from jax|flax|import yaml\b|from yaml\b|import cv2|from cv2"
+                         r"|detectron2_tensorflow_tpu\b")
     sources = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu") and "_build" not in p.parts]
+    assert {"config/yaml_subset.py", "data/loader.py", "engine/evaluator.py",
+            "evaluation/rle.py"} <= {str(p.relative_to(PKG)) for p in sources}
     for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             assert not pattern.search(line), f"{path}: {line}"
@@ -91,12 +101,12 @@ def test_signatures_name_every_exported_entry_point():
 def test_build_model_defaults_to_the_card():
     """``build_model(cfg)`` builds on the card; without one it raises
     instead of building on the CPU."""
-    from detectron2_tensorflow_tpu_torch import build_model, get_cfg
+    from detectron2_tensorflow_tpu_torch import bench_cfg, build_model
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model(get_cfg())
+        build_model(bench_cfg())
 
 
 def test_chip_smoke_refuses_without_cuda():
