@@ -60,12 +60,31 @@ any failure exits non-zero:
      images (COCO bbox and segm). Losses and metrics must be finite (an
      area range without GT gives NaN), each step must launch ``nms_keep``
      once and each ``predict`` twice. It prints the seconds per iteration
-     and the host seconds of data loading per batch. A probe line then says
-     whether ``cv2``, ``PIL`` and ``torchvision`` import and whether ``g++``
-     finds ``jpeglib.h`` and links ``-ljpeg``.
+     and the host seconds of data loading per batch;
+  8. workflow: the port's CLIs (``python -m
+     detectron2_tensorflow_tpu_torch.tools.<name>``) as subprocesses in a
+     temporary directory, with the switch off. (a) R50-FPN at full width
+     from records: ``tools.make_synthetic_coco`` (16 train and 8 val
+     images), ``tools.build_records`` (2 + 1 shards), ``tools.train`` on the
+     loop phase's YAML and overrides to step 4 (checkpoints [2, 4]) and a
+     second ``tools.train`` that resumes there to step 6 (checkpoints
+     [4, 6]), each step launching one ``nms_keep``, two ``roi_patch_fwd``
+     and two ``roi_patch_bwd`` (the train CLI reports its counts on its
+     ``train summary`` line), then ``tools.eval`` over the val records with
+     ``--dump_results`` (the JSON parses and names the dataset's category
+     and image ids). (b) the overfit gate: ``tools/workflow_check.py`` on
+     ``configs/synthetic/overfit_mask_rcnn_R_18.yaml`` (R18-FPN with GN,
+     from scratch, 600 iterations of 8 x 192x256, with the switch set: no
+     tail is fused), whose ``tools.eval`` on the train split must pass
+     ``TEST.EXPECTED_RESULTS`` ``[['bbox', 'AP', 88.0, 10.0], ['segm', 'AP',
+     84.0, 12.0]]``; it prints the APs, the final loss, the train seconds,
+     the seconds per iteration and the loader's host seconds per batch.
 
-The last lines are the card's name and power limit, a ``{"kernels": [...]}``
-line, and ``{"ok": true, "device": {...}}``.
+Each phase's seconds are printed on a line of their own. A probe line then
+says whether ``cv2``, ``PIL`` and ``torchvision`` import and whether ``g++``
+finds ``jpeglib.h`` and links ``-ljpeg``. The last lines are the card's name
+and power limit, a ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -120,7 +139,7 @@ from detectron2_tensorflow_tpu_torch.ops.nms import (
     greedy_keep_reference,
 )
 from detectron2_tensorflow_tpu_torch.solver import trainable_parameters
-from detectron2_tensorflow_tpu_torch.tools import exp_roi_variants
+from detectron2_tensorflow_tpu_torch.tools import exp_roi_variants, workflow_check
 from detectron2_tensorflow_tpu_torch.tools.exp_roi_variants import (
     roi_patch_variant,
     roi_patch_variant_reference,
@@ -235,6 +254,17 @@ def read_launches() -> dict:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+START = time.perf_counter()
+
+
+@contextlib.contextmanager
+def phase_seconds(name: str):
+    """Log the block's wall seconds on a line of its own."""
+    t0 = time.perf_counter()
+    yield
+    log(f"seconds    {name} {time.perf_counter() - t0:.1f}")
 
 
 # Cycles per second of torch.cuda._sleep's spin loop: the H100's top SM clock
@@ -1190,6 +1220,155 @@ def run_loop():
             {k.split("/")[1]: v for k, v in metrics.items() if k.startswith(kind + "/")}))
 
 
+# -- phase 8: workflow -------------------------------------------------------
+
+# (a) R50-FPN at full width through the CLIs, from records; the loop phase's
+# YAML and overrides. (b) the R18-GN overfit workflow and its AP gate.
+WORKFLOW_OPTS = LOOP_OPTS[:-2]  # the evaluation keeps the YAML's score threshold
+WORKFLOW_STEPS, WORKFLOW_RESUMED_STEPS = 4, 6
+WORKFLOW_ROI_PER_STEP = 2  # box and mask ROIs, pooled forward and backward
+
+
+def check_cli_train(summary: dict, start: int, stop: int, name: str) -> None:
+    """A ``tools.train`` run from ``start`` to ``stop``: per step one
+    ``nms_keep``, two ``roi_patch_fwd`` and two ``roi_patch_bwd`` launches,
+    no fused tail; losses finite."""
+    steps = stop - start
+    launches = summary["launches"]
+    want = {"nms_keep": NMS_PER_STEP * steps, "roi_patch_fwd": WORKFLOW_ROI_PER_STEP * steps,
+            "roi_patch_bwd": WORKFLOW_ROI_PER_STEP * steps, "fused_residual": 0}
+    losses = summary["final_losses"] or {}
+    if (summary["start_step"], summary["step"]) != (start, stop) or launches != want \
+            or not losses or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"workflow {name}: {summary}, expected launches {want}")
+
+
+def check_results_file(path: str, ds) -> int:
+    """The ``--dump_results`` JSON parses, and its records name the
+    dataset's category ids and image ids."""
+    with open(path) as f:
+        records = json.load(f)
+    cat_ids = set(ds.contiguous_to_cat_id.values())
+    image_ids = {ds.image_id(i) for i in range(len(ds))}
+    if not records or any(r["category_id"] not in cat_ids or r["image_id"] not in image_ids
+                          or len(r["bbox"]) != 4 or "counts" not in r["segmentation"]
+                          for r in records):
+        raise AssertionError(f"workflow: results file {path}: {records[:3]}")
+    return len(records)
+
+
+def loader_seconds(root: str, batches: int = 12):
+    """Host seconds per batch of the overfit config's loader over its train
+    records (CRC check, JPEG and PNG decode, resize, mini-masks), and the
+    seconds per record of the CRC alone and of the JPEG decode alone."""
+    from detectron2_tensorflow_tpu_torch.data import TFRecordDataset, image_io, tfrecord_codec
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(ROOT / workflow_check.CFG))
+    cfg.merge_from_list(["DATASETS.ROOT_DIR", root])
+    finalize(cfg)
+    ds = TFRecordDataset(os.path.join(root, "train.record-*"))
+    loader = build_dataloader(cfg, ds, training=True, seed=SEED)
+    next(loader)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(loader)
+    per_batch = (time.perf_counter() - t0) / batches
+    loader.close()
+    payloads = [tfrecord_codec.read_record_at(ds.files[fi], off, n) for fi, off, n in ds._index]
+    t0 = time.perf_counter()
+    for data in payloads:
+        tfrecord_codec.crc32c(data)
+    crc = (time.perf_counter() - t0) / len(payloads)
+    jpegs = [tfrecord_codec.decode_example(d)["image/encoded"][1][0] for d in payloads]
+    t0 = time.perf_counter()
+    for data in jpegs:
+        image_io.decode_image(data)
+    decode = (time.perf_counter() - t0) / len(jpegs)
+    return per_batch, crc, decode, cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_READERS
+
+
+def run_workflow():
+    """The CLIs as subprocesses in a temporary directory: (a) R50-FPN bf16 at
+    800x1344 from records (train 4 steps, resume to 6, evaluate with
+    ``--dump_results``); (b) the R18-GN overfit workflow, whose AP gate
+    decides the phase."""
+    run_step = workflow_check.run_step
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "r50")
+        common = ["--config_file", LOOP_YAML, "DATASETS.ROOT_DIR", root,
+                  "LOGS.ROOT_DIR", os.path.join(root, "logs"), *WORKFLOW_OPTS]
+        t0 = time.perf_counter()
+        run_step("make_synthetic_coco", [root, "16", "8"], echo=False)
+        run_step("build_records", [*common, "BUILD_RECORDS.TYPE", "coco_inst",
+                                   "BUILD_RECORDS.TRAIN_NUM_SHARDS", "2",
+                                   "BUILD_RECORDS.VAL_NUM_SHARDS", "1"], echo=False)
+        log(f"workflow   (a) {LOOP_YAML} + {WORKFLOW_OPTS}: 16 train + 8 val synthetic images "
+            f"as records (2 + 1 shards) in {time.perf_counter() - t0:.2f} s")
+        out = run_step("train", ["--max_iter", str(WORKFLOW_STEPS), *common], echo=False)
+        first = workflow_check.train_summary(out)
+        check_cli_train(first, 0, WORKFLOW_STEPS, "(a) train")
+        ckpt = first["checkpoint_dir"]
+        if all_steps(ckpt) != [2, 4]:
+            raise AssertionError(f"workflow (a): checkpoints {all_steps(ckpt)}")
+        out = run_step("train", ["--max_iter", str(WORKFLOW_RESUMED_STEPS), *common], echo=False)
+        resumed = workflow_check.train_summary(out)
+        resume_lines = [ln for ln in out.splitlines() if "resumed from checkpoint step" in ln]
+        check_cli_train(resumed, WORKFLOW_STEPS, WORKFLOW_RESUMED_STEPS, "(a) resume")
+        if not resume_lines or all_steps(ckpt) != [4, 6]:
+            raise AssertionError(f"workflow (a) resume: {resume_lines}, checkpoints "
+                                 f"{all_steps(ckpt)}")
+        for name, s in (("train", first), ("resume", resumed)):
+            log(f"workflow   (a) tools.train {name}: steps {s['start_step']}-{s['step']} in "
+                f"{s['seconds']:.2f} s ({s['seconds_per_iteration']:.3f} s per iteration, "
+                f"checkpoint writes and the first step's set-up included), losses "
+                + ", ".join(f"{k} {v:.4f}" for k, v in s["final_losses"].items())
+                + f"; launches {s['launches']}")
+        log(f"workflow   (a) {resume_lines[0].split(':')[-1].strip()}; checkpoints on disk "
+            f"{all_steps(ckpt)}")
+        results = os.path.join(root, "results.json")
+        t0 = time.perf_counter()
+        out = run_step("eval", ["--dump_results", results, *common], echo=False)
+        metrics = workflow_check.eval_metrics(out)
+        from detectron2_tensorflow_tpu_torch.data import TFRecordDataset
+
+        n = check_results_file(results, TFRecordDataset(os.path.join(root, "val.record-*")))
+        if len(metrics) < 24 or not all(math.isfinite(v) or math.isnan(v)
+                                        for v in metrics.values()):
+            raise AssertionError(f"workflow (a) eval: {metrics}")
+        log(f"workflow   (a) tools.eval from the val records in {time.perf_counter() - t0:.2f} s "
+            f"(process included): {n} results with the dataset's category ids; bbox AP "
+            f"{metrics['bbox/AP']:.3f}, segm AP {metrics['segm/AP']:.3f} (random weights, "
+            f"6 steps)")
+        shutil.rmtree(root)
+
+        root = os.path.join(tmp, "r18")
+        with fused_switch(True):  # a GN trunk has no tail to fuse: 0 launches even so
+            result = workflow_check.run_workflow(root, echo=False)
+        train_s, m = result["train"], result["metrics"]
+        if train_s["launches"]["fused_residual"] or train_s["fused_tail_convs"]:
+            raise AssertionError(f"workflow (b): fused tails on a GN trunk: {train_s}")
+        per_batch, crc, decode, batch, readers = loader_seconds(root)
+    log(f"workflow   (b) {workflow_check.CFG}: Mask R-CNN R18-FPN GN, from scratch, "
+        f"{train_s['steps']} iterations of 8 x 192x256 float32, then tools.eval on the train "
+        f"split with TEST.EXPECTED_RESULTS {workflow_check.EXPECTED}: passed")
+    for key in ("bbox/AP", "bbox/AP50", "segm/AP", "segm/AP50"):
+        log(f"workflow   (b) {key} {m[key]:.3f}")
+    log(f"workflow   (b) final loss " + ", ".join(
+        f"{k} {v:.4f}" for k, v in train_s["final_losses"].items()))
+    log(f"workflow   (b) train seconds {train_s['seconds']:.2f} (the tools.train process "
+        f"{result['seconds']['train']:.2f} s)")
+    log(f"workflow   (b) seconds per iteration {train_s['seconds_per_iteration']:.4f}")
+    log(f"workflow   (b) loader host seconds per batch of {batch} {per_batch:.4f} "
+        f"({readers} reader threads; per record: CRC {crc * 1e3:.3f} ms, JPEG decode "
+        f"{decode * 1e3:.3f} ms)")
+    log(f"workflow   (b) fused tails {train_s['launches']['fused_residual']} launched, "
+        f"{train_s['fused_tail_convs']} convs built for them, with "
+        f"{fused_residual.ENV_SWITCH} set; launches {train_s['launches']}")
+    log(f"workflow   (b) step seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in result["seconds"].items()))
+
+
 def probe():
     """What the card's machine offers a JPEG route (decides nothing here).
     Each module is imported in a child interpreter, so this one imports none."""
@@ -1234,27 +1413,34 @@ def main() -> None:
     log(f"device     {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    paths = kernels.build_all()
-    log(f"build      {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.2f} s")
+    with phase_seconds("build"):
+        paths = kernels.build_all()
+        log(f"build      {sorted(p.name for p in paths.values())}")
 
     rng = np.random.default_rng(SEED)
-    nms = check_nms(rng, dev)
-    roi = check_roi(rng, dev)
-    bwd = check_roi_bwd(rng, dev)
-    fused = check_fused(rng, dev)
-    variants = check_variants(dev)
-    variant_times, variant_launches = run_variants_tool()
-    variants["ms"] = variant_times["full"]
-    for on in (False, True):
-        check_small_against_cpu(rng, dev, on)
-    launches, _ = run_model(rng, dev)
-    for on in (False, True):
-        check_train_against_cpu(dev, on)
-    train_launches, _ = run_train(dev)
-    with fused_switch(False):
+    with phase_seconds("kernels"):
+        nms = check_nms(rng, dev)
+        roi = check_roi(rng, dev)
+        bwd = check_roi_bwd(rng, dev)
+        fused = check_fused(rng, dev)
+    with phase_seconds("variants"):
+        variants = check_variants(dev)
+        variant_times, variant_launches = run_variants_tool()
+        variants["ms"] = variant_times["full"]
+    with phase_seconds("model"):
+        for on in (False, True):
+            check_small_against_cpu(rng, dev, on)
+        launches, _ = run_model(rng, dev)
+    with phase_seconds("train"):
+        for on in (False, True):
+            check_train_against_cpu(dev, on)
+        train_launches, _ = run_train(dev)
+    with phase_seconds("loop"), fused_switch(False):
         run_loop()
+    with phase_seconds("workflow"), fused_switch(False):
+        run_workflow()
     probe()
+    log(f"seconds    total {time.perf_counter() - START:.1f}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

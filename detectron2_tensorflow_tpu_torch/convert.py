@@ -23,7 +23,11 @@ Layout changes:
     spatially flipped with in/out swapped, so the kernel is flipped in H and
     W and laid out ``[in, out, kh, kw]``;
   * the ``frozen`` FrozenBN collection (scale, bias, mean, var) becomes the
-    ``norm`` buffers (weight, bias, running_mean, running_var).
+    ``norm`` buffers (weight, bias, running_mean, running_var);
+  * a GN layer's ``GroupNorm_0/GroupNorm_0/{scale,bias}`` (the JAX
+    wrapper module and the GroupNorm module inside it) becomes the conv's
+    ``norm.weight`` / ``norm.bias``. Basic blocks (R18/R34) keep their JAX
+    names (``conv1``, ``conv2``, ``shortcut``), which are the port's.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ _PREFIX = {
     "mask_head": "roi_heads.mask_head",
 }
 _FROZEN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_GN = {"scale": "weight", "bias": "bias"}
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()):
@@ -74,6 +79,9 @@ def convert_variables(variables) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(variables["params"]):
         *mod, leaf = path
+        if len(mod) > 2 and mod[-2:] == ["GroupNorm_0", "GroupNorm_0"]:
+            out[f"{_module_name(tuple(mod[:-2]))}.norm.{_GN[leaf]}"] = torch.from_numpy(arr.copy())
+            continue
         deconv = mod[-1] == "deconv"
         if mod[-1] in ("conv", "deconv") and len(mod) > 2:
             mod = mod[:-1]  # the inner conv module of a Conv2D / ConvTranspose2D

@@ -1,6 +1,10 @@
-from . import fields, transforms
+from . import fields, image_io, tfrecord_codec, transforms
+from .coco import CocoDataset, decode_rle, segmentation_to_mask
 from .loader import build_dataloader, pad_sample_to_batch_arrays, pick_bucket
+from .records import TFRecordDataset, build_records, create_example
 from .synthetic import SyntheticDataset
 
-__all__ = ["fields", "transforms", "build_dataloader", "pad_sample_to_batch_arrays",
-           "pick_bucket", "SyntheticDataset"]
+__all__ = ["fields", "image_io", "tfrecord_codec", "transforms", "CocoDataset", "decode_rle",
+           "segmentation_to_mask", "build_dataloader", "pad_sample_to_batch_arrays",
+           "pick_bucket", "TFRecordDataset", "build_records", "create_example",
+           "SyntheticDataset"]

@@ -84,13 +84,16 @@ def _check_supported(cfg) -> None:
 
 
 def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
-             max_images: Optional[int] = None) -> Dict[str, float]:
+             max_images: Optional[int] = None, results_writer=None) -> Dict[str, float]:
     """The detection evaluation loop: ``{"bbox/AP": ..., "segm/AP": ...}``.
 
-    ``dataset`` gives the original-resolution GT by image id (``images`` and
-    indexing, as :class:`..data.SyntheticDataset` has); ``data_iter`` yields
+    ``dataset`` gives the original-resolution GT by image id (indexing, and
+    ``images`` as a COCO dataset has or ``image_id(i)`` as a record dataset
+    has); ``data_iter`` yields
     the eval batches of ``build_dataloader(cfg, dataset, training=False)``.
-    With the default ``EVAL.METRICS`` (bbox only) the segm evaluator is
+    ``results_writer`` (an ``evaluation.coco_results.CocoResultsWriter``)
+    also records every kept detection, in the original image's frame. With
+    the default ``EVAL.METRICS`` (bbox only) the segm evaluator is
     added, as the model predicts masks.
     """
     _check_supported(cfg)
@@ -136,6 +139,9 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
                     gt_m = dict(gt)
                     gt_m["masks"] = raw.get("masks", np.zeros((len(raw["boxes"]), oh, ow))).astype(bool)
                     ev.add_image(gt_m, {**det, "masks": det_masks})
+            if results_writer is not None:
+                results_writer.add_image(image_id, boxes, det["scores"], det["classes"],
+                                         det_masks)
             n_done += 1
         if max_images is not None and n_done >= max_images:
             break
@@ -149,15 +155,15 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
     return metrics
 
 
-def run_evaluation(cfg, model, dataset, data_iter, max_images: Optional[int] = None
-                   ) -> Dict[str, float]:
+def run_evaluation(cfg, model, dataset, data_iter, max_images: Optional[int] = None,
+                   results_writer=None) -> Dict[str, float]:
     """Dispatch on ``EVAL.METRICS``: the detection family, the one ported.
     ``data_iter`` is an iterable of batches or a callable that makes one."""
     names = tuple(cfg.EVAL.METRICS)
     if not names:
         raise ValueError(f"EVAL.METRICS selects no evaluator: {names}")
     batches = data_iter() if callable(data_iter) else iter(data_iter)
-    return evaluate(cfg, model, dataset, batches, max_images)
+    return evaluate(cfg, model, dataset, batches, max_images, results_writer)
 
 
 def num_classes_of(cfg) -> int:
@@ -170,7 +176,10 @@ def num_classes_of(cfg) -> int:
 
 def _index_of(dataset, image_id: int) -> int:
     if not hasattr(dataset, "_id_to_index"):
-        dataset._id_to_index = {info["id"]: i for i, (info, _) in enumerate(dataset.images)}
+        if hasattr(dataset, "images"):
+            dataset._id_to_index = {info["id"]: i for i, (info, _) in enumerate(dataset.images)}
+        else:  # a record dataset: ids come from image_id(i)
+            dataset._id_to_index = {dataset.image_id(i): i for i in range(len(dataset))}
     return dataset._id_to_index[image_id]
 
 

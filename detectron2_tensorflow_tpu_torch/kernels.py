@@ -7,6 +7,9 @@ call builds every source at once, one ``nvcc`` process per file, started
 together; a library whose source and flags are unchanged is reused. Nothing
 is built at import time, and nothing here falls back: without ``nvcc`` the
 builder raises ``RuntimeError``.
+
+Host code in C++ (``csrc/<name>.cpp``, for example the TFRecord CRC) is built
+the same way by ``g++`` (:func:`load_host`), into the same directory.
 """
 
 from __future__ import annotations
@@ -125,3 +128,42 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+# Host libraries: csrc/<name>.cpp -> {entry point: (argument types, result type)}.
+HOST_SIGNATURES = {"crc32c": {"crc32c": ([ctypes.c_char_p, ctypes.c_long], ctypes.c_uint32)}}
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+_host_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library ``name`` (a key of ``HOST_SIGNATURES``), built by
+    ``g++`` on first use; raises ``RuntimeError`` when ``g++`` is missing or
+    the compile fails."""
+    with _lock:
+        lib = _host_libs.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cpp"
+        tag = hashlib.sha256(src.read_bytes() + " ".join(HOST_FLAGS).encode()).hexdigest()[:16]
+        target = BUILD_DIR / f"{name}-{tag}.so"
+        if not target.is_file():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found on PATH: {src.name} builds only with a C++ "
+                                   "compiler")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed to build {src.name} (exit {proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, target)
+        lib = ctypes.CDLL(str(target))
+        for fn_name, (argtypes, restype) in HOST_SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _host_libs[name] = lib
+        return lib

@@ -1,9 +1,12 @@
-"""ResNet trunk: the R50 FrozenBN path with ``STRIDE_IN_1X1=True``.
+"""ResNet trunk: depths 18 to 152, FrozenBN or GN, not dilated.
 
-Port of the JAX package's ``models/backbones/resnet.py`` for the
-bottleneck, FrozenBN, non-dilated configuration the Mask R-CNN R50-FPN slice
-uses. Module names follow Detectron2 (``stem.conv1``, ``res2.0.conv1``,
-``res2.0.shortcut``, ``conv1.norm``), so a D2 state dict maps by name.
+Port of the JAX package's ``models/backbones/resnet.py``: bottleneck blocks
+for depth 50 and up, basic blocks (two 3x3 convs) for 18 and 34, whose
+stages are a quarter of ``RES2_OUT_CHANNELS`` wide, as there. As in the JAX
+package, the first block of every stage has a projection shortcut, res2's
+too. Module names follow Detectron2 (``stem.conv1``, ``res2.0.conv1``,
+``res2.0.shortcut``, ``conv1.norm``), so a D2 state dict maps by name; a GN
+layer is a conv's ``norm`` too, which is how the solver finds it.
 Stages up to ``FREEZE_AT`` (1 = the stem, 2 = the stem and res2) are
 frozen as in the JAX package: their outputs are detached (its
 ``stop_gradient``), and the solver leaves their parameters out of the
@@ -12,8 +15,11 @@ optimizer (``solver.trainable_parameters``).
 ``build_resnet_backbone`` reads the user's switch for the fused bottleneck
 tail (``D2TPU_ENABLE_FUSED_EPILOGUE``, see ``ops/fused_residual.py``) once,
 when the model is built, as the JAX package reads it when it traces; with it
-on, every block's ``conv3`` runs the tail as one fused kernel, in frozen
-stages too (their forward still runs).
+on, every bottleneck block's ``conv3`` runs the tail as one fused kernel when
+its norm is FrozenBN, in frozen stages too (their forward still runs). A
+basic block ends in a 3x3 conv and a GN block in GN, so neither takes it.
+Res5 dilation, BN/SyncBN, deformable convs, the space-to-depth stem and
+rematerialization raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,11 +32,17 @@ from torch import nn
 from ...ops.fused_residual import fused_epilogue_enabled
 from ..layers import Conv2d, max_pool
 
-BLOCKS_PER_STAGE = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+BLOCKS_PER_STAGE = {
+    18: (2, 2, 2, 2),
+    34: (3, 4, 6, 3),
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
 
 
 class BasicStem(nn.Module):
-    """7x7/2 conv + FrozenBN + relu + 3x3/2 max pool (stride 4)."""
+    """7x7/2 conv + norm + relu + 3x3/2 max pool (stride 4)."""
 
     def __init__(self, in_channels: int, out_channels: int, norm: str):
         super().__init__()
@@ -68,6 +80,26 @@ class BottleneckBlock(nn.Module):
         return self.conv3(out, residual=sc)
 
 
+class BasicBlock(nn.Module):
+    """3x3 -> 3x3 with a projection shortcut on the first block (R18/R34)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int, norm: str,
+                 has_shortcut: bool):
+        super().__init__()
+        self.conv1 = Conv2d(in_channels, out_channels, 3, stride=stride, norm=norm,
+                            activation="relu")
+        self.shortcut = (
+            Conv2d(in_channels, out_channels, 1, stride=stride, norm=norm)
+            if has_shortcut else None
+        )
+        self.conv2 = Conv2d(out_channels, out_channels, 3, norm=norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv1(x)
+        sc = self.shortcut(x) if self.shortcut is not None else x
+        return self.conv2(out, residual=sc)
+
+
 class ResNet(nn.Module):
     """Stem + res2..res5; returns ``{name: [B, C, H, W]}`` for ``out_features``."""
 
@@ -81,8 +113,9 @@ class ResNet(nn.Module):
             raise NotImplementedError(f"ResNet depth {depth} is not ported")
         self.out_features = list(out_features)
         self.stem = BasicStem(3, stem_out_channels, norm)
+        bottleneck = depth >= 50
         in_ch = stem_out_channels
-        out_ch = res2_out_channels
+        out_ch = res2_out_channels if bottleneck else res2_out_channels // 4
         bott = num_groups * width_per_group
         num_stages = max(int(f[3:]) for f in self.out_features) - 1
         self.stage_names = []
@@ -91,9 +124,12 @@ class ResNet(nn.Module):
             blocks = []
             for i in range(BLOCKS_PER_STAGE[depth][idx]):
                 stride = 2 if (i == 0 and idx > 0) else 1
-                blocks.append(BottleneckBlock(in_ch, out_ch, bott, stride,
-                                              num_groups, stride_in_1x1, norm,
-                                              has_shortcut=i == 0, fused_tail=fused_tail))
+                if bottleneck:
+                    blocks.append(BottleneckBlock(in_ch, out_ch, bott, stride,
+                                                  num_groups, stride_in_1x1, norm,
+                                                  has_shortcut=i == 0, fused_tail=fused_tail))
+                else:
+                    blocks.append(BasicBlock(in_ch, out_ch, stride, norm, has_shortcut=i == 0))
                 in_ch = out_ch
             self.add_module(name, nn.Sequential(*blocks))
             self.stage_names.append(name)
@@ -117,17 +153,19 @@ class ResNet(nn.Module):
 def output_shapes(cfg) -> Dict[str, tuple]:
     """``{res_k: (channels, stride)}`` of the trunk's stages."""
     r = cfg.MODEL.RESNETS
-    return {
-        f"res{i + 2}": (r.RES2_OUT_CHANNELS * 2 ** i, 4 * 2 ** i) for i in range(4)
-    }
+    res2 = r.RES2_OUT_CHANNELS if r.DEPTH >= 50 else r.RES2_OUT_CHANNELS // 4
+    return {f"res{i + 2}": (res2 * 2 ** i, 4 * 2 ** i) for i in range(4)}
 
 
 def build_resnet_backbone(cfg) -> ResNet:
     r = cfg.MODEL.RESNETS
     if cfg.MODEL.BACKBONE.NAME != "ResNet":
         raise NotImplementedError(f"backbone '{cfg.MODEL.BACKBONE.NAME}' is not ported")
-    if r.NORM != "FrozenBN" or r.RES5_DILATION != 1:
-        raise NotImplementedError("only the FrozenBN, non-dilated ResNet is ported")
+    if r.NORM not in ("FrozenBN", "GN"):
+        raise NotImplementedError(f"MODEL.RESNETS.NORM '{r.NORM}' is not ported "
+                                  "(FrozenBN and GN are)")
+    if r.RES5_DILATION != 1:
+        raise NotImplementedError("MODEL.RESNETS.RES5_DILATION (DC5 trunks) is not ported")
     for key in ("STEM_SPACE_TO_DEPTH", "REMAT"):
         if r[key]:
             raise NotImplementedError(f"MODEL.RESNETS.{key} is not ported")

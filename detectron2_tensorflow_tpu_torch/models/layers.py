@@ -1,4 +1,4 @@
-"""Shared building blocks: conv with norm and activation, FrozenBN, deconv.
+"""Shared building blocks: conv with norm and activation, FrozenBN, GN, deconv.
 
 Port of the JAX package's ``models/layers.py``. The
 JAX package runs NHWC convs with HWIO kernels; here convs are PyTorch's
@@ -11,6 +11,10 @@ What carries over exactly:
     on every side, where XLA's "SAME" would pad bottom/right-heavy);
   * FrozenBN folded to ``x * scale + shift``, the fold computed in float32
     and cast to the activation dtype, as the JAX module does;
+  * GN (the JAX ``GroupNorm(32, eps=1e-5)``): statistics and the affine in
+    float32 whatever the input dtype, the result cast to the input's dtype.
+    Flax takes the variance as ``E[x^2] - E[x]^2``, ``F.group_norm`` as a
+    two-pass (Welford) sum; in float32 they agree to ~1e-7 relative;
   * a conv runs in its input's dtype (its weight and bias are cast, so
     float32 training parameters compute in bf16), as the JAX package's
     convs do.
@@ -61,11 +65,27 @@ class FrozenBatchNorm2d(nn.Module):
         return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
 
 
+class GroupNorm(nn.GroupNorm):
+    """Group normalization over 32 groups, computed in float32 (see the
+    module docstring); ``weight`` and ``bias`` are trained."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5):
+        super().__init__(num_groups, num_channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
 def get_norm(norm: str, channels: int) -> Optional[nn.Module]:
+    """The norm layer the config names: none, FrozenBN or GN. BN and SyncBN
+    come with the first config that trains them."""
     if norm == "":
         return None
     if norm == "FrozenBN":
         return FrozenBatchNorm2d(channels)
+    if norm == "GN":
+        return GroupNorm(channels)
     raise NotImplementedError(f"norm '{norm}' is not ported")
 
 

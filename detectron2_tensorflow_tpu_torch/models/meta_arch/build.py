@@ -4,22 +4,26 @@ from __future__ import annotations
 
 import torch
 
+from ..layers import GroupNorm
 from .rcnn import DTYPES, GeneralizedRCNN, init_weights
 
 
 def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
-                state_dict=None, training: bool = False) -> GeneralizedRCNN:
+                state_dict=None, training: bool = False,
+                init: str = "serving") -> GeneralizedRCNN:
     """Build the model on ``device`` (the card unless the caller passes
     ``device="cpu"``; without a card that raises), computing in
     ``cfg.MODEL.DTYPE``.
 
     Weights come from ``state_dict`` (for example ``convert.py``'s output)
     or, without one, from :func:`init_weights` drawn from ``generator``
-    (seed 0 when none is given). For serving (eval mode) parameters are
-    stored in the model dtype; for ``training`` they stay float32 and each
-    layer casts them to its input's dtype, as the JAX package keeps float32
-    parameters. The FrozenBN buffers stay float32, as the JAX package folds
-    them in float32. On CUDA the weights are put in ``channels_last`` layout.
+    (seed 0 when none is given) by the recipe ``init`` names ("serving", or
+    "jax": the JAX package's own initializers, which training from scratch
+    uses). For serving (eval mode) parameters are stored in the model dtype
+    but GN's, which computes in float32; for ``training`` they stay float32
+    and each layer casts them to its input's dtype, as the JAX package keeps
+    float32 parameters. The FrozenBN buffers stay float32, as the JAX
+    package folds them in float32. On CUDA the weights are put in ``channels_last`` layout.
     """
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")
@@ -29,13 +33,16 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
     else:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        init_weights(model, generator)
+        init_weights(model, generator, init)
     model.train(training)
     if not training:
         dtype = DTYPES[cfg.MODEL.DTYPE]
+        keep = {id(p) for m in model.modules() if isinstance(m, GroupNorm)
+                for p in m.parameters()}
         with torch.no_grad():
             for p in model.parameters():
-                p.data = p.data.to(dtype)
+                if id(p) not in keep:
+                    p.data = p.data.to(dtype)
     model.to(device)
     if torch.device(device).type == "cuda":
         model.to(memory_format=torch.channels_last)

@@ -138,7 +138,65 @@ class GeneralizedRCNN(nn.Module):
         return losses
 
 
-def init_weights(model: GeneralizedRCNN, generator: torch.Generator) -> None:
+# Layers the JAX package initializes with small normals (std by port name).
+_SMALL_INIT = {
+    "proposal_generator.rpn_head.conv": 0.01,
+    "proposal_generator.rpn_head.objectness_logits": 0.01,
+    "proposal_generator.rpn_head.anchor_deltas": 0.01,
+    "roi_heads.box_predictor.cls_score": 0.01,
+    "roi_heads.box_predictor.bbox_pred": 0.001,
+    "roi_heads.mask_head.predictor": 0.001,
+}
+# The JAX initializers' truncated normal keeps [-2, 2] standard deviations and rescales by
+# this factor so that the kept values have the asked variance.
+_TRUNC_STD = 0.87962566103423978
+INIT_RECIPES = ("serving", "jax")
+
+
+def init_weights(model: GeneralizedRCNN, generator: torch.Generator,
+                 recipe: str = "serving") -> None:
+    """Seeded random weights: ``recipe`` "serving" (``_init_for_serving``)
+    or "jax".
+
+    "jax" draws from the JAX package's initializers, the ones its ``train.py``
+    starts from scratch with: convs and the deconv truncated normal with
+    variance ``2 / fan_out`` (``variance_scaling(2.0, "fan_out",
+    "normal")``), the box head's FCs uniform with variance ``1 / fan_in``,
+    the small normals of the RPN head and the predictors, zero biases, GN
+    at identity (FrozenBN keeps its identity buffers).
+    """
+    if recipe == "jax":
+        _init_like_jax(model, generator)
+        return
+    if recipe != "serving":
+        raise ValueError(f"unknown init recipe {recipe!r} (known: {INIT_RECIPES})")
+    _init_for_serving(model, generator)
+
+
+def _init_like_jax(model: GeneralizedRCNN, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                w = mod.weight
+                if name in _SMALL_INIT:
+                    w.copy_(torch.randn(w.shape, generator=generator) * _SMALL_INIT[name])
+                elif isinstance(mod, nn.Linear):
+                    limit = math.sqrt(3.0 / w.shape[1])
+                    w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * limit)
+                else:
+                    out = w.shape[1] if isinstance(mod, nn.ConvTranspose2d) else w.shape[0]
+                    std = math.sqrt(2.0 / (out * w[0, 0].numel())) / _TRUNC_STD
+                    t = torch.empty(w.shape)
+                    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+                    w.copy_(t)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.GroupNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+
+def _init_for_serving(model: GeneralizedRCNN, generator: torch.Generator) -> None:
     """Seeded random weights that keep activations of order one.
 
     Convs and FCs are variance-preserving (He-normal over fan-in, with the
@@ -150,14 +208,7 @@ def init_weights(model: GeneralizedRCNN, generator: torch.Generator) -> None:
     the class softmax unsaturated (scores near 1/81 at 80 classes) and the
     RPN deltas small, so proposals are real boxes near their anchors.
     """
-    small = {
-        "proposal_generator.rpn_head.conv": 0.01,
-        "proposal_generator.rpn_head.objectness_logits": 0.01,
-        "proposal_generator.rpn_head.anchor_deltas": 0.01,
-        "roi_heads.box_predictor.cls_score": 0.01,
-        "roi_heads.box_predictor.bbox_pred": 0.001,
-        "roi_heads.mask_head.predictor": 0.001,
-    }
+    small = _SMALL_INIT
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):

@@ -1,9 +1,10 @@
 """FPN neck: lateral 1x1s, nearest-2x top-down sums, 3x3 outputs, and the
 max-pool top block (p6).
 
-Port of the JAX package's ``models/necks/fpn.py`` for sum fusion,
-no norm and the ``MAXPOOL`` top block. Module names follow Detectron2
-(``fpn_lateral3``, ``fpn_output3``).
+Port of the JAX package's ``models/necks/fpn.py`` for sum fusion and the
+``MAXPOOL`` top block, with no norm or GN on the lateral and output convs
+(``NECK.NORM``; a GN conv has no bias). Module names follow Detectron2
+(``fpn_lateral3``, ``fpn_output3``, ``fpn_lateral3.norm``).
 """
 
 from __future__ import annotations
@@ -27,16 +28,17 @@ class FPN(nn.Module):
     """
 
     def __init__(self, bottom_up: nn.Module, in_features: List[str],
-                 in_channels: List[int], strides: List[int], out_channels: int):
+                 in_channels: List[int], strides: List[int], out_channels: int,
+                 norm: str = ""):
         super().__init__()
         self.bottom_up = bottom_up
         self.in_features = list(in_features)
         self.stages = [int(math.log2(s)) for s in strides]
         for name_stage, ch in zip(self.stages, in_channels):
             self.add_module(f"fpn_lateral{name_stage}",
-                            Conv2d(ch, out_channels, 1))
+                            Conv2d(ch, out_channels, 1, norm=norm))
             self.add_module(f"fpn_output{name_stage}",
-                            Conv2d(out_channels, out_channels, 3))
+                            Conv2d(out_channels, out_channels, 3, norm=norm))
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.pyramid(self.bottom_up(images))
@@ -59,15 +61,18 @@ class FPN(nn.Module):
 
 def build_fpn(cfg, bottom_up: nn.Module, trunk_shapes: Dict[str, tuple]) -> FPN:
     n = cfg.MODEL.NECK
-    if (n.NAME != "FPN" or n.NORM != "" or n.ACTIVATION != ""
+    if (n.NAME != "FPN" or n.ACTIVATION != ""
             or n.FUSE_TYPE != "sum" or n.TOP_BLOCK_TYPE != "MAXPOOL"):
         raise NotImplementedError("only the sum-fused FPN with a MAXPOOL top block is ported")
+    if n.NORM not in ("", "GN"):
+        raise NotImplementedError(f"MODEL.NECK.NORM '{n.NORM}' is not ported (none and GN are)")
     return FPN(
         bottom_up,
         n.IN_FEATURES,
         [trunk_shapes[f][0] for f in n.IN_FEATURES],
         [trunk_shapes[f][1] for f in n.IN_FEATURES],
         n.OUT_CHANNELS,
+        n.NORM,
     )
 
 

@@ -268,8 +268,9 @@ def test_jax_cfgnode_and_port_cfgnode_agree_on_construction():
 # -- the models a config builds -------------------------------------------------
 
 # The files whose model the port has (Mask R-CNN FPN: R50, R101, X101, the
-# class-agnostic heads); every other file must raise NotImplementedError on a
-# key the port does not read yet, never build while ignoring one.
+# class-agnostic heads, and the R18-GN overfit config); every other file must
+# raise NotImplementedError on a key the port does not read yet, never build
+# while ignoring one.
 BUILDS = {
     "configs/Base-RCNN-FPN.yaml",
     "configs/COCO-InstanceSegmentation/mask_rcnn_R_101_FPN_1x.yaml",
@@ -281,6 +282,7 @@ BUILDS = {
     "configs/quick_schedules/mask_rcnn_R_50_FPN_inference_acc_test.yaml",
     "configs/quick_schedules/mask_rcnn_R_50_FPN_instant_test.yaml",
     "configs/quick_schedules/mask_rcnn_R_50_FPN_training_acc_test.yaml",
+    "configs/synthetic/overfit_mask_rcnn_R_18.yaml",
 }
 
 

@@ -1,6 +1,8 @@
 """Packaging rules of the port: it imports without JAX, Flax, PyYAML or
-``cv2`` (the GPU machine has none of them), its sources name nothing of the
-JAX package, the kernel builder refuses clearly without ``nvcc``, and
+``cv2`` (the GPU machine has none of them), its CLIs run as modules under
+the same rule, PIL is imported by ``data/image_io.py`` alone (and only when
+an image is decoded or encoded), its sources name nothing of the JAX
+package, the kernel builder refuses clearly without ``nvcc``, and
 ``chip_smoke.py`` refuses without a CUDA device."""
 
 import re
@@ -45,8 +47,11 @@ import chip_smoke
 assert "detectron2_tensorflow_tpu" not in sys.modules
 assert not any(k.split(".")[0] in ("jax", "flax", "yaml", "cv2") for k in sys.modules)
 for m in ("config.yaml_subset", "data.loader", "engine.checkpoint", "engine.evaluator",
-          "evaluation.coco_eval"):
+          "evaluation.coco_eval", "data.tfrecord_codec", "data.image_io", "data.polygon",
+          "data.coco", "data.records", "evaluation.coco_results", "tools.make_synthetic_coco",
+          "tools.build_records", "tools.train", "tools.eval", "tools.workflow_check"):
     assert pkg.__name__ + "." + m in sys.modules, m
+assert "PIL" not in sys.modules  # imported at the first decode or encode only
 print("ok")
 """
     proc = _run(code)
@@ -65,6 +70,38 @@ def test_sources_name_nothing_of_jax():
     for path in sources + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             assert not pattern.search(line), f"{path}: {line}"
+
+
+@pytest.mark.parametrize("tool", ["make_synthetic_coco", "build_records", "train", "eval",
+                                  "workflow_check"])
+def test_clis_run_as_modules_without_jax_flax_yaml(tool):
+    """``python -m detectron2_tensorflow_tpu_torch.tools.<tool>`` starts (its
+    ``--help``) with JAX, Flax, PyYAML and ``cv2`` blocked."""
+    name = f"detectron2_tensorflow_tpu_torch.tools.{tool}"
+    code = f"""
+import runpy
+sys.argv = ["{name}", "--help"]
+try:
+    runpy.run_module("{name}", run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+assert not any(k.split(".")[0] in ("jax", "flax", "yaml", "cv2") for k in sys.modules)
+print("ok")
+"""
+    if tool == "make_synthetic_coco":  # positional arguments only: write a tiny set
+        code = "import tempfile\nout = tempfile.mkdtemp()\n" + code.replace(
+            '"--help"', 'out, "1", "1"')
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_only_image_io_imports_pil():
+    pattern = re.compile(r"^\s*(import PIL|from PIL)")
+    users = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py") if "_build" not in p.parts
+             for line in p.read_text().splitlines() if pattern.search(line)}
+    assert users == {"data/image_io.py"}
+    assert not any(pattern.search(line) for line in (REPO / "chip_smoke.py").read_text().splitlines())
 
 
 def test_kernel_builder_raises_without_nvcc(monkeypatch, tmp_path):
