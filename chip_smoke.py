@@ -78,7 +78,30 @@ any failure exits non-zero:
      tail is fused), whose ``tools.eval`` on the train split must pass
      ``TEST.EXPECTED_RESULTS`` ``[['bbox', 'AP', 88.0, 10.0], ['segm', 'AP',
      84.0, 12.0]]``; it prints the APs, the final loss, the train seconds,
-     the seconds per iteration and the loader's host seconds per batch.
+     the seconds per iteration and the loader's host seconds per batch;
+  9. single_level: the C4 (``Res5ROIHeads``) and DC5 (dilated res5)
+     families. Each kernel at their shapes against its plain version, timed
+     beside its bound: ``nms_keep`` bit-equal on one RPN level of 2 x 6000
+     (``max_keep`` 1000) and 8 x 12000 (``max_keep`` 2000);
+     ``roi_patch_fwd`` on a one-level stride-16 plane at C = 1024, S = 14
+     (2 x 1000, 2 x 100) and C = 2048, S = 7 (2 x 1000) and S = 14 (2 x
+     100); ``roi_patch_bwd`` at C = 1024, S = 14 (8 x 512) and C = 2048,
+     S = 7 (8 x 512) and S = 14 (8 x 128); ``fused_residual`` at M = 98000
+     and 8400 (K 512, N 2048). Then ``mask_rcnn_R_50_{C4,DC5}_1x.yaml`` in
+     bf16 (``SCORE_THRESH_TEST`` 0, seeded random weights) serve 2 x 800 x
+     1344 through ``build_model(cfg)`` + ``model.predict`` with the switch
+     off and on in turns (launches per ``predict`` asserted: 2 ``nms_keep``
+     and 2 ``roi_patch_fwd`` each, 19 fused tails for C4 and 16 for DC5
+     with the switch on; outputs checked; img/s, device ms per call and idle
+     share printed); narrow float32 C4 and DC5 models and train steps are
+     held against the CPU; each YAML trains 2 + 3 steps at 8 x 800 x 1344
+     (per step C4 1 ``nms_keep``, 1 ``roi_patch_fwd``, 1 ``roi_patch_bwd``;
+     DC5 1, 2, 2; losses finite, the frozen stem and res2 bit-equal, every
+     trainable parameter moved, the C4 head's res5 included); last the
+     overfit gates, ``tools.overfit_check 600 --arch c4`` and ``--arch
+     rcnn`` as two subprocesses at once, each needing bbox AP50 >= 90 (and
+     c4 a bbox AP no more than 10 below the JAX package's on the same
+     recipe).
 
 Each phase's seconds are printed on a line of their own. A probe line then
 says whether ``cv2``, ``PIL`` and ``torchvision`` import and whether ``g++``
@@ -139,7 +162,7 @@ from detectron2_tensorflow_tpu_torch.ops.nms import (
     greedy_keep_reference,
 )
 from detectron2_tensorflow_tpu_torch.solver import trainable_parameters
-from detectron2_tensorflow_tpu_torch.tools import exp_roi_variants, workflow_check
+from detectron2_tensorflow_tpu_torch.tools import exp_roi_variants, profile_predict, workflow_check
 from detectron2_tensorflow_tpu_torch.tools.exp_roi_variants import (
     roi_patch_variant,
     roi_patch_variant_reference,
@@ -373,29 +396,31 @@ def check_nms(rng, dev):
     b, v = stacked_levels(rng, 8, 2000)
     cases.append(("train rpn stacked 8x(4x2000 + 819 padded) iou=0.7 max_keep=1000",
                   b, v, 0.7, 1000))
-    results = []
-    for name, boxes, valid, thr, mk in cases:
-        tb = torch.from_numpy(boxes).to(dev)
-        tv = torch.from_numpy(valid).to(dev)
-        got = greedy_keep(tb, tv, thr, max_keep=mk)
-        want = greedy_keep_reference(tb, tv, thr, max_keep=mk)
-        torch.cuda.synchronize()
-        got, want = got.cpu().numpy(), want.cpu().numpy()
-        if not np.array_equal(got, want):
-            raise AssertionError(f"nms_keep {name}: keep mask differs from the plain version")
-        err = int(np.abs(got.astype(np.int8) - want.astype(np.int8)).max())
-        ms = cuda_ms(lambda: greedy_keep(tb, tv, thr, max_keep=mk), reps=50)
-        plain_ms = cuda_ms(lambda: greedy_keep_reference(tb, tv, thr, max_keep=mk),
-                           reps=3, warmup=1)
-        # Boxes and valid flags in, the keep mask out; the IoU of every pair
-        # of valid boxes the greedy reaches.
-        bound_ms, bound_by = bound(boxes.nbytes + 2 * valid.size,
-                                   NMS_OPS_PER_PAIR * nms_pairs(valid, want, mk), torch.float32)
-        log(f"nms_keep   {name}: kept {int(got.sum())}, keep mask equal, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        results.append({"case": name, "err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by})
-    return results
+    return [nms_case(dev, *case) for case in cases]
+
+
+def nms_case(dev, name, boxes, valid, thr, mk, plain=greedy_keep_reference, reps=50,
+             tag="nms_keep  "):
+    """One ``nms_keep`` case: bit-equal to ``plain``, both timed, the bound."""
+    tb = torch.from_numpy(boxes).to(dev)
+    tv = torch.from_numpy(valid).to(dev)
+    got = greedy_keep(tb, tv, thr, max_keep=mk)
+    want = plain(tb, tv, thr, mk)
+    torch.cuda.synchronize()
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError(f"nms_keep {name}: keep mask differs from the plain version")
+    err = int(np.abs(got.astype(np.int8) - want.astype(np.int8)).max())
+    ms = cuda_ms(lambda: greedy_keep(tb, tv, thr, max_keep=mk), reps=reps)
+    plain_ms = cuda_ms(lambda: plain(tb, tv, thr, mk), reps=3, warmup=1)
+    # Boxes and valid flags in, the keep mask out; the IoU of every pair
+    # of valid boxes the greedy reaches.
+    bound_ms, bound_by = bound(boxes.nbytes + 2 * valid.size,
+                               NMS_OPS_PER_PAIR * nms_pairs(valid, want, mk), torch.float32)
+    log(f"{tag} {name}: kept {int(got.sum())}, keep mask equal, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"case": name, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def roi_inputs(rng, dev, dtype, n, s, valid_frac=0.9, objects=None):
@@ -473,30 +498,36 @@ def check_roi(rng, dev):
     results = []
     for label, n, s in (("box N=1000 S=7", 1000, 7), ("mask N=100 S=14", 100, 14)):
         for dtype in (torch.bfloat16, torch.float32):
-            storage, starts, wy, wx, valid = roi_inputs(rng, dev, dtype, n, s)
-            got = roi_patch_interpolate(storage, starts, wy, wx)
-            want = roi_patch_interpolate_reference(storage, starts, wy, wx)
-            torch.cuda.synchronize()
-            skipped = ~valid
-            if bool((got[skipped] != 0).any()):
-                raise AssertionError(f"roi_patch {label}: skip-sentinel slots are not exact zeros")
-            err = float((got.float() - want.float()).abs().max())
-            scale = float(want.float().abs().max())
-            tol = ROI_TOL_F32 if dtype == torch.float32 else ROI_TOL_BF16_REL * max(1.0, scale)
-            if not err <= tol:
-                raise AssertionError(f"roi_patch {label} {dtype}: max |err| {err} > {tol}")
-            ms = cuda_ms(lambda: roi_patch_interpolate(storage, starts, wy, wx), reps=20)
-            plain_ms = cuda_ms(lambda: roi_patch_interpolate_reference(storage, starts, wy, wx),
-                               reps=3, warmup=1)
-            bound_ms, bound_by = roi_bound(storage.shape, dtype, starts, wy, wx, backward=False)
-            name = f"{label} {str(dtype).replace('torch.', '')}"
-            log(f"roi_patch  {name}: max|err| {err:.3g} (tol {tol:.3g}, max|out| {scale:.3g}), "
-                f"skipped {int(skipped.sum())}, support {support_share(starts, wy, wx):.1%} of "
-                f"the patch, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
-            results.append({"case": name, "err": err, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by})
+            results.append(roi_fwd_case(label, *roi_inputs(rng, dev, dtype, n, s)))
     return results
+
+
+def roi_fwd_case(label, storage, starts, wy, wx, valid, tag="roi_patch "):
+    """One ``roi_patch_fwd`` case: skipped slots exact zeros, within the ROI
+    tolerance of the plain version, both timed, the bound."""
+    dtype = storage.dtype
+    got = roi_patch_interpolate(storage, starts, wy, wx)
+    want = roi_patch_interpolate_reference(storage, starts, wy, wx)
+    torch.cuda.synchronize()
+    skipped = ~valid
+    if bool((got[skipped] != 0).any()):
+        raise AssertionError(f"roi_patch {label}: skip-sentinel slots are not exact zeros")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    tol = ROI_TOL_F32 if dtype == torch.float32 else ROI_TOL_BF16_REL * max(1.0, scale)
+    if not err <= tol:
+        raise AssertionError(f"roi_patch {label} {dtype}: max |err| {err} > {tol}")
+    ms = cuda_ms(lambda: roi_patch_interpolate(storage, starts, wy, wx), reps=20)
+    plain_ms = cuda_ms(lambda: roi_patch_interpolate_reference(storage, starts, wy, wx),
+                       reps=3, warmup=1)
+    bound_ms, bound_by = roi_bound(storage.shape, dtype, starts, wy, wx, backward=False)
+    name = f"{label} {str(dtype).replace('torch.', '')}"
+    log(f"{tag} {name}: max|err| {err:.3g} (tol {tol:.3g}, max|out| {scale:.3g}), "
+        f"skipped {int(skipped.sum())}, support {support_share(starts, wy, wx):.1%} of "
+        f"the patch, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"case": name, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def spread_starts(starts, p: int, htot: int, wm: int, seed: int):
@@ -523,34 +554,12 @@ def check_roi_bwd(rng, dev):
     for label, n, s in (("box B=2 N=512 S=7", 512, 7), ("mask B=2 N=128 S=14", 128, 14)):
         storage, starts, wy, wx, valid = roi_inputs(rng, dev, torch.bfloat16, n, s, objects=12)
         shape = tuple(storage.shape)
-        share = support_share(starts, wy, wx)
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.from_numpy(rng.standard_normal((2, n, s, s, 256)).astype(np.float32)).to(dev, dtype)
-            got = roi_patch_backward(g, starts, wy, wx, shape)
-            want = roi_patch_backward_reference(g, starts, wy, wx, shape)
-            terms = roi_patch_backward_reference(g.abs(), starts, wy, wx, shape)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            excess = float(((got - want).abs() - ROI_BWD_TOL * terms).max())
-            if not excess <= 0:
-                raise AssertionError(f"roi_patch_bwd {label} {dtype}: error exceeds "
-                                     f"{ROI_BWD_TOL} x sum|terms| by {excess}")
+            results.append(roi_bwd_case(label, g, starts, wy, wx, valid, shape))
             only_skipped = torch.where((~valid)[..., None, None, None], g, torch.zeros_like(g))
             if bool(roi_patch_backward(only_skipped, starts, wy, wx, shape).any()):
                 raise AssertionError(f"roi_patch_bwd {label}: skipped slots added to the plane")
-            acc, acc_ref = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
-            ms = cuda_ms(lambda: roi_patch_backward(g, starts, wy, wx, shape, init=acc), reps=20)
-            plain_ms = cuda_ms(lambda: roi_patch_backward_reference(g, starts, wy, wx, shape,
-                                                                    init=acc_ref),
-                               reps=3, warmup=1)
-            bound_ms, bound_by = roi_bound(shape, dtype, starts, wy, wx, backward=True)
-            name = f"{label} {str(dtype).replace('torch.', '')}"
-            log(f"roi_bwd    {name}: max|err| {err:.3g} (max|want| {float(want.abs().max()):.3g}, "
-                f"max sum|terms| {float(terms.max()):.3g}), skipped {int((~valid).sum())}, "
-                f"support {share:.1%} of the patch, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
-            results.append({"case": name, "err": err, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by})
             planes[label, dtype] = (g, starts, wy, wx, shape)
         g = planes[label, torch.bfloat16][0]
         spread = spread_starts(starts, wy.shape[-1], shape[1], shape[2], SEED + n)
@@ -574,6 +583,35 @@ def check_roi_bwd(rng, dev):
     log(f"roi_bwd    chained box -> mask through init (bf16): max|err| {err:.3g}")
     results.append({"case": "chained", "err": err})
     return results
+
+
+def roi_bwd_case(label, g, starts, wy, wx, valid, shape, tag="roi_bwd   "):
+    """One ``roi_patch_bwd`` case: each plane cell within ``ROI_BWD_TOL`` of
+    the sum of its terms' magnitudes of the plain version, both timed
+    (accumulating into a plane through ``init``), the bound."""
+    got = roi_patch_backward(g, starts, wy, wx, shape)
+    want = roi_patch_backward_reference(g, starts, wy, wx, shape)
+    terms = roi_patch_backward_reference(g.abs(), starts, wy, wx, shape)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() - ROI_BWD_TOL * terms).max())
+    name = f"{label} {str(g.dtype).replace('torch.', '')}"
+    if not excess <= 0:
+        raise AssertionError(f"roi_patch_bwd {name}: error exceeds {ROI_BWD_TOL} x sum|terms| "
+                             f"by {excess}")
+    stats = (f"max|err| {err:.3g} (max|want| {float(want.abs().max()):.3g}, max sum|terms| "
+             f"{float(terms.max()):.3g})")
+    del got, want, terms
+    acc, acc_ref = torch.zeros(shape, device=g.device), torch.zeros(shape, device=g.device)
+    ms = cuda_ms(lambda: roi_patch_backward(g, starts, wy, wx, shape, init=acc), reps=20)
+    plain_ms = cuda_ms(lambda: roi_patch_backward_reference(g, starts, wy, wx, shape,
+                                                            init=acc_ref), reps=3, warmup=1)
+    bound_ms, bound_by = roi_bound(shape, g.dtype, starts, wy, wx, backward=True)
+    log(f"{tag} {name}: {stats}, skipped {int((~valid).sum())}, support "
+        f"{support_share(starts, wy, wx):.1%} of the patch, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"case": name, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def tail_inputs(rng, dev, dtype, b, h, w, k, n):
@@ -624,43 +662,51 @@ def check_fused(rng, dev):
     cases += [("ragged M=63 K=8 N=32", torch.bfloat16, (1, 7, 9, 8, 32)),
               ("ragged M=63 K=8 N=32", torch.float32, (1, 7, 9, 8, 32)),
               ("res4 M=8400 K=256 N=1024", torch.float32, (2, 50, 84, 256, 1024))]
-    results = []
-    for label, dtype, (b, h, w, k, n) in cases:
-        args = tail_inputs(rng, dev, dtype, b, h, w, k, n)
-        before = fused_conv1x1_bn_add_relu.launches_by_path["wgmma"]
-        got = fused_conv1x1_bn_add_relu(*args)
-        if label.startswith("res") and dtype == torch.bfloat16 and (
-                fused_conv1x1_bn_add_relu.launches_by_path["wgmma"] != before + 1):
-            raise AssertionError(f"fused_residual {label}: did not take the wgmma path")
-        want = fused_conv1x1_bn_add_relu_reference(*args)
-        torch.cuda.synchronize()
-        if got.shape != (b, n, h, w) or not got.is_contiguous(memory_format=torch.channels_last):
-            raise AssertionError(f"fused_residual {label}: output {tuple(got.shape)} not "
-                                 "channels_last [B, N, H, W]")
-        gotf, wantf = got.float(), want.float()
-        err = (gotf - wantf).abs()
-        if dtype == torch.float32:
-            ok = float(err.max()) <= FUSED_TOL_F32 * float(wantf.abs().max())
-        else:
-            ok = within_tolerance(got, want)
-        name = f"{label} {str(dtype).replace('torch.', '')}"
-        if not ok:
-            raise AssertionError(f"fused_residual {name}: max |err| {float(err.max())} beyond "
-                                 "the tolerance")
-        ms = cuda_ms(lambda: fused_conv1x1_bn_add_relu(*args), reps=20)
-        plain_ms = cuda_ms(lambda: fused_conv1x1_bn_add_relu_reference(*args), reps=3, warmup=1)
-        library_ms = cuda_ms(lambda: unfused_tail(*args), reps=20)
-        m, esize = b * h * w, got.element_size()
-        bound_ms, bound_by = bound(tail_bytes(m, k, n, esize), 2.0 * m * n * k, dtype)
-        log(f"fused_res  {name}: max|err| {float(err.max()):.3g} (max|out| "
-            f"{float(wantf.abs().max()):.3g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"unfused tail {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{bound_ms / ms:.0%} of bound")
-        results.append({"case": name, "err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+    results = [fused_case(rng, dev, label, dtype, dims,
+                          wgmma=label.startswith("res") and dtype == torch.bfloat16)
+               for label, dtype, dims in cases]
     log(f"fused_res  host cost per call at res4 b2 (host clock, 200 calls): "
         f"{host_cost_us(rng, dev)}")
     return results
+
+
+def fused_case(rng, dev, label, dtype, dims, wgmma: bool, tag="fused_res "):
+    """One ``fused_residual`` case on ``tail_inputs`` of ``dims`` (B, H, W,
+    K, N): on the ``wgmma`` path where asked, a channels_last output within
+    tolerance of the plain version, timed beside it, the unfused tail and
+    the bound."""
+    b, h, w, k, n = dims
+    args = tail_inputs(rng, dev, dtype, b, h, w, k, n)
+    before = fused_conv1x1_bn_add_relu.launches_by_path["wgmma"]
+    got = fused_conv1x1_bn_add_relu(*args)
+    if wgmma and fused_conv1x1_bn_add_relu.launches_by_path["wgmma"] != before + 1:
+        raise AssertionError(f"fused_residual {label}: did not take the wgmma path")
+    want = fused_conv1x1_bn_add_relu_reference(*args)
+    torch.cuda.synchronize()
+    if got.shape != (b, n, h, w) or not got.is_contiguous(memory_format=torch.channels_last):
+        raise AssertionError(f"fused_residual {label}: output {tuple(got.shape)} not "
+                             "channels_last [B, N, H, W]")
+    gotf, wantf = got.float(), want.float()
+    err = (gotf - wantf).abs()
+    if dtype == torch.float32:
+        ok = float(err.max()) <= FUSED_TOL_F32 * float(wantf.abs().max())
+    else:
+        ok = within_tolerance(got, want)
+    name = f"{label} {str(dtype).replace('torch.', '')}"
+    if not ok:
+        raise AssertionError(f"fused_residual {name}: max |err| {float(err.max())} beyond "
+                             "the tolerance")
+    ms = cuda_ms(lambda: fused_conv1x1_bn_add_relu(*args), reps=20)
+    plain_ms = cuda_ms(lambda: fused_conv1x1_bn_add_relu_reference(*args), reps=3, warmup=1)
+    library_ms = cuda_ms(lambda: unfused_tail(*args), reps=20)
+    m, esize = b * h * w, got.element_size()
+    bound_ms, bound_by = bound(tail_bytes(m, k, n, esize), 2.0 * m * n * k, dtype)
+    log(f"{tag} {name}: max|err| {float(err.max()):.3g} (max|out| "
+        f"{float(wantf.abs().max()):.3g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"unfused tail {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / ms:.0%} of bound")
+    return {"case": name, "err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def host_cost_us(rng, dev) -> str:
@@ -748,11 +794,12 @@ def narrow_cfg():
     return cfg
 
 
-def check_small_against_cpu(rng, dev, fused: bool):
-    """Narrow float32 model on a 2 x 128 x 160 input: the card's output
-    (kernels) against the CPU's (plain versions), same weights, with the
-    fused tail switched off or on for both."""
-    cfg = narrow_cfg()
+def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     "):
+    """Narrow float32 model (``narrow_cfg()`` unless ``cfg``) on a 2 x 128 x
+    160 input: the card's output (kernels) against the CPU's (plain
+    versions), same weights, with the fused tail switched off or on for
+    both."""
+    cfg = cfg or narrow_cfg()
     with fused_switch(fused):
         cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
         gpu_model = build_model(cfg, device=dev, state_dict=cpu_model.state_dict())
@@ -768,22 +815,58 @@ def check_small_against_cpu(rng, dev, fused: bool):
         raise AssertionError("small input: valid slots differ between the card and the CPU")
     if not torch.equal(got["pred_classes"], want.pred_classes):
         raise AssertionError("small input: classes differ between the card and the CPU")
+    order = tie_order(got, want.get_fields())
     errs = {}
-    for k, tol in (("boxes", 1e-3), ("scores", 1e-5), ("pred_masks", 1e-4)):
-        errs[k] = float((got[k] - want.get_fields()[k]).abs().max())
+    for k, tol in SMALL_TOL.items():
+        slots = order.reshape(order.shape + (1,) * (got[k].dim() - 2)).expand_as(got[k])
+        errs[k] = float((torch.gather(got[k], 1, slots) - want.get_fields()[k]).abs().max())
         if not errs[k] <= tol:
             raise AssertionError(f"small input: {k} max |err| {errs[k]} > {tol}")
-    log(f"model      small f32 input, fused tail {'on' if fused else 'off'}, card vs CPU: "
-        f"valid={int(want.is_valid.sum())} slots equal, classes equal, max|err| "
+    swapped = int((order != torch.arange(order.shape[1])).sum())
+    log(f"{label} small f32 input, fused tail {'on' if fused else 'off'}, card vs CPU: "
+        f"valid={int(want.is_valid.sum())} slots equal, classes equal, {swapped} slots "
+        f"matched across a score tie, max|err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
 
 
-def check_outputs(cfg, out, batch, b, h, w, label):
+# Narrow float32 model, card against CPU: boxes, scores and masks per slot.
+SMALL_TOL = {"boxes": 1e-3, "scores": 1e-5, "pred_masks": 1e-4}
+
+
+def tie_order(got, want):
+    """``[B, D]``: the card's slot that holds each CPU slot's detection: the
+    same slot, or, where the boxes differ, another slot of the same class
+    whose CPU score lies within ``SMALL_TOL["scores"]`` of this one's and
+    whose card box matches. At random weights the scores of one class's
+    detections sit ~1e-7 apart, as close as the card and the CPU round them,
+    so two such detections may take their slots in the other order; every
+    slot is still held to the tolerances, and the order stays a permutation."""
+    b, n = want["scores"].shape
+    order = torch.arange(n).repeat(b, 1)
+    tol, stol = SMALL_TOL["boxes"], SMALL_TOL["scores"]
+    for i in range(b):
+        for j in range(n):
+            if float((got["boxes"][i, j] - want["boxes"][i, j]).abs().max()) <= tol:
+                continue
+            for k in range(n):
+                if (want["pred_classes"][i, k] == want["pred_classes"][i, j]
+                        and abs(float(want["scores"][i, k] - want["scores"][i, j])) <= stol
+                        and float((got["boxes"][i, k] - want["boxes"][i, j]).abs().max()) <= tol):
+                    order[i, j] = k
+                    break
+        if order[i].unique().numel() != n:
+            raise AssertionError("small input: the card's detections are no reordering of the "
+                                 "CPU's at score ties")
+    return order
+
+
+def check_outputs(cfg, out, batch, b, h, w, label, mask_size=28, phase="model     "):
     f = out.get_fields()
     for k in ("boxes", "scores", "pred_masks"):
         if not bool(torch.isfinite(f[k]).all()):
             raise AssertionError(f"{label}: non-finite {k}")
-    if tuple(f["boxes"].shape) != (b, 100, 4) or tuple(f["pred_masks"].shape) != (b, 100, 28, 28):
+    if (tuple(f["boxes"].shape) != (b, 100, 4)
+            or tuple(f["pred_masks"].shape) != (b, 100, mask_size, mask_size)):
         raise AssertionError(f"{label}: unexpected shapes {out}")
     per_image = f["is_valid"].sum(1).tolist()
     if per_image != [100] * b:
@@ -797,7 +880,7 @@ def check_outputs(cfg, out, batch, b, h, w, label):
     pasted = detector_postprocess(cfg, out, batch).pred_masks
     if tuple(pasted.shape) != (b, 100, h, w) or pasted.dtype != torch.uint8:
         raise AssertionError(f"{label}: postprocess gave {tuple(pasted.shape)} {pasted.dtype}")
-    log(f"model      {label}: outputs finite, 100 valid detections per image, scores in "
+    log(f"{phase} {label}: outputs finite, 100 valid detections per image, scores in "
         f"[{float(f['scores'].min()):.4f}, {float(f['scores'].max()):.4f}], "
         f"{len(set(f['pred_classes'].flatten().tolist()))} classes, pasted masks "
         f"{tuple(pasted.shape)} with {int(pasted.sum())} pixels set")
@@ -900,12 +983,12 @@ def given_proposals(model, proposals):
         del model.proposal_generator.proposals
 
 
-def check_train_against_cpu(dev, fused: bool):
-    """Narrow float32 train step on a 2 x 128 x 160 batch: losses and
-    gradients on the card (kernels) against the CPU (plain versions), from
-    the same weights, sampler noise and proposals, with the fused tail
-    switched off or on for both."""
-    cfg = narrow_train_cfg()
+def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     "):
+    """Narrow float32 train step (``narrow_train_cfg()`` unless ``cfg``) on a
+    2 x 128 x 160 batch: losses and gradients on the card (kernels) against
+    the CPU (plain versions), from the same weights, sampler noise and
+    proposals, with the fused tail switched off or on for both."""
+    cfg = cfg or narrow_train_cfg()
     with fused_switch(fused):
         cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED),
                                 training=True)
@@ -951,7 +1034,7 @@ def check_train_against_cpu(dev, fused: bool):
             raise AssertionError(f"narrow train step: gradient of {n} differs by {rel:.3g} of "
                                  f"its largest magnitude, {rel_norm:.3g} in norm "
                                  f"(tolerance {TRAIN_GRAD_TOL})")
-    log(f"train      narrow f32 step, fused tail {'on' if fused else 'off'}, card vs CPU: "
+    log(f"{label} narrow f32 step, fused tail {'on' if fused else 'off'}, card vs CPU: "
         "losses " + ", ".join(
         f"{k} {got_l[k]:.6f}/{v:.6f}" for k, v in want_l.items())
         + f"; {len(want_g)} gradients, worst max|err| / max|grad| {worst[0]:.3g} ({worst[1]}),"
@@ -1369,6 +1452,338 @@ def run_workflow():
         f"{k} {v:.2f}" for k, v in result["seconds"].items()))
 
 
+# -- phase 9: single_level -----------------------------------------------------
+
+C4_YAML = "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml"
+DC5_YAML = "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_DC5_1x.yaml"
+# Per predict / per train step of the single-level models: launches of each
+# kernel, fused tails with the switch on, and the mask size. C4 runs the
+# res5 head on the proposals and again on the detections (box pooler both
+# times); DC5 pools box and mask sets as the FPN path does. In training C4
+# pools the box set alone (its mask head reads the res5 features).
+SINGLE_LEVEL = {
+    "c4": {"yaml": C4_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 2},
+           "step": {"nms_keep": 1, "roi_patch_fwd": 1, "roi_patch_bwd": 1},
+           "tails": 13 + 3 + 3, "mask_size": 14},
+    "dc5": {"yaml": DC5_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 2},
+            "step": {"nms_keep": 1, "roi_patch_fwd": 2, "roi_patch_bwd": 2},
+            "tails": 16, "mask_size": 28},
+}
+SINGLE_TURNS = (False, True, True, False)
+# The overfit gate: bbox AP50 at least 90 for both families, and for c4 a
+# bbox AP no more than 10 points below the JAX package's on the same recipe
+# (its tools/overfit_check.py 600 --arch c4 on the CPU: bbox AP 54.58, AP50
+# 64.75; PERF.md). Above it is no failure: the port's c4 bbox AP spread 11
+# points over four runs, all 11-22 above that one reference run.
+OVERFIT_AP50 = 90.0
+OVERFIT_JAX_C4_BBOX_AP = 54.58
+OVERFIT_AP_BELOW = 10.0
+
+
+def single_level_cfg(name: str, narrow: bool = False, batch: int = 0):
+    """``name``'s YAML: bf16 at full width (``SCORE_THRESH_TEST`` 0), or the
+    narrow float32 model of the card-against-CPU checks; ``batch`` > 0 makes
+    it a training config of ``batch`` images and 64 GT slots (5 narrow)."""
+    cfg = get_cfg()
+    cfg.merge_from_file(str(ROOT / SINGLE_LEVEL[name]["yaml"]))
+    cfg.MODEL.DTYPE = "bfloat16"
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    if narrow:
+        for k, v in NARROW.items():
+            cfg.MODEL.RESNETS[k] = v
+        cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 64
+        cfg.MODEL.ROI_MASK_HEAD.CONV_DIM = 32
+        cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
+        cfg.MODEL.DTYPE = "float32"
+        cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.05
+    if batch:
+        cfg.SOLVER.IMS_PER_BATCH = batch
+        cfg.SOLVER.AUTO_SCALE_LR_SCHEDULE = False
+        cfg.INPUT.MAX_GT_INSTANCES = 5 if narrow else 64
+    return cfg
+
+
+def greedy_keep_reference_rows(boxes, valid, thr, max_keep):
+    """The plain keep mask one batch row at a time (a row's N x N IoU at
+    N = 12000 is 0.58 GB; eight at once would not leave the card room)."""
+    return torch.cat([greedy_keep_reference(boxes[i: i + 1], valid[i: i + 1], thr, max_keep)
+                      for i in range(boxes.shape[0])])
+
+
+def check_single_level_nms(rng, dev):
+    """``nms_keep`` bit-equal at the single-level RPN's shapes: serving's 2
+    images x one level of 6000 (``max_keep`` 1000), training's 8 x 12000
+    (``max_keep`` 2000)."""
+    results = []
+    for name, b, n, mk in (("rpn one level 2x6000 iou=0.7 max_keep=1000", 2, 6000, 1000),
+                           ("train rpn one level 8x12000 iou=0.7 max_keep=2000", 8, 12000, 2000)):
+        boxes, valid = clustered_boxes(rng, b, n, objects=600)
+        results.append(nms_case(dev, name, boxes, valid, 0.7, mk, plain=greedy_keep_reference_rows,
+                                reps=20, tag="single     nms_keep"))
+    return results
+
+
+def single_level_plane(rng, dev, b: int, c: int):
+    """The C4/DC5 storage: one level at stride 16 of an 800x1344 image (50 x
+    84, ``c`` channels: res4's 1024 or dilated res5's 2048) with its 2x and
+    4x extent-tier aliases."""
+    feat = torch.from_numpy(rng.standard_normal((b, 50, 84, c)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    return build_storage([feat], [16], plan_patch(1333, 16))
+
+
+def single_level_plan(rng, dev, meta, b, n, s, objects):
+    """``(starts, wy, wx, valid)`` for ``n`` boxes per image, jittered copies
+    of ``objects`` objects, 10% of the slots skipped."""
+    boxes, _ = clustered_boxes(rng, b, n, objects=objects)
+    valid = torch.from_numpy(rng.uniform(0, 1, (b, n)) < 0.9).to(dev)
+    starts, wy, wx = plan_rois(meta, torch.from_numpy(boxes).to(dev), s, 0, 224, 4, valid=valid)
+    return starts.contiguous(), wy.contiguous(), wx.contiguous(), valid
+
+
+def check_single_level_roi(rng, dev):
+    """``roi_patch_fwd`` at the single-level sets (bf16): C4's res4 plane
+    (C = 1024) at S = 14 for 2 x 1000 proposals and 2 x 100 detections,
+    DC5's res5 plane (C = 2048) at S = 7 for 2 x 1000 and S = 14 for 2 x 100."""
+    results = []
+    for c, label, n, s in ((1024, "c4 box C=1024 S=14 2x1000", 1000, 14),
+                           (1024, "c4 detections C=1024 S=14 2x100", 100, 14),
+                           (2048, "dc5 box C=2048 S=7 2x1000", 1000, 7),
+                           (2048, "dc5 mask C=2048 S=14 2x100", 100, 14)):
+        storage, meta = single_level_plane(rng, dev, 2, c)
+        plan = single_level_plan(rng, dev, meta, 2, n, s, max(n // 4, 8))
+        results.append(roi_fwd_case(label, storage.contiguous(), *plan,
+                                    tag="single     roi_patch"))
+    return results
+
+
+def check_single_level_roi_bwd(rng, dev):
+    """``roi_patch_bwd`` at the single-level training sets (bf16 cotangents,
+    batch 8, boxes clustered on 12 objects): C4 C = 1024, S = 14, 8 x 512;
+    DC5 C = 2048, S = 7, 8 x 512 and S = 14, 8 x 128."""
+    results = []
+    for c, label, n, s in ((1024, "c4 box C=1024 S=14 8x512", 512, 14),
+                           (2048, "dc5 box C=2048 S=7 8x512", 512, 7),
+                           (2048, "dc5 mask C=2048 S=14 8x128", 128, 14)):
+        storage, meta = single_level_plane(rng, dev, 8, c)
+        shape = tuple(storage.shape)
+        del storage
+        starts, wy, wx, valid = single_level_plan(rng, dev, meta, 8, n, s, 12)
+        g = torch.from_numpy(rng.standard_normal((8, n, s, s, c)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        results.append(roi_bwd_case(label, g, starts, wy, wx, valid, shape,
+                                    tag="single     roi_bwd"))
+        del g
+        torch.cuda.empty_cache()
+    return results
+
+
+def check_single_level_fused(rng, dev):
+    """``fused_residual`` at the single-level tails (bf16, each on the
+    ``wgmma`` path): the C4 head's res5 tails at M = 2 x 1000 x 49 = 98000
+    (K 512, N 2048) and DC5's dilated res5 at M = 2 x 50 x 84 = 8400."""
+    return [fused_case(rng, dev, label, torch.bfloat16, dims, wgmma=True,
+                       tag="single     fused_res")
+            for label, dims in (("c4 head res5 M=98000 K=512 N=2048", (2000, 7, 7, 512, 2048)),
+                                ("dc5 res5 M=8400 K=512 N=2048", (2, 50, 84, 512, 2048)))]
+
+
+def serve_single_level(rng, dev, name: str):
+    """``name``'s YAML (bf16, seeded random weights) serving 2 x 800 x 1344
+    with the fused tail off and on in turns: the launches of each kernel per
+    ``predict`` asserted, the outputs checked; img/s, and device ms per call
+    and idle share under the profiler. Returns the serving run's launches."""
+    spec = SINGLE_LEVEL[name]
+    cfg = single_level_cfg(name)
+    models = {}
+    for fused in (False, True):
+        with fused_switch(fused):
+            models[fused] = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    b, h, w = 2, 800, 1344
+    image = torch.from_numpy(rng.uniform(0, 255, (b, h, w, 3)).astype(np.float32)).to(dev)
+    batch = {"image": image,
+             "image_size": torch.tensor([[800, 1333]] * b, dtype=torch.int32, device=dev)}
+    for model in models.values():
+        for _ in range(2):
+            model.predict(batch)
+    torch.cuda.synchronize()
+    iters = 3
+    rates = {False: [], True: []}
+    outs = {}
+    zero_launches()
+    for fused in SINGLE_TURNS:
+        before = fused_conv1x1_bn_add_relu.launches_by_path["wgmma"]
+        tails_before = fused_conv1x1_bn_add_relu.launches
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            outs[fused] = models[fused].predict(batch)
+        torch.cuda.synchronize()
+        rates[fused].append(b * iters / (time.perf_counter() - t0))
+        tails = fused_conv1x1_bn_add_relu.launches - tails_before
+        hopper = fused_conv1x1_bn_add_relu.launches_by_path["wgmma"] - before
+        if tails != (spec["tails"] * iters if fused else 0) or hopper != tails:
+            raise AssertionError(f"{name}: {tails} fused tails ({hopper} on the wgmma path) in "
+                                 f"{iters} predicts with the switch {'on' if fused else 'off'}")
+    launches = read_launches()
+    calls = len(SINGLE_TURNS) * iters
+    for kernel, per in spec["predict"].items():
+        if launches[kernel] != per * calls:
+            raise AssertionError(f"{name}: {launches[kernel]} {kernel} launches in {calls} "
+                                 f"predicts, expected {per} per predict")
+    for fused, out in outs.items():
+        check_outputs(cfg, out, batch, b, h, w, f"{name} fused tail {'on' if fused else 'off'}",
+                      mask_size=spec["mask_size"], phase="single    ")
+    timing = {}
+    for fused in (False, True):
+        device_ms, wall_ms, idle, _ = profile_predict.device_time(
+            lambda: models[fused].predict(batch), 3)
+        timing[fused] = (device_ms, idle)
+    log(f"single     {name} predict {''.join('N' if f else 'F' for f in SINGLE_TURNS)}, "
+        f"{iters} runs each, batch {b} at {h}x{w} bf16: off {np.median(rates[False]):.2f} img/s "
+        f"(windows {', '.join(f'{r:.2f}' for r in rates[False])}), on "
+        f"{np.median(rates[True]):.2f} img/s (windows "
+        f"{', '.join(f'{r:.2f}' for r in rates[True])}); device ms per predict under the "
+        f"profiler off {timing[False][0]:.2f} (idle share {timing[False][1]:.3f}), on "
+        f"{timing[True][0]:.2f} (idle share {timing[True][1]:.3f}); launches {launches}, "
+        f"{spec['tails']} fused tails per predict with the switch on")
+    del models
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_single_level(dev, name: str):
+    """``name``'s YAML (bf16, float32 parameters, seeded random weights,
+    switch off) on a seeded 8 x 800 x 1344 batch: 2 warm-up steps and 3 timed
+    ones; launches per step asserted, losses finite, the frozen stem and
+    res2 bit-equal, every trainable parameter moved (the C4 head's res5
+    too). Returns the timed steps' launches."""
+    spec = SINGLE_LEVEL[name]
+    cfg = single_level_cfg(name, batch=8)
+    b, h, w = 8, 800, 1344
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_train_batch(cfg, h, w).items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED),
+                        training=True)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = create_train_state(cfg, model, torch.Generator(device=dev).manual_seed(SEED))
+    step = build_train_step(cfg, state)
+    metrics = [step(batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    iters = 3
+    zero_launches()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        metrics.append(step(batch))
+    torch.cuda.synchronize()
+    img_s = b * iters / (time.perf_counter() - t0)
+    launches = read_launches()
+    for kernel, per in spec["step"].items():
+        if launches[kernel] != per * iters:
+            raise AssertionError(f"{name}: {launches[kernel]} {kernel} launches in {iters} "
+                                 f"steps, expected {per} per step")
+    if launches["fused_residual"]:
+        raise AssertionError(f"{name}: fused tails with the switch off")
+    device_ms, _, idle, _ = profile_predict.device_time(lambda: step(batch), 2)
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(np.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError(f"{name}: non-finite losses: {values}")
+    trainable = trainable_parameters(model, cfg.MODEL.BACKBONE.FREEZE_AT)
+    frozen = [n for n, _ in model.named_parameters() if n not in trainable]
+    params = dict(model.named_parameters())
+    if not frozen or any(not n.startswith(("backbone.stem.", "backbone.res2.")) for n in frozen):
+        raise AssertionError(f"{name}: unexpected frozen parameters {frozen}")
+    changed_frozen = [n for n in frozen if not torch.equal(params[n], start[n])]
+    unchanged = [n for n, p in trainable.items() if torch.equal(p.detach(), start[n])]
+    head = [n for n in trainable if n.startswith("roi_heads.res5.")]
+    if changed_frozen or unchanged or (name == "c4") != bool(head):
+        raise AssertionError(f"{name}: frozen parameters changed: {changed_frozen}; trainable "
+                             f"unchanged: {unchanged}; head res5 parameters {len(head)}")
+    log(f"single     {name} train {iters} steps of batch {b} at {h}x{w} bf16: {img_s:.2f} img/s "
+        f"(host clock), device ms per step under the profiler {device_ms:.2f} (idle share "
+        f"{idle:.3f}), peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; "
+        f"launches {launches}; first " + ", ".join(f"{k} {v:.4f}" for k, v in values[0].items())
+        + f"; last total_loss {values[-1]['total_loss']:.4f}; {len(frozen)} frozen parameters "
+          f"bit-equal, all {len(trainable)} trainable parameters changed ({len(head)} of the "
+          f"head's res5)")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_overfit_gates():
+    """``tools.overfit_check 600 --arch c4`` and ``--arch rcnn`` as two
+    subprocesses at once (each is host-bound); the JSON line of each gates."""
+    procs = {}
+    for arch in ("c4", "rcnn"):
+        cmd = [sys.executable, "-m", "detectron2_tensorflow_tpu_torch.tools.overfit_check",
+               "600", "--arch", arch]
+        procs[arch] = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    results = {}
+    for arch, proc in procs.items():
+        t0 = time.perf_counter()
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"overfit_check --arch {arch} exited {proc.returncode}: "
+                                 f"{err[-2000:]}")
+        results[arch] = json.loads(out.strip().splitlines()[-1])
+        found = [ln for ln in err.splitlines() if ln.startswith("instances found")]
+        log(f"single     overfit_check 600 --arch {arch}: {json.dumps(results[arch])}; "
+            f"{found[-1] if found else ''} (waited {time.perf_counter() - t0:.1f} s)")
+    for arch, r in results.items():
+        if not r["bbox_ap50"] >= OVERFIT_AP50:
+            raise AssertionError(f"overfit --arch {arch}: bbox AP50 {r['bbox_ap50']} < "
+                                 f"{OVERFIT_AP50}")
+    if not results["c4"]["bbox_ap"] >= OVERFIT_JAX_C4_BBOX_AP - OVERFIT_AP_BELOW:
+        raise AssertionError(f"overfit --arch c4: bbox AP {results['c4']['bbox_ap']} more than "
+                             f"{OVERFIT_AP_BELOW} below the JAX package's {OVERFIT_JAX_C4_BBOX_AP}")
+    return results
+
+
+def single_level_lines(single):
+    """The ``kernels`` line's entries of phase 9's shapes, each named
+    ``<kernel>@<case>``; ``launches`` counts the kernel in the single-level
+    run that has the shape (C4's or DC5's serving, or their training)."""
+    s, t = single["serving"], single["training"]
+    nms_src = tpu_kernel("*/ops/pallas/nms_keep.py", 161)
+    fwd_src = tpu_kernel("*/ops/pallas/roi_patch.py", 667)
+    bwd_src = tpu_kernel("*/ops/pallas/roi_patch.py", 440)
+    fused_src = tpu_kernel("*/ops/pallas/fused_residual.py", 118)
+    rows = [("nms_keep", NMS_SRC, nms_src, s["c4"]["nms_keep"] + s["dc5"]["nms_keep"], r)
+            for r in single["nms"][:1]]
+    rows += [("nms_keep", NMS_SRC, nms_src, t["c4"]["nms_keep"] + t["dc5"]["nms_keep"], r)
+             for r in single["nms"][1:]]
+    launches = [s["c4"]["roi_patch_fwd"]] * 2 + [s["dc5"]["roi_patch_fwd"]] * 2
+    rows += [("roi_patch_fwd", ROI_SRC, fwd_src, n, r) for n, r in zip(launches, single["roi"])]
+    launches = [t["c4"]["roi_patch_bwd"]] + [t["dc5"]["roi_patch_bwd"]] * 2
+    rows += [("roi_patch_bwd", ROI_SRC, bwd_src, n, r) for n, r in zip(launches, single["bwd"])]
+    rows += [("fused_residual", FUSED_SRC, fused_src, s[name]["fused_residual"], r)
+             for name, r in zip(("c4", "dc5"), single["fused"])]
+    return [kernel_line(f"{kernel}@{r['case'].replace(' ', '_')}", src, replaces, n, r, r["err"])
+            for kernel, src, replaces, n, r in rows]
+
+
+def run_single_level(rng, dev):
+    """Phase 9: the C4 and DC5 families on the single-level kernels' shapes,
+    served and trained at full width, held against the CPU at narrow width,
+    and the overfit gates. Returns the kernel results and launch counts."""
+    nms = check_single_level_nms(rng, dev)
+    roi = check_single_level_roi(rng, dev)
+    bwd = check_single_level_roi_bwd(rng, dev)
+    fused = check_single_level_fused(rng, dev)
+    torch.cuda.empty_cache()
+    for name in SINGLE_LEVEL:
+        for on in (False, True):
+            check_small_against_cpu(rng, dev, on, single_level_cfg(name, narrow=True),
+                                    label=f"single     {name}")
+        check_train_against_cpu(dev, False, single_level_cfg(name, narrow=True, batch=2),
+                                label=f"single     {name}")
+    serving = {name: serve_single_level(rng, dev, name) for name in SINGLE_LEVEL}
+    training = {name: train_single_level(dev, name) for name in SINGLE_LEVEL}
+    gates = run_overfit_gates()
+    return {"nms": nms, "roi": roi, "bwd": bwd, "fused": fused, "serving": serving,
+            "training": training, "gates": gates}
+
 def probe():
     """What the card's machine offers a JPEG route (decides nothing here).
     Each module is imported in a child interpreter, so this one imports none."""
@@ -1439,6 +1854,8 @@ def main() -> None:
         run_loop()
     with phase_seconds("workflow"), fused_switch(False):
         run_workflow()
+    with phase_seconds("single_level"):
+        single = run_single_level(rng, dev)
     probe()
     log(f"seconds    total {time.perf_counter() - START:.1f}")
 
@@ -1458,6 +1875,7 @@ def main() -> None:
                     launches["fused_residual"], fused[0], max(r["err"] for r in fused)),
         kernel_line("roi_patch_variants", ROI_SRC, tpu_kernel("tools/exp_roi_variants.py", 27),
                     variant_launches, variants, variants["err"]),
+        *single_level_lines(single),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
-"""The two presets the port's benchmarks and tools start from.
+"""The presets the port's benchmarks and tools start from.
 
 ``bench_cfg()`` is the JAX package's ``bench.py`` ``bench_cfg()``: Mask
 R-CNN R50-FPN, 800x1344 serving in bf16. ``train_cfg()`` is
 ``bench_train.py`` ``train_cfg()``: the same model with the FPN RPN training
 budgets 2000/1000, at most 64 GT instances per image, ``batch_size`` images
-per step and no LR auto-scaling. Both start from the full default tree.
-``tests/test_torch_config.py`` holds each against its JAX counterpart key by
-key.
+per step and no LR auto-scaling. ``small_cfg()`` is the tiny-input recipe of the JAX
+package's ``tests/test_data.py`` ``small_cfg()``, which its
+``tools/overfit_check.py`` starts from. All start from the full default
+tree. ``tests/test_torch_config.py`` holds ``bench_cfg()`` and
+``train_cfg()`` against their JAX counterparts key by key.
 """
 
 from __future__ import annotations
@@ -51,4 +53,20 @@ def train_cfg(batch_size: int = 8) -> CfgNode:
     cfg.SOLVER.IMS_PER_BATCH = batch_size
     cfg.SOLVER.AUTO_SCALE_LR_SCHEDULE = False
     cfg.INPUT.MAX_GT_INSTANCES = 64
+    return cfg
+
+
+def small_cfg() -> CfgNode:
+    """64x128 inputs in two pad buckets, 28x28 mini-masks, at most 8 GT
+    instances, 2 images per step (``tests/test_data.py`` ``small_cfg()``)."""
+    cfg = get_cfg()
+    r = cfg.TRANSFORM.RESIZE
+    r.MIN_SIZE_TRAIN = (64,)
+    r.MAX_SIZE_TRAIN = 128
+    r.MIN_SIZE_TEST = 64
+    r.MAX_SIZE_TEST = 128
+    r.MINI_MASK_SIZE = 28
+    cfg.INPUT.PAD_BUCKETS = ((64, 128), (128, 64))
+    cfg.INPUT.MAX_GT_INSTANCES = 8
+    cfg.SOLVER.IMS_PER_BATCH = 2
     return cfg

@@ -3,14 +3,19 @@ port's ``state_dict``.
 
 :func:`convert_d2_weights` reads a Detectron2 state dict (``.pkl`` model-zoo
 files or ``.pth`` files, through :func:`load_state_dict`). The port's
-modules carry Detectron2's names and PyTorch's layouts, so only the box
-head's ``fc1`` changes: Detectron2 flattens the pooled features in (c, h, w)
-order, the port in (h, w, c), so its columns are permuted.
+modules carry Detectron2's names and PyTorch's layouts (a C4 model's
+3-stage trunk ``backbone.res{2,3,4}`` and its head ``roi_heads.res5.{b}``
+included), so only the box head's ``fc1`` changes: Detectron2 flattens the
+pooled features in (c, h, w) order, the port in (h, w, c), so its columns
+are permuted.
 
 :func:`convert_variables` reads the JAX model's ``variables``, nested dicts
 of numpy (or array-like) values with a ``params`` and a ``frozen``
 collection. Output: a dict of float32 tensors named as the port's modules
-(Detectron2's names), ready for ``build_model(cfg, state_dict=...)``.
+(Detectron2's names), ready for ``build_model(cfg, state_dict=...)``. The
+JAX trunk (``backbone``) is the port's ``backbone.bottom_up`` under an FPN
+and ``backbone`` without a neck (C4, DC5); the C4 ROI head's module-level
+``res5`` is ``roi_heads.res5``.
 
 Layout changes:
   * conv kernels HWIO -> OIHW;
@@ -39,8 +44,8 @@ import numpy as np
 import torch
 
 _PREFIX = {
-    "backbone": "backbone.bottom_up",
     "neck": "backbone",
+    "res5": "roi_heads.res5",
     "rpn_head": "proposal_generator.rpn_head",
     "box_heads_0": "roi_heads.box_head",
     "box_predictors_0": "roi_heads.box_predictor",
@@ -59,11 +64,11 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()):
             yield path, np.asarray(v, dtype=np.float32)
 
 
-def _module_name(path: Tuple[str, ...]) -> str:
+def _module_name(path: Tuple[str, ...], prefix: Dict[str, str]) -> str:
     top, *rest = path
-    if top not in _PREFIX:
+    if top not in prefix:
         raise KeyError(f"no port counterpart for JAX parameter {'/'.join(path)}")
-    return ".".join([_PREFIX[top]] + rest)
+    return ".".join([prefix[top]] + rest)
 
 
 def _kernel(arr: np.ndarray, deconv: bool) -> np.ndarray:
@@ -75,17 +80,22 @@ def _kernel(arr: np.ndarray, deconv: bool) -> np.ndarray:
 
 
 def convert_variables(variables) -> Dict[str, torch.Tensor]:
-    """JAX ``variables`` -> the port's float32 ``state_dict``."""
+    """JAX ``variables`` -> the port's float32 ``state_dict``. The model has
+    an FPN when ``params`` holds a ``neck`` (the identity neck has no
+    parameters)."""
+    neck = "neck" in variables["params"]
+    prefix = {**_PREFIX, "backbone": "backbone.bottom_up" if neck else "backbone"}
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(variables["params"]):
         *mod, leaf = path
         if len(mod) > 2 and mod[-2:] == ["GroupNorm_0", "GroupNorm_0"]:
-            out[f"{_module_name(tuple(mod[:-2]))}.norm.{_GN[leaf]}"] = torch.from_numpy(arr.copy())
+            name = _module_name(tuple(mod[:-2]), prefix)
+            out[f"{name}.norm.{_GN[leaf]}"] = torch.from_numpy(arr.copy())
             continue
         deconv = mod[-1] == "deconv"
         if mod[-1] in ("conv", "deconv") and len(mod) > 2:
             mod = mod[:-1]  # the inner conv module of a Conv2D / ConvTranspose2D
-        name = _module_name(tuple(mod))
+        name = _module_name(tuple(mod), prefix)
         if leaf == "kernel":
             out[f"{name}.weight"] = torch.from_numpy(
                 np.ascontiguousarray(_kernel(arr, deconv)))
@@ -97,7 +107,8 @@ def convert_variables(variables) -> Dict[str, torch.Tensor]:
         *mod, bn, leaf = path
         if not bn.startswith("FrozenBatchNorm"):
             raise KeyError(f"unexpected frozen variable {'/'.join(path)}")
-        out[f"{_module_name(tuple(mod))}.norm.{_FROZEN[leaf]}"] = torch.from_numpy(arr.copy())
+        name = _module_name(tuple(mod), prefix)
+        out[f"{name}.norm.{_FROZEN[leaf]}"] = torch.from_numpy(arr.copy())
     return out
 
 

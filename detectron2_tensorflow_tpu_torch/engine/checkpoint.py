@@ -170,7 +170,7 @@ def load_pretrained(cfg, model: torch.nn.Module) -> bool:
         if leftovers:
             logger.warning("unconverted checkpoint keys: %s", leftovers)
         if pre.ONLY_BACKBONE:
-            converted = _backbone_only(converted)
+            converted = _backbone_only(converted, model)
         model.load_state_dict(overlay_compatible(model.state_dict(), converted))
         return True
 
@@ -182,8 +182,10 @@ def load_pretrained(cfg, model: torch.nn.Module) -> bool:
     return False
 
 
-def _backbone_only(converted: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _backbone_only(converted: Dict[str, torch.Tensor],
+                   model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The trunk's tensors only (``PRETRAINS.ONLY_BACKBONE``): the JAX
     package keeps its ``backbone`` subtree, which holds the trunk and not the
-    FPN."""
-    return {k: v for k, v in converted.items() if k.startswith("backbone.bottom_up.")}
+    FPN (nor the C4 ROI head's res5)."""
+    prefix = next(n for n, m in model.named_modules() if m is model.trunk) + "."
+    return {k: v for k, v in converted.items() if k.startswith(prefix)}

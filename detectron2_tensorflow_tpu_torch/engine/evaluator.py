@@ -42,17 +42,17 @@ _NOT_PORTED_METRICS = (
 def build_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
     """``predict(batch) -> outputs``: the batch (numpy arrays) goes to the
     model's device, ``model.predict`` runs there, and the outputs come back
-    as numpy arrays (``boxes``, ``scores``, ``pred_classes``, ``is_valid``,
-    ``pred_masks``)."""
+    as numpy arrays (``boxes``, ``scores``, ``pred_classes``, ``is_valid``
+    and, from a model with a mask head, ``pred_masks``)."""
     del cfg  # one device: no mesh to build
     device = next(model.parameters()).device
 
     def predict(batch: Dict) -> Dict[str, np.ndarray]:
         inputs = to_device({k: batch[k] for k in ("image", "image_size")}, device)
-        out = model.predict(inputs)
-        return {k: getattr(out, k).float().cpu().numpy() if getattr(out, k).is_floating_point()
-                else getattr(out, k).cpu().numpy()
-                for k in ("boxes", "scores", "pred_classes", "is_valid", "pred_masks")}
+        out = model.predict(inputs).get_fields()
+        return {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
+                for k, v in out.items()
+                if k in ("boxes", "scores", "pred_classes", "is_valid", "pred_masks")}
 
     return predict
 
@@ -94,12 +94,13 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
     ``results_writer`` (an ``evaluation.coco_results.CocoResultsWriter``)
     also records every kept detection, in the original image's frame. With
     the default ``EVAL.METRICS`` (bbox only) the segm evaluator is
-    added, as the model predicts masks.
+    added when the model predicts masks; a segm evaluator gets no images
+    from a model without them, as in the JAX package.
     """
     _check_supported(cfg)
     num_classes = num_classes_of(cfg)
     evaluators = build_detection_evaluators(cfg)
-    if tuple(cfg.EVAL.METRICS) == ("coco_detection_metrics",):
+    if tuple(cfg.EVAL.METRICS) == ("coco_detection_metrics",) and cfg.MODEL.MASK_ON:
         evaluators["segm"] = (CocoEvaluator(num_classes, "segm"), "segm")
     class_names = getattr(dataset, "class_names", None) or getattr(dataset, "thing_classes", None)
     if (cfg.EVAL.INCLUDE_METRICS_PER_CATEGORY or cfg.EVAL.ALL_METRICS_PER_CATEGORY) and class_names:
@@ -130,12 +131,12 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
             gt = {"boxes": raw["boxes"], "classes": np.asarray(raw["classes"]),
                   "is_crowd": raw["is_crowd"], "areas": raw.get("areas")}
             det_masks = None
-            if any(kind == "segm" for _, kind in evaluators.values()):
+            if "pred_masks" in out and any(kind == "segm" for _, kind in evaluators.values()):
                 det_masks = paste_masks(out["pred_masks"][i][valid], boxes, oh, ow)
             for ev, kind in evaluators.values():
                 if kind == "bbox":
                     ev.add_image(gt, det)
-                else:
+                elif det_masks is not None:
                     gt_m = dict(gt)
                     gt_m["masks"] = raw.get("masks", np.zeros((len(raw["boxes"]), oh, ow))).astype(bool)
                     ev.add_image(gt_m, {**det, "masks": det_masks})

@@ -1,4 +1,5 @@
-"""ResNet trunk: depths 18 to 152, FrozenBN or GN, not dilated.
+"""ResNet trunk: depths 18 to 152, FrozenBN or GN, res5 dilated or not; and
+the res5 stage alone, as the ROI head of C4 models.
 
 Port of the JAX package's ``models/backbones/resnet.py``: bottleneck blocks
 for depth 50 and up, basic blocks (two 3x3 convs) for 18 and 34, whose
@@ -18,8 +19,14 @@ when the model is built, as the JAX package reads it when it traces; with it
 on, every bottleneck block's ``conv3`` runs the tail as one fused kernel when
 its norm is FrozenBN, in frozen stages too (their forward still runs). A
 basic block ends in a 3x3 conv and a GN block in GN, so neither takes it.
-Res5 dilation, BN/SyncBN, deformable convs, the space-to-depth stem and
-rematerialization raise ``NotImplementedError``.
+``RES5_DILATION`` above 1 (2 in the DC5 configs) keeps res5 at stride 16:
+its first block does not stride and its 3x3 convs are dilated (padding =
+dilation), as in the JAX package. :func:`build_res5_head` builds res5 on
+its own, as the JAX package's ``Res5ROIHeads`` does: bottleneck blocks
+whatever the depth, ``RES2_OUT_CHANNELS * 8`` wide, first stride 2, the
+trunk's norm, fed by the trunk's res4 channels. BN/SyncBN, deformable
+convs, the space-to-depth stem and rematerialization raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ class BottleneckBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  bottleneck_channels: int, stride: int, num_groups: int,
                  stride_in_1x1: bool, norm: str, has_shortcut: bool,
-                 fused_tail: bool = False):
+                 fused_tail: bool = False, dilation: int = 1):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.shortcut = (
@@ -69,7 +76,7 @@ class BottleneckBlock(nn.Module):
         self.conv1 = Conv2d(in_channels, bottleneck_channels, 1, stride=s1,
                             norm=norm, activation="relu")
         self.conv2 = Conv2d(bottleneck_channels, bottleneck_channels, 3,
-                            stride=s3, groups=num_groups, norm=norm,
+                            stride=s3, dilation=dilation, groups=num_groups, norm=norm,
                             activation="relu")
         self.conv3 = Conv2d(bottleneck_channels, out_channels, 1, norm=norm,
                             fuse_residual=fused_tail)
@@ -106,7 +113,7 @@ class ResNet(nn.Module):
     def __init__(self, depth: int, num_groups: int, width_per_group: int,
                  stem_out_channels: int, res2_out_channels: int,
                  stride_in_1x1: bool, norm: str, out_features: List[str],
-                 freeze_at: int = 0, fused_tail: bool = False):
+                 freeze_at: int = 0, fused_tail: bool = False, res5_dilation: int = 1):
         super().__init__()
         self.freeze_at = freeze_at
         if depth not in BLOCKS_PER_STAGE:
@@ -121,13 +128,16 @@ class ResNet(nn.Module):
         self.stage_names = []
         for idx in range(num_stages):
             name = f"res{idx + 2}"
+            dilation = res5_dilation if name == "res5" else 1
+            first_stride = 1 if idx == 0 or dilation > 1 else 2
             blocks = []
             for i in range(BLOCKS_PER_STAGE[depth][idx]):
-                stride = 2 if (i == 0 and idx > 0) else 1
+                stride = first_stride if i == 0 else 1
                 if bottleneck:
                     blocks.append(BottleneckBlock(in_ch, out_ch, bott, stride,
                                                   num_groups, stride_in_1x1, norm,
-                                                  has_shortcut=i == 0, fused_tail=fused_tail))
+                                                  has_shortcut=i == 0, fused_tail=fused_tail,
+                                                  dilation=dilation))
                 else:
                     blocks.append(BasicBlock(in_ch, out_ch, stride, norm, has_shortcut=i == 0))
                 in_ch = out_ch
@@ -151,10 +161,33 @@ class ResNet(nn.Module):
 
 
 def output_shapes(cfg) -> Dict[str, tuple]:
-    """``{res_k: (channels, stride)}`` of the trunk's stages."""
+    """``{res_k: (channels, stride)}`` of the trunk's stages; a dilated res5
+    keeps res4's stride."""
     r = cfg.MODEL.RESNETS
     res2 = r.RES2_OUT_CHANNELS if r.DEPTH >= 50 else r.RES2_OUT_CHANNELS // 4
-    return {f"res{i + 2}": (res2 * 2 ** i, 4 * 2 ** i) for i in range(4)}
+    shapes = {f"res{i + 2}": (res2 * 2 ** i, 4 * 2 ** i) for i in range(4)}
+    if r.RES5_DILATION > 1:
+        shapes["res5"] = (shapes["res5"][0], shapes["res4"][1])
+    return shapes
+
+
+def build_res5_head(cfg, in_channels: int) -> nn.Sequential:
+    """The C4 ROI head's res5 stage (``roi_heads.res5.{b}.*``): bottleneck
+    blocks on pooled ``in_channels``-wide features, first stride 2, as the
+    JAX package's ``Res5ROIHeads`` builds it. Its tails take the fused
+    kernel as the trunk's do (``D2TPU_ENABLE_FUSED_EPILOGUE``, read here)."""
+    r = cfg.MODEL.RESNETS
+    if r.DEPTH not in BLOCKS_PER_STAGE:
+        raise NotImplementedError(f"ResNet depth {r.DEPTH} is not ported")
+    out_ch = r.RES2_OUT_CHANNELS * 8
+    bott = r.NUM_GROUPS * r.WIDTH_PER_GROUP * 8
+    fused = fused_epilogue_enabled()
+    blocks = []
+    for i in range(BLOCKS_PER_STAGE[r.DEPTH][3]):
+        blocks.append(BottleneckBlock(in_channels if i == 0 else out_ch, out_ch, bott,
+                                      2 if i == 0 else 1, r.NUM_GROUPS, r.STRIDE_IN_1X1,
+                                      r.NORM, has_shortcut=i == 0, fused_tail=fused))
+    return nn.Sequential(*blocks)
 
 
 def build_resnet_backbone(cfg) -> ResNet:
@@ -164,8 +197,6 @@ def build_resnet_backbone(cfg) -> ResNet:
     if r.NORM not in ("FrozenBN", "GN"):
         raise NotImplementedError(f"MODEL.RESNETS.NORM '{r.NORM}' is not ported "
                                   "(FrozenBN and GN are)")
-    if r.RES5_DILATION != 1:
-        raise NotImplementedError("MODEL.RESNETS.RES5_DILATION (DC5 trunks) is not ported")
     for key in ("STEM_SPACE_TO_DEPTH", "REMAT"):
         if r[key]:
             raise NotImplementedError(f"MODEL.RESNETS.{key} is not ported")
@@ -183,4 +214,5 @@ def build_resnet_backbone(cfg) -> ResNet:
         out_features=r.OUT_FEATURES,
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
         fused_tail=fused_epilogue_enabled(),
+        res5_dilation=r.RES5_DILATION,
     )

@@ -1,15 +1,26 @@
-"""GeneralizedRCNN: Mask R-CNN with an FPN trunk, serving and training losses.
+"""GeneralizedRCNN: Faster and Mask R-CNN, with an FPN (R50-FPN) or on one
+feature level (C4, DC5), serving and training losses.
 
-Port of the non-cascade, non-res5, mask-on branch of ``predict_fn`` and
-``loss_fn`` in the JAX package's ``models/meta_arch/rcnn.py``. Serving:
-trunk and FPN, RPN proposals, one pooling storage shared by the box and mask
+Port of the non-cascade branches of ``predict_fn`` and ``loss_fn`` in the
+JAX package's ``models/meta_arch/rcnn.py``. Serving: trunk and neck (FPN or
+none), RPN proposals, one pooling storage shared by the box and mask
 poolers, box head and class-aware NMS to fixed detection slots, mask head on
 the detections. Training: RPN losses, training proposals (without gradient)
 plus the GT boxes, ROI sampling, box and mask ROIs pooled by one fused op
 (one float32 gradient accumulator for both), box and mask losses.
 
-Parameters follow Detectron2's names (``backbone.bottom_up.*``,
-``proposal_generator.rpn_head.*``, ``roi_heads.box_head.*``, ...).
+The single-level models follow the JAX wiring of ``Res5ROIHeads`` (C4: the
+trunk stops at res4 and the res5 stage is the ROI head) and of
+``StandardROIHeads`` on a dilated res5 (DC5). C4 takes no fused multi-pool:
+it pools the box set alone, and its mask head reads the res5 features of the
+leading (foreground) slots in training; in serving it pools the detections
+with the box pooler and runs res5 again for the mask head. Without
+``MASK_ON`` (Faster R-CNN) there is no mask branch and ``predict`` returns
+no ``pred_masks``.
+
+Parameters follow Detectron2's names (``backbone.bottom_up.*`` with an FPN,
+``backbone.*`` without one, ``proposal_generator.rpn_head.*``,
+``roi_heads.box_head.*``, ``roi_heads.res5.*``, ...).
 Activations stay NHWC in memory: images enter as ``[B, H, W, 3]`` and are
 viewed as NCHW, which is PyTorch's ``channels_last`` layout.
 """
@@ -23,50 +34,58 @@ import torch
 from torch import nn
 
 from ...structures import Instances
-from ..backbones.resnet import build_resnet_backbone, output_shapes
-from ..necks.fpn import build_fpn, output_strides
-from ..roi_heads.roi_heads import StandardROIHeads
+from ..backbones.resnet import ResNet, build_resnet_backbone, output_shapes
+from ..necks.fpn import build_neck
+from ..roi_heads.roi_heads import Res5ROIHeads, StandardROIHeads
 from ..rpn import RPN, add_ground_truth_to_proposals
 from ..sampling import draw_noise
 from .common import preprocess_images
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+ROI_HEADS = {"StandardROIHeads": StandardROIHeads, "Res5ROIHeads": Res5ROIHeads}
 
 
 class GeneralizedRCNN(nn.Module):
-    """Mask R-CNN R50-FPN; ``predict(batch)`` is the serving entry point."""
+    """Faster or Mask R-CNN; ``predict(batch)`` is the serving entry point."""
 
     def __init__(self, cfg):
         super().__init__()
         m = cfg.MODEL
-        if (m.META_ARCHITECTURE != "GeneralizedRCNN" or not m.MASK_ON
-                or m.KEYPOINT_ON or m.LOAD_PROPOSALS
-                or m.ROI_HEADS.NAME != "StandardROIHeads"):
+        if m.META_ARCHITECTURE != "GeneralizedRCNN":
+            raise NotImplementedError(f"meta-architecture '{m.META_ARCHITECTURE}' is not ported")
+        if m.KEYPOINT_ON or m.LOAD_PROPOSALS or m.ROI_HEADS.NAME not in ROI_HEADS:
             raise NotImplementedError(
-                "only Mask R-CNN with StandardROIHeads (no keypoints, no loaded "
-                "proposals) is ported"
+                "only Faster and Mask R-CNN with StandardROIHeads or Res5ROIHeads (no "
+                "keypoints, no loaded proposals) are ported"
             )
-        for key, ported in (("PROPOSAL_GENERATOR.NAME", "RPN"),
-                            ("ROI_BOX_HEAD.NAME", "FastRCNNConvFCHead"),
-                            ("ROI_MASK_HEAD.NAME", "MaskRCNNConvUpsampleHead")):
+        ported = [("PROPOSAL_GENERATOR.NAME", "RPN")]
+        if m.ROI_HEADS.NAME == "StandardROIHeads":
+            ported.append(("ROI_BOX_HEAD.NAME", "FastRCNNConvFCHead"))
+        if m.MASK_ON:
+            ported.append(("ROI_MASK_HEAD.NAME", "MaskRCNNConvUpsampleHead"))
+        for key, name in ported:
             group, leaf = key.split(".")
-            if m[group][leaf] != ported:
+            if m[group][leaf] != name:
                 raise NotImplementedError(f"MODEL.{key} '{m[group][leaf]}' is not ported")
         self.dtype = DTYPES[m.DTYPE]
         self.pixel_mean = list(m.PIXEL_MEAN)
         self.pixel_std = list(m.PIXEL_STD)
         self.input_format = m.INPUT_FORMAT
-        trunk_shapes = output_shapes(cfg)
-        self.backbone = build_fpn(cfg, build_resnet_backbone(cfg), trunk_shapes)
-        strides = output_strides(cfg, trunk_shapes)
-        ch = m.NECK.OUT_CHANNELS
-        self.proposal_generator = RPN(cfg, [strides[f] for f in m.RPN.IN_FEATURES], ch)
-        self.roi_heads = StandardROIHeads(
-            cfg, [strides[f] for f in m.ROI_HEADS.IN_FEATURES], ch
-        )
+        self.mask_on = m.MASK_ON
+        self.backbone, shapes = build_neck(cfg, build_resnet_backbone(cfg), output_shapes(cfg))
+        rpn_in = [shapes[f] for f in m.RPN.IN_FEATURES]
+        self.proposal_generator = RPN(cfg, [s for _, s in rpn_in], rpn_in[0][0])
+        roi_in = [shapes[f] for f in m.ROI_HEADS.IN_FEATURES]
+        self.roi_heads = ROI_HEADS[m.ROI_HEADS.NAME](cfg, [s for _, s in roi_in], roi_in[0][0])
+
+    @property
+    def trunk(self) -> ResNet:
+        """The ResNet trunk (``backbone.bottom_up`` with an FPN, else ``backbone``)."""
+        return getattr(self.backbone, "bottom_up", self.backbone)
 
     def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Raw ``[B, H, W, 3]`` images -> ``{p2..p6: [B, C, H, W]}`` (NHWC memory)."""
+        """Raw ``[B, H, W, 3]`` images -> the neck's ``{p2..p6}`` (or the
+        trunk's ``{res4}`` / ``{res5}``) ``[B, C, H, W]`` (NHWC memory)."""
         x = preprocess_images(images, self.pixel_mean, self.pixel_std,
                               self.input_format, self.dtype)
         return self.backbone(x.permute(0, 3, 1, 2))
@@ -75,8 +94,9 @@ class GeneralizedRCNN(nn.Module):
     def predict(self, batch: Dict[str, torch.Tensor]) -> Instances:
         """``batch = {"image": [B, H, W, 3] float, "image_size": [B, 2] int32}``
         on the model's device -> ``Instances`` with ``boxes [B, D, 4]``,
-        ``scores [B, D]``, ``pred_classes [B, D]``, ``is_valid [B, D]`` and
-        ``pred_masks [B, D, 28, 28]`` (probabilities)."""
+        ``scores [B, D]``, ``pred_classes [B, D]``, ``is_valid [B, D]`` and,
+        with ``MASK_ON``, ``pred_masks [B, D, 2S, 2S]`` (probabilities; 28 x
+        28 at the configs' resolutions)."""
         image_sizes = batch["image_size"]
         features = self.features(batch["image"])
         rpn = self.proposal_generator
@@ -87,11 +107,18 @@ class GeneralizedRCNN(nn.Module):
         storage = heads.pooling_storage(features)
         pooled = heads.pool_box_features(proposals.proposal_boxes, storage,
                                          valid=proposals.is_valid)
-        scores, deltas = heads.box_predictor(heads.box_head(pooled))
+        scores, deltas, _ = heads.box_outputs(pooled)
         detections = heads.box_inference(scores.float(), deltas.float(), proposals,
                                          image_sizes)
-        mask_in = heads.pool_mask_features(detections.boxes, storage,
-                                           valid=detections.is_valid)
+        if not self.mask_on:
+            return detections
+        if heads.is_res5:  # the detections through the box pooler and res5 again
+            pooled = heads.pool_box_features(detections.boxes, storage,
+                                             valid=detections.is_valid)
+            mask_in = heads.box_outputs(pooled)[2]
+        else:
+            mask_in = heads.pool_mask_features(detections.boxes, storage,
+                                               valid=detections.is_valid)
         return heads.mask_inference(heads.mask_head(mask_in), detections)
 
     def losses(self, batch: Dict[str, torch.Tensor],
@@ -99,7 +126,8 @@ class GeneralizedRCNN(nn.Module):
                noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
                ) -> Dict[str, torch.Tensor]:
         """The training losses of one batch: ``loss_rpn_cls``, ``loss_rpn_loc``,
-        ``loss_cls``, ``loss_box_reg``, ``loss_mask`` (float32 scalars).
+        ``loss_cls``, ``loss_box_reg`` and, with ``MASK_ON``, ``loss_mask``
+        (float32 scalars).
 
         ``batch`` holds ``image [B, H, W, 3]``, ``image_size [B, 2]`` and the
         GT fields ``gt_boxes [B, G, 4]``, ``gt_classes [B, G]``,
@@ -127,14 +155,23 @@ class GeneralizedRCNN(nn.Module):
             roi_noise = draw_noise(generator, proposals.is_valid.shape, dev)
         sampled = heads.label_and_sample_proposals(proposals, batch, roi_noise)
         m = heads.mask_slots
-        box_in, mask_in = heads.pool_multi(
-            [(heads.box_pooler, sampled.boxes, sampled.valid),
-             (heads.mask_pooler, sampled.boxes[:, :m], sampled.valid[:, :m])],
-            heads.pooling_storage(features),
-        )
-        scores, box_deltas = heads.box_predictor(heads.box_head(box_in))
+        storage = heads.pooling_storage(features)
+        mask_in = None
+        if self.mask_on and not heads.is_res5:
+            box_in, mask_in = heads.pool_multi(
+                [(heads.box_pooler, sampled.boxes, sampled.valid),
+                 (heads.mask_pooler, sampled.boxes[:, :m], sampled.valid[:, :m])],
+                storage,
+            )
+        else:
+            box_in = heads.pool_box_features(sampled.boxes, storage, valid=sampled.valid)
+        scores, box_deltas, roi_feats = heads.box_outputs(box_in)
         losses.update(heads.box_losses(scores.float(), box_deltas.float(), sampled))
-        losses["loss_mask"] = heads.mask_loss(heads.mask_head(mask_in), sampled, batch)
+        if self.mask_on:
+            if heads.is_res5:  # the res5 features of the leading (foreground) slots
+                rf = roi_feats.reshape((b, -1) + roi_feats.shape[1:])[:, :m]
+                mask_in = rf.reshape((-1,) + rf.shape[2:])
+            losses["loss_mask"] = heads.mask_loss(heads.mask_head(mask_in), sampled, batch)
         return losses
 
 

@@ -1,16 +1,19 @@
-"""FPN neck: lateral 1x1s, nearest-2x top-down sums, 3x3 outputs, and the
-max-pool top block (p6).
+"""Necks: the FPN (lateral 1x1s, nearest-2x top-down sums, 3x3 outputs, and
+the max-pool top block p6), or none.
 
 Port of the JAX package's ``models/necks/fpn.py`` for sum fusion and the
 ``MAXPOOL`` top block, with no norm or GN on the lateral and output convs
-(``NECK.NORM``; a GN conv has no bias). Module names follow Detectron2
-(``fpn_lateral3``, ``fpn_output3``, ``fpn_lateral3.norm``).
+(``NECK.NORM``; a GN conv has no bias), and of its identity neck
+(``DummyNeck``, ``NECK.NAME ""``) for the single-level C4 and DC5 models.
+Module names follow Detectron2 (``fpn_lateral3``, ``fpn_output3``,
+``fpn_lateral3.norm``); without a neck the trunk is the model's
+``backbone`` itself (``backbone.res2.0.conv1.weight``), as in Detectron2.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,8 +80,23 @@ def build_fpn(cfg, bottom_up: nn.Module, trunk_shapes: Dict[str, tuple]) -> FPN:
 
 
 def output_strides(cfg, trunk_shapes: Dict[str, tuple]) -> Dict[str, int]:
-    """``{p_k: stride}`` of the neck's outputs, p6 included."""
+    """``{p_k: stride}`` of the FPN's outputs, p6 included."""
     strides = [trunk_shapes[f][1] for f in cfg.MODEL.NECK.IN_FEATURES]
     out = {f"p{int(math.log2(s))}": s for s in strides}
     out[f"p{int(math.log2(strides[-1])) + 1}"] = strides[-1] * 2
     return out
+
+
+def build_neck(cfg, trunk: nn.Module,
+               trunk_shapes: Dict[str, tuple]) -> Tuple[nn.Module, Dict[str, tuple]]:
+    """``(backbone, {feature: (channels, stride)})``: the FPN around the
+    trunk, or for ``NECK.NAME ""`` the trunk itself with its
+    ``OUT_FEATURES`` (the JAX ``build_neck``)."""
+    name = cfg.MODEL.NECK.NAME
+    if name == "":
+        return trunk, {f: trunk_shapes[f] for f in cfg.MODEL.RESNETS.OUT_FEATURES}
+    if name != "FPN":
+        raise NotImplementedError(f"MODEL.NECK.NAME '{name}' is not ported (FPN and none are)")
+    ch = cfg.MODEL.NECK.OUT_CHANNELS
+    return (build_fpn(cfg, trunk, trunk_shapes),
+            {f: (ch, s) for f, s in output_strides(cfg, trunk_shapes).items()})

@@ -1,5 +1,6 @@
 """Box and mask heads: ``FastRCNNConvFCHead`` (2 FC) and
-``MaskRCNNConvUpsampleHead`` (4 convs, 2x deconv, 1x1 predictor).
+``MaskRCNNConvUpsampleHead`` (4 convs, or none on C4, 2x deconv, 1x1
+predictor).
 
 Port of the JAX package's ``models/roi_heads/heads.py``. Module
 names follow Detectron2 (``fc1``, ``mask_fcn1``, ``deconv``, ``predictor``).
@@ -42,7 +43,8 @@ class FastRCNNConvFCHead(nn.Module):
 
 
 class MaskRCNNConvUpsampleHead(nn.Module):
-    """``num_conv`` 3x3 convs + 2x deconv + relu + 1x1 per-class logits.
+    """``num_conv`` 3x3 convs + 2x deconv + relu + 1x1 per-class logits
+    (C4's head has no conv: its deconv reads the res5 features).
 
     Input NHWC ``[N, S, S, C]`` -> logits NHWC ``[N, 2S, 2S, K]``.
     """

@@ -1,14 +1,19 @@
-"""Standard (FPN) ROI heads: proposal sampling for training, shared pooling
-storage, box and mask pooling, losses, box and mask inference.
+"""ROI heads: proposal sampling for training, shared pooling storage, box
+and mask pooling, losses, box and mask inference.
 
 Port of the JAX package's ``models/roi_heads/roi_heads.py``
 (``StandardROIHeads``: ``label_and_sample_proposals``, ``pooling_storage``,
 ``pool_multi``, ``pool_box_features``, ``pool_mask_features``,
-``box_losses``, ``mask_loss``, ``box_inference``, ``mask_inference``).
-Every image samples exactly ``BATCH_SIZE_PER_IMAGE`` proposal slots,
-positives compacted to the front, and the mask branch trains on the first
-``mask_slots = BATCH_SIZE_PER_IMAGE * POSITIVE_FRACTION`` of them, so no
-positive is dropped.
+``box_losses``, ``mask_loss``, ``box_inference``, ``mask_inference``) and
+of the head modules its ``rcnn.py`` builds around it: the FC box head
+(:class:`StandardROIHeads`, FPN and DC5 models) or the res5 stage shared by
+the box and mask branches (:class:`Res5ROIHeads`, C4 models). The pooling
+storage is one plane for any number of levels: one level (``res4`` or
+``res5``) with its 2x and 4x extent-tier aliases on the single-level
+models. Every image samples exactly ``BATCH_SIZE_PER_IMAGE`` proposal
+slots, positives compacted to the front, and the mask branch trains on the
+first ``mask_slots = BATCH_SIZE_PER_IMAGE * POSITIVE_FRACTION`` of them, so
+no positive is dropped. Without ``MASK_ON`` there is no mask head.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from ...structures import Instances, boxes as box_ops
 from ..box_regression import Box2BoxTransform
 from ..losses import sigmoid_cross_entropy
 from ..matcher import Matcher
+from ..backbones.resnet import build_res5_head
 from ..poolers import ROIPooler, pool_multi_from_storage
 from ..sampling import subsample_labels
 from .fast_rcnn import FastRCNNOutputLayers, fast_rcnn_inference, fast_rcnn_losses
@@ -44,6 +50,8 @@ class SampledProposals:
 class StandardROIHeads(nn.Module):
     """The box head, box predictor and mask head (D2's names), with the
     pooling and inference around them."""
+
+    is_res5 = False
 
     def __init__(self, cfg, strides: List[int], in_channels: int):
         super().__init__()
@@ -75,13 +83,27 @@ class StandardROIHeads(nn.Module):
                                      max_image_size=max_img)
         self.cls_agnostic_mask = mh.CLS_AGNOSTIC_MASK
 
+        self.mask_on = cfg.MODEL.MASK_ON
+        mask_in = self._build_box_branch(cfg, in_channels)
+        if self.mask_on:
+            self.mask_head = MaskRCNNConvUpsampleHead(mask_in, self.num_classes,
+                                                      mh.NUM_CONV, mh.CONV_DIM, mh.NORM,
+                                                      self.cls_agnostic_mask)
+
+    def _build_box_branch(self, cfg, in_channels: int) -> int:
+        """The box head and predictor; returns the mask head's input channels."""
+        bh = cfg.MODEL.ROI_BOX_HEAD
         self.box_head = FastRCNNConvFCHead(in_channels, bh.POOLER_RESOLUTION,
                                            bh.NUM_CONV, bh.NUM_FC, bh.FC_DIM, bh.NORM)
         self.box_predictor = FastRCNNOutputLayers(bh.FC_DIM, self.num_classes,
                                                   self.cls_agnostic_bbox_reg)
-        self.mask_head = MaskRCNNConvUpsampleHead(in_channels, self.num_classes,
-                                                  mh.NUM_CONV, mh.CONV_DIM, mh.NORM,
-                                                  self.cls_agnostic_mask)
+        return in_channels
+
+    def box_outputs(self, pooled: torch.Tensor):
+        """Pooled ``[N, S, S, C]`` -> ``(class logits [N, K+1], deltas,
+        ROI features or None)`` (the JAX module's ``box`` method)."""
+        scores, deltas = self.box_predictor(self.box_head(pooled))
+        return scores, deltas, None
 
     def label_and_sample_proposals(self, proposals: Instances, gt: Dict[str, torch.Tensor],
                                    noise: Tuple[torch.Tensor, torch.Tensor]) -> SampledProposals:
@@ -224,3 +246,28 @@ class StandardROIHeads(nn.Module):
             )[..., 0]
         sel = sel.reshape((b, d) + mask_logits.shape[1:3]).float()
         return detections.replace(pred_masks=torch.sigmoid(sel))
+
+
+class Res5ROIHeads(StandardROIHeads):
+    """C4's ROI heads: the res5 stage (``roi_heads.res5``) on box-pooled
+    res4 features, its 7x7 mean into the predictor; the mask head reads the
+    same res5 features (``NUM_CONV 0``: a deconv straight on them), so the
+    mask branch pools nothing of its own. Port of the JAX ``rcnn.py``
+    ``Res5ROIHeads`` wiring (``_build_rcnn_parts`` and the module's ``box``
+    method)."""
+
+    is_res5 = True
+
+    def _build_box_branch(self, cfg, in_channels: int) -> int:
+        self.res5 = build_res5_head(cfg, in_channels)
+        out = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS * 8
+        self.box_predictor = FastRCNNOutputLayers(out, self.num_classes,
+                                                  self.cls_agnostic_bbox_reg)
+        return out
+
+    def box_outputs(self, pooled: torch.Tensor):
+        """Pooled ``[N, S, S, C]`` -> ``(class logits, deltas, res5 features
+        [N, S/2, S/2, C5])``; the predictor reads their spatial mean."""
+        feats = self.res5(pooled.permute(0, 3, 1, 2))  # NHWC memory seen as NCHW
+        scores, deltas = self.box_predictor(feats.mean(dim=(2, 3)))
+        return scores, deltas, feats.permute(0, 2, 3, 1)

@@ -70,10 +70,13 @@ def param_group(name: str) -> str:
 
 def trainable_parameters(model: nn.Module, freeze_at: int) -> Dict[str, nn.Parameter]:
     """Parameters outside the frozen trunk stages (the stem and res2 ..
-    ``res{freeze_at}``), by name."""
+    ``res{freeze_at}`` of ``model.trunk``, wherever the neck puts it), by
+    name. As the JAX ``trainable_mask`` keys on the trunk's own stage names,
+    the C4 ROI head's ``res5`` trains."""
+    trunk = model.trunk
     frozen = ["stem"] + [f"res{i}" for i in range(2, freeze_at + 1)]
-    prefixes = tuple(f"backbone.bottom_up.{f}." for f in frozen)
-    return {n: p for n, p in model.named_parameters() if not n.startswith(prefixes)}
+    skip = {id(p) for f in frozen if hasattr(trunk, f) for p in getattr(trunk, f).parameters()}
+    return {n: p for n, p in model.named_parameters() if id(p) not in skip}
 
 
 class Optimizer:

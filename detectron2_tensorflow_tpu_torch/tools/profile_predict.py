@@ -1,18 +1,20 @@
 """Where the time of one ``predict`` goes on the card.
 
-    python -m detectron2_tensorflow_tpu_torch.tools.profile_predict [batch ...]
+    python -m detectron2_tensorflow_tpu_torch.tools.profile_predict [--config_file CFG] [batch ...]
 
 Builds chip_smoke's model (Mask R-CNN R50-FPN, bf16, seeded random weights,
-``SCORE_THRESH_TEST = 0``), serves a random 800x1344 batch of each given
+``SCORE_THRESH_TEST = 0``; with ``--config_file``, that YAML's model, for
+example ``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml``, in
+bf16 with the same threshold), serves a random 800x1344 batch of each given
 size (default 2), and prints: images/s on the host clock around
 synchronized runs; from ``torch.profiler``, the device time per batch, the
 device's idle share (1 - device time / wall time), the device time by
 category (convs, GEMMs, the hand-written kernels, sorts, the rest), each
 hand-written kernel's own device time (``nms_keep``'s mask pass and sweep
 apart) and the top kernels by device time. The full profiler table goes to
-``profile_predict_b<batch>[_fused].txt`` in ``main``'s output directory. Set
-``D2TPU_ENABLE_FUSED_EPILOGUE=1`` to profile the model with the fused
-bottleneck tail (``_fused`` in the file name).
+``profile_predict[_<config>]_b<batch>[_fused].txt`` in ``main``'s output
+directory. Set ``D2TPU_ENABLE_FUSED_EPILOGUE=1`` to profile the model with
+the fused bottleneck tail (``_fused`` in the file name).
 """
 
 from __future__ import annotations
@@ -21,13 +23,14 @@ import sys
 import time
 from collections import defaultdict
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity
 from torch.profiler import profile as profile_ctx
 
-from detectron2_tensorflow_tpu_torch import bench_cfg, build_model
+from detectron2_tensorflow_tpu_torch import bench_cfg, build_model, get_cfg
 from detectron2_tensorflow_tpu_torch.ops.fused_residual import fused_epilogue_enabled
 
 CATEGORIES = (
@@ -51,10 +54,25 @@ def category(name: str) -> str:
     return "other elementwise / copies"
 
 
-def run(batch: int, out_dir: Path) -> None:
-    dev = torch.device("cuda", 0)
-    cfg = bench_cfg()
+def yaml_cfg(config_file: str):
+    """``config_file``'s model in bf16 (the full default tree under it)."""
+    cfg = get_cfg()
+    cfg.merge_from_file(config_file)
+    cfg.MODEL.DTYPE = "bfloat16"
+    return cfg
+
+
+def serving_cfg(config_file: Optional[str] = None):
+    """``bench_cfg()``, or ``config_file``'s model in bf16, with
+    ``SCORE_THRESH_TEST = 0`` so that every detection slot is real."""
+    cfg = yaml_cfg(config_file) if config_file else bench_cfg()
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    return cfg
+
+
+def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
+    dev = torch.device("cuda", 0)
+    cfg = serving_cfg(config_file)
     model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     image = torch.from_numpy(rng.uniform(0, 255, (batch, 800, 1344, 3)).astype(np.float32)).to(dev)
@@ -73,7 +91,12 @@ def run(batch: int, out_dir: Path) -> None:
     print(f"batch {batch}: {batch / wall:.2f} img/s, {wall * 1000:.2f} ms/batch (host clock)")
 
     profile(lambda: model.predict(inputs), 3, f"batch {batch}",
-            out_dir / f"profile_predict_b{batch}{suffix()}.txt")
+            out_dir / f"profile_predict{name_of(config_file)}_b{batch}{suffix()}.txt")
+
+
+def name_of(config_file: Optional[str]) -> str:
+    """File-name part naming the config (none for ``bench_cfg()``)."""
+    return "_" + Path(config_file).stem if config_file else ""
 
 
 def suffix() -> str:
@@ -81,21 +104,32 @@ def suffix() -> str:
     return "_fused" if fused_epilogue_enabled() else ""
 
 
-def profile(fn, runs: int, label: str, out_file: Path) -> None:
-    """Profile ``runs`` calls of ``fn`` and print the device time per call,
-    the device idle share (1 - device time / wall time under the profiler),
-    the device time by category and the top kernels; the full profiler
-    table goes to ``out_file``."""
+def device_time(fn, runs: int):
+    """``(device ms per call, wall ms per call, idle share, profiler)`` of
+    ``runs`` calls of ``fn`` under ``torch.profiler``: the device time is
+    the sum of the kernels' times, the idle share 1 - device time / wall
+    time."""
     with profile_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) / runs
+        wall_ms = (time.perf_counter() - t0) / runs * 1e3
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in events) / runs
-    print(f"{label}: device time {total_us / 1000:.2f} ms/call, wall under the profiler "
-          f"{prof_wall * 1000:.2f} ms/call, device idle share {1 - total_us / 1e3 / (prof_wall * 1e3):.3f}")
+    device_ms = sum(e.self_device_time_total for e in events) / runs / 1e3
+    return device_ms, wall_ms, 1 - device_ms / wall_ms, prof
+
+
+def profile(fn, runs: int, label: str, out_file: Path) -> None:
+    """Profile ``runs`` calls of ``fn`` and print the device time per call,
+    the device idle share (1 - device time / wall time under the profiler),
+    the device time by category and the top kernels; the full profiler
+    table goes to ``out_file``."""
+    device_ms, wall_ms, idle, prof = device_time(fn, runs)
+    total_us = device_ms * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"{label}: device time {device_ms:.2f} ms/call, wall under the profiler "
+          f"{wall_ms:.2f} ms/call, device idle share {idle:.3f}")
     by_cat = defaultdict(float)
     for e in events:
         by_cat[category(e.key)] += e.self_device_time_total / runs
@@ -115,13 +149,20 @@ def profile(fn, runs: int, label: str, out_file: Path) -> None:
 
 
 def main(argv, run_batch=run, default_batch: int = 2) -> None:
-    """``run_batch(batch, out_dir)`` for each batch size in ``argv``."""
+    """``run_batch(batch, out_dir, config_file)`` for each batch size in
+    ``argv`` (``--config_file CFG`` anywhere in it names the YAML)."""
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
-    print(torch.cuda.get_device_name(0), torch.__version__,
+    argv = list(argv)
+    config_file = None
+    if "--config_file" in argv:
+        i = argv.index("--config_file")
+        config_file = argv[i + 1]
+        del argv[i: i + 2]
+    print(torch.cuda.get_device_name(0), torch.__version__, config_file or "bench_cfg()",
           f"fused bottleneck tail {'on' if fused_epilogue_enabled() else 'off'}")
     for batch in [int(a) for a in argv] or [default_batch]:
-        run_batch(batch, Path("chiprun_out"))
+        run_batch(batch, Path("chiprun_out"), config_file)
 
 
 if __name__ == "__main__":

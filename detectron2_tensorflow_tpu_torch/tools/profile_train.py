@@ -1,16 +1,19 @@
 """Where the time of one training step goes on the card.
 
-    python -m detectron2_tensorflow_tpu_torch.tools.profile_train [batch ...]
+    python -m detectron2_tensorflow_tpu_torch.tools.profile_train [--config_file CFG] [batch ...]
 
 Builds chip_smoke's training state (Mask R-CNN R50-FPN at ``train_cfg``:
-bf16, float32 parameters, seeded random weights), steps on a seeded
+bf16, float32 parameters, seeded random weights; with ``--config_file``,
+that YAML's model in bf16 with ``batch`` images per step and at most 64 GT
+instances per image, as ``train_cfg``), steps on a seeded
 800x1344 ``make_train_batch`` of each given size (default 8), and prints:
 images/s on the host clock around synchronized steps, the peak device
 memory, and from ``torch.profiler`` the device time per step, the device's
 idle share, the device time by category (as ``profile_predict``) and the top
 kernels. The full profiler table goes to
-``profile_train_b<batch>[_fused].txt`` beside ``profile_predict``'s
-(``D2TPU_ENABLE_FUSED_EPILOGUE=1``: the fused bottleneck tail).
+``profile_train[_<config>]_b<batch>[_fused].txt`` beside
+``profile_predict``'s (``D2TPU_ENABLE_FUSED_EPILOGUE=1``: the fused
+bottleneck tail).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -30,9 +34,22 @@ from detectron2_tensorflow_tpu_torch.engine import (
 from detectron2_tensorflow_tpu_torch.tools import profile_predict
 
 
-def run(batch: int, out_dir: Path) -> None:
+def training_cfg(batch: int, config_file: Optional[str] = None):
+    """``train_cfg(batch)``, or ``config_file``'s model in bf16 with
+    ``batch`` images per step, no LR auto-scaling and ``train_cfg``'s 64 GT
+    slots per image."""
+    if not config_file:
+        return train_cfg(batch)
+    cfg = profile_predict.yaml_cfg(config_file)
+    cfg.SOLVER.IMS_PER_BATCH = batch
+    cfg.SOLVER.AUTO_SCALE_LR_SCHEDULE = False
+    cfg.INPUT.MAX_GT_INSTANCES = 64
+    return cfg
+
+
+def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
     dev = torch.device("cuda", 0)
-    cfg = train_cfg(batch)
+    cfg = training_cfg(batch, config_file)
     model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(0),
                         training=True)
     state = create_train_state(cfg, model, torch.Generator(device=dev).manual_seed(0))
@@ -51,7 +68,8 @@ def run(batch: int, out_dir: Path) -> None:
     print(f"batch {batch}: {batch / wall:.2f} img/s, {wall * 1000:.2f} ms/step (host clock), "
           f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     profile_predict.profile(lambda: step(data), 3, f"batch {batch}",
-                            out_dir / f"profile_train_b{batch}{profile_predict.suffix()}.txt")
+                            out_dir / f"profile_train{profile_predict.name_of(config_file)}"
+                                      f"_b{batch}{profile_predict.suffix()}.txt")
 
 
 def main(argv) -> None:

@@ -272,7 +272,31 @@ def test_jax_cfgnode_and_port_cfgnode_agree_on_construction():
 # raise NotImplementedError on a key the port does not read yet, never build
 # while ignoring one.
 BUILDS = {
+    "configs/Base-RCNN-C4.yaml",
+    "configs/Base-RCNN-DilatedC5.yaml",
     "configs/Base-RCNN-FPN.yaml",
+    "configs/COCO-Detection/faster_rcnn_R_101_C4_3x.yaml",
+    "configs/COCO-Detection/faster_rcnn_R_101_DC5_3x.yaml",
+    "configs/COCO-Detection/faster_rcnn_R_101_FPN_3x.yaml",
+    "configs/COCO-Detection/faster_rcnn_R_50_C4_1x.yaml",
+    "configs/COCO-Detection/faster_rcnn_R_50_C4_3x.yaml",
+    "configs/COCO-Detection/faster_rcnn_R_50_DC5_1x.yaml",
+    "configs/COCO-Detection/faster_rcnn_R_50_DC5_3x.yaml",
+    "configs/COCO-Detection/faster_rcnn_R_50_FPN_1x.yaml",
+    "configs/COCO-Detection/faster_rcnn_R_50_FPN_3x.yaml",
+    "configs/COCO-Detection/faster_rcnn_X_101_32x8d_FPN_3x.yaml",
+    "configs/COCO-InstanceSegmentation/mask_rcnn_R_101_C4_3x.yaml",
+    "configs/COCO-InstanceSegmentation/mask_rcnn_R_101_DC5_3x.yaml",
+    "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml",
+    "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_3x.yaml",
+    "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_DC5_1x.yaml",
+    "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_DC5_3x.yaml",
+    "configs/PascalVOC-Detection/faster_rcnn_R_50_C4.yaml",
+    "configs/PascalVOC-Detection/faster_rcnn_R_50_FPN.yaml",
+    "configs/quick_schedules/mask_rcnn_R_50_C4_inference_acc_test.yaml",
+    "configs/quick_schedules/mask_rcnn_R_50_C4_instant_test.yaml",
+    "configs/quick_schedules/mask_rcnn_R_50_C4_training_acc_test.yaml",
+    "configs/quick_schedules/mask_rcnn_R_50_DC5_inference_acc_test.yaml",
     "configs/COCO-InstanceSegmentation/mask_rcnn_R_101_FPN_1x.yaml",
     "configs/COCO-InstanceSegmentation/mask_rcnn_R_101_FPN_3x.yaml",
     "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml",

@@ -185,7 +185,8 @@ def test_bottleneck_block_matches_jax_with_switch_on(monkeypatch, stride, has_sh
                             "frozen": {"backbone": variables["frozen"]}})
     block = BottleneckBlock(cin, 32, 8, stride, 1, True, "FrozenBN", has_shortcut,
                             fused_tail=True)
-    block.load_state_dict({k.removeprefix("backbone.bottom_up."): v for k, v in sd.items()})
+    # A tree without a neck is a neck-less trunk: its blocks land under ``backbone.``.
+    block.load_state_dict({k.removeprefix("backbone."): v for k, v in sd.items()})
     calls = []
     real = tfr.fused_conv1x1_bn_add_relu
     monkeypatch.setattr(tfr, "fused_conv1x1_bn_add_relu",

@@ -423,7 +423,7 @@ def test_fused_tails_only_on_frozen_bn_bottlenecks(depth, norm, tails):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("MODEL.RESNETS.RES5_DILATION", 2, "RES5_DILATION"),
+    ("MODEL.NECK.TOP_BLOCK_TYPE", "P6P7", "MAXPOOL"),
     ("MODEL.RESNETS.NORM", "BN", "NORM 'BN'"),
     ("MODEL.RESNETS.NORM", "SyncBN", "NORM 'SyncBN'"),
     ("MODEL.NECK.NORM", "BN", "NECK.NORM 'BN'"),
@@ -491,17 +491,10 @@ def oracle_cfg():
 
 
 def port_model(tcfg, variables):
-    """The port's model on the CPU with the JAX weights. The port always
-    has its mask head: for a JAX model without one (``MASK_ON`` False), the
-    head keeps its seeded weights and no mask output is compared."""
+    """The port's model on the CPU with the JAX weights (with a mask head
+    when ``MASK_ON``, as the JAX model has)."""
     sd = convert_variables(jax.tree_util.tree_map(np.asarray, variables))
-    if tcfg.MODEL.MASK_ON:
-        return build_model(tcfg, device="cpu", state_dict=sd)
-    tcfg.MODEL.MASK_ON = True
-    model = build_model(tcfg, device="cpu")
-    assert not set(sd) - set(model.state_dict())
-    model.load_state_dict({**model.state_dict(), **sd})
-    return model
+    return build_model(tcfg, device="cpu", state_dict=sd)
 
 
 class PortModel:
@@ -520,8 +513,7 @@ class PortModel:
         model = port_model(port_cfg_from(self.jcfg), variables)
         out = model.predict({"image": torch.from_numpy(np.array(batch["image"])),
                              "image_size": torch.from_numpy(np.array(batch["image_size"]))})
-        return types.SimpleNamespace(**{k: getattr(out, k).numpy() for k in (
-            "boxes", "scores", "pred_classes", "is_valid", "pred_masks")})
+        return types.SimpleNamespace(**{k: v.numpy() for k, v in out.get_fields().items()})
 
 
 class _JaxWithPortPredict(types.ModuleType):

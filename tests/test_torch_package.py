@@ -49,7 +49,8 @@ assert not any(k.split(".")[0] in ("jax", "flax", "yaml", "cv2") for k in sys.mo
 for m in ("config.yaml_subset", "data.loader", "engine.checkpoint", "engine.evaluator",
           "evaluation.coco_eval", "data.tfrecord_codec", "data.image_io", "data.polygon",
           "data.coco", "data.records", "evaluation.coco_results", "tools.make_synthetic_coco",
-          "tools.build_records", "tools.train", "tools.eval", "tools.workflow_check"):
+          "tools.build_records", "tools.train", "tools.eval", "tools.workflow_check",
+          "tools.overfit_check"):
     assert pkg.__name__ + "." + m in sys.modules, m
 assert "PIL" not in sys.modules  # imported at the first decode or encode only
 print("ok")
@@ -73,7 +74,7 @@ def test_sources_name_nothing_of_jax():
 
 
 @pytest.mark.parametrize("tool", ["make_synthetic_coco", "build_records", "train", "eval",
-                                  "workflow_check"])
+                                  "workflow_check", "overfit_check"])
 def test_clis_run_as_modules_without_jax_flax_yaml(tool):
     """``python -m detectron2_tensorflow_tpu_torch.tools.<tool>`` starts (its
     ``--help``) with JAX, Flax, PyYAML and ``cv2`` blocked."""
