@@ -11,7 +11,7 @@ are permuted.
 
 :func:`convert_variables` reads the JAX model's ``variables``, nested dicts
 of numpy (or array-like) values with a ``params`` and a ``frozen``
-collection. Output: a dict of float32 tensors named as the port's modules
+collection, and a ``batch_stats`` one when the model has BN. Output: a dict of float32 tensors named as the port's modules
 (Detectron2's names), ready for ``build_model(cfg, state_dict=...)``. The
 JAX trunk (``backbone``) is the port's ``backbone.bottom_up`` under an FPN
 and ``backbone`` without a neck (C4, DC5); the C4 ROI head's module-level
@@ -31,7 +31,10 @@ Layout changes:
     ``norm`` buffers (weight, bias, running_mean, running_var);
   * a GN layer's ``GroupNorm_0/GroupNorm_0/{scale,bias}`` (the JAX
     wrapper module and the GroupNorm module inside it) becomes the conv's
-    ``norm.weight`` / ``norm.bias``. Basic blocks (R18/R34) keep their JAX
+    ``norm.weight`` / ``norm.bias``, and so does a BN layer's
+    ``BatchNorm_0/BatchNorm_0/{scale,bias}``; the ``batch_stats``
+    collection (BN's ``mean``, ``var``) becomes ``norm.running_mean`` /
+    ``norm.running_var``. Basic blocks (R18/R34) keep their JAX
     names (``conv1``, ``conv2``, ``shortcut``), which are the port's.
 """
 
@@ -52,7 +55,9 @@ _PREFIX = {
     "mask_head": "roi_heads.mask_head",
 }
 _FROZEN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
-_GN = {"scale": "weight", "bias": "bias"}
+_AFFINE = {"scale": "weight", "bias": "bias"}
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+_NORM_WRAPPERS = (["GroupNorm_0", "GroupNorm_0"], ["BatchNorm_0", "BatchNorm_0"])
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()):
@@ -88,9 +93,9 @@ def convert_variables(variables) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(variables["params"]):
         *mod, leaf = path
-        if len(mod) > 2 and mod[-2:] == ["GroupNorm_0", "GroupNorm_0"]:
+        if len(mod) > 2 and mod[-2:] in _NORM_WRAPPERS:
             name = _module_name(tuple(mod[:-2]), prefix)
-            out[f"{name}.norm.{_GN[leaf]}"] = torch.from_numpy(arr.copy())
+            out[f"{name}.norm.{_AFFINE[leaf]}"] = torch.from_numpy(arr.copy())
             continue
         deconv = mod[-1] == "deconv"
         if mod[-1] in ("conv", "deconv") and len(mod) > 2:
@@ -109,6 +114,12 @@ def convert_variables(variables) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected frozen variable {'/'.join(path)}")
         name = _module_name(tuple(mod), prefix)
         out[f"{name}.norm.{_FROZEN[leaf]}"] = torch.from_numpy(arr.copy())
+    for path, arr in _flatten(variables.get("batch_stats", {})):
+        *mod, leaf = path
+        if len(mod) < 3 or mod[-2:] != ["BatchNorm_0", "BatchNorm_0"]:
+            raise KeyError(f"unexpected batch_stats variable {'/'.join(path)}")
+        name = _module_name(tuple(mod[:-2]), prefix)
+        out[f"{name}.norm.{_BATCH_STATS[leaf]}"] = torch.from_numpy(arr.copy())
     return out
 
 
@@ -130,10 +141,10 @@ def load_state_dict(path: str) -> Dict[str, np.ndarray]:
 def _port_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     """Name -> shape of every tensor of the port's model for ``cfg``, built
     on the meta device (no memory, no weights)."""
-    from .models.meta_arch.rcnn import GeneralizedRCNN
+    from .models.meta_arch.rcnn import meta_architecture
 
     with torch.device("meta"):
-        model = GeneralizedRCNN(cfg)
+        model = meta_architecture(cfg)(cfg)
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 

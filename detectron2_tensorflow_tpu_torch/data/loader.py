@@ -7,6 +7,11 @@ Port of ``pick_bucket``, ``pad_sample_to_batch_arrays`` and
   so the model sees a small static set of shapes, and samples are batched
   per bucket;
 * GT is padded to ``cfg.INPUT.MAX_GT_INSTANCES`` with validity masks;
+* precomputed proposals (``MODEL.LOAD_PROPOSALS``) fill fixed top-k slots
+  ``proposal_boxes [K, 4]``, ``proposal_scores [K]`` and
+  ``proposal_valid [K]``, best score first (a stable sort), empty slots
+  scored -1e10, with ``K`` = ``DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN``
+  or ``_TEST``;
 * ``DATALOADER.NUM_READERS`` threads transform samples in order, each with
   its own seed, and a thread keeps ``NUM_PREFETCH_BATCHES`` batches ready;
 * evaluation takes every ``SAMPLE_1_OF_N``-th image once and pads the last
@@ -76,7 +81,26 @@ def pad_sample_to_batch_arrays(sample: Dict, bucket, max_gt: int, mini_mask: int
         gt_masks = np.zeros((max_gt, mini_mask, mini_mask), np.float32)
         gt_masks[:keep] = sample["masks"][:keep]
         out["gt_masks"] = gt_masks
+    if sample.get("proposals") is not None:
+        out.update(proposal_slots(sample["proposals"], sample.get("proposal_scores"),
+                                  int(sample.get("proposal_topk", 1000))))
     return out
+
+
+def proposal_slots(proposals, scores, topk: int) -> Dict[str, np.ndarray]:
+    """The ``topk`` best-scored proposals in fixed slots (the JAX loader's
+    rule): a stable sort by descending score, empty slots zero boxes scored
+    -1e10 and invalid. Missing scores are zeros."""
+    props = np.asarray(proposals, np.float32).reshape(-1, 4)
+    scores = np.asarray(scores if scores is not None else np.zeros(len(props)), np.float32)
+    order = np.argsort(-scores, kind="stable")[:topk]
+    boxes = np.zeros((topk, 4), np.float32)
+    slot_scores = np.full((topk,), -1e10, np.float32)
+    valid = np.zeros((topk,), bool)
+    boxes[:len(order)] = props[order]
+    slot_scores[:len(order)] = scores[order]
+    valid[:len(order)] = True
+    return {"proposal_boxes": boxes, "proposal_scores": slot_scores, "proposal_valid": valid}
 
 
 def _stack(batch: List[Dict]) -> Dict[str, np.ndarray]:
@@ -105,6 +129,8 @@ def build_dataloader(
     mini = cfg.TRANSFORM.RESIZE.MINI_MASK_SIZE
     rng = np.random.default_rng(seed)
     num_readers = max(1, cfg.DATALOADER.NUM_READERS)
+    proposal_topk = (cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if training
+                     else cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
 
     def index_stream():
         while True:
@@ -124,6 +150,8 @@ def build_dataloader(
         # A per-sample generator keeps augmentation deterministic across readers.
         s, _ = transforms.run(cfg, raw, training, np.random.default_rng(seed_i))
         s["original_size"] = orig_size
+        if s.get("proposals") is not None:
+            s["proposal_topk"] = proposal_topk
         return s
 
     def sample_stream():

@@ -9,9 +9,18 @@ image ids, and with them the draws, so that a second set (a validation
 split) holds other images. Besides indexing it has the surface the
 evaluator reads from a COCO dataset: ``images`` (``(info, annotations)``
 pairs whose ``info["id"]`` is the image id) and ``image_id(i)``.
+
+``jittered_proposals`` is the precomputed-proposal recipe of the JAX
+package's ``tests/test_fast_rcnn.py`` ``ProposalDataset``: 8 copies of each
+GT box moved by N(0, 2 px) per coordinate, clipped to the image, scored
+U(0, 10); ``write_proposal_file`` writes the recipe's proposals for a COCO JSON's
+images as a Detectron2 proposal pickle (``MODEL.LOAD_PROPOSALS``).
 """
 
 from __future__ import annotations
+
+import json
+import pickle
 
 import numpy as np
 
@@ -67,3 +76,37 @@ class SyntheticDataset:
     def __getitem__(self, i):
         return {k: (v.copy() if isinstance(v, np.ndarray) else v)
                 for k, v in self.samples[i].items()}
+
+
+def jittered_proposals(boxes: np.ndarray, h: int, w: int, rng: np.random.Generator,
+                       per_box: int = 8, sigma: float = 2.0):
+    """``(proposals [per_box * N, 4], scores [per_box * N])``: GT-jittered
+    boxes clipped to the ``h x w`` image, scores uniform in [0, 10)."""
+    boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+    jitter = rng.normal(0, sigma, (len(boxes) * per_box, 4)).astype(np.float32)
+    props = np.clip(np.repeat(boxes, per_box, axis=0) + jitter, 0, [w, h, w, h])
+    return props.astype(np.float32), rng.uniform(0, 10, len(props)).astype(np.float32)
+
+
+def write_proposal_file(annotations_json: str, path: str, seed: int = 0) -> int:
+    """Write :func:`jittered_proposals` of each image's annotated boxes (COCO
+    ``bbox`` x, y, w, h) to ``path`` as a Detectron2 proposal pickle
+    (``ids``, ``boxes`` xyxy, ``objectness_logits``); returns the image
+    count."""
+    with open(annotations_json) as f:
+        coco = json.load(f)
+    boxes = {img["id"]: [] for img in coco["images"]}
+    for a in coco["annotations"]:
+        x, y, w, h = a["bbox"]
+        boxes[a["image_id"]].append([x, y, x + w, y + h])
+    rng = np.random.default_rng(seed)
+    data = {"ids": [], "boxes": [], "objectness_logits": []}
+    for img in coco["images"]:
+        props, scores = jittered_proposals(np.asarray(boxes[img["id"]], np.float32),
+                                           img["height"], img["width"], rng)
+        data["ids"].append(img["id"])
+        data["boxes"].append(props)
+        data["objectness_logits"].append(scores)
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    return len(data["ids"])

@@ -11,9 +11,11 @@ uint8 images in fixed point, so images agree to one level.
 
 Every augmentation the default config leaves off (crop, vertical flip,
 rotation, the colour changes, box jitter) raises ``NotImplementedError``
-naming its ``AUGMENT.*`` key. Samples that carry keypoints, semantic maps or
-precomputed proposals belong to families the port does not have yet and
-raise too.
+naming its ``AUGMENT.*`` key. Precomputed proposals (``proposals [P, 4]``
+xyxy, with ``proposal_scores [P]``, ``MODEL.LOAD_PROPOSALS``) are flipped
+and scaled with the boxes, as the JAX ``flip_horizontal`` and
+``resize_shortest_edge`` do. Samples that carry keypoints or semantic maps
+belong to families the port does not have yet and raise.
 
 Samples are dicts: image uint8 [H, W, 3] RGB, boxes float32 [N, 4] xyxy
 absolute, classes int [N], is_crowd bool [N], masks float [N, H, W]
@@ -27,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-_UNPORTED_FIELDS = ("keypoints", "proposals", "sem_seg")
+_UNPORTED_FIELDS = ("keypoints", "sem_seg")
 _OFF_AUGMENTATIONS = (
     ("CROP.ENABLED", lambda a: a.CROP.ENABLED),
     ("VERTICAL_FLIP", lambda a: a.VERTICAL_FLIP),
@@ -96,6 +98,10 @@ def flip_horizontal(sample: Dict) -> Dict:
         b = sample["boxes"].copy()
         b[:, [0, 2]] = w - b[:, [2, 0]]
         out["boxes"] = b
+    if sample.get("proposals") is not None and len(sample["proposals"]):
+        pr = sample["proposals"].copy()
+        pr[:, [0, 2]] = w - pr[:, [2, 0]]
+        out["proposals"] = pr
     if sample.get("masks") is not None:
         out["masks"] = sample["masks"][:, :, ::-1]
     return out
@@ -115,6 +121,9 @@ def resize_shortest_edge(sample: Dict, min_size: int, max_size: int) -> Tuple[Di
     out["image"] = resize_image(sample["image"], nh, nw)
     if len(sample.get("boxes", ())):
         out["boxes"] = sample["boxes"] * np.array([nw / w, nh / h, nw / w, nh / h], np.float32)
+    if sample.get("proposals") is not None and len(sample["proposals"]):
+        out["proposals"] = sample["proposals"] * np.array([nw / w, nh / h, nw / w, nh / h],
+                                                          np.float32)
     if sample.get("masks") is not None and len(sample["masks"]):
         out["masks"] = np.stack([resize_bilinear(m, nh, nw) for m in sample["masks"]])
     return out, scale

@@ -9,6 +9,7 @@ from .checkpoint import (
 from .evaluator import check_expected_results, evaluate, run_evaluation
 from .train import (
     TrainState,
+    add_proposal_slots,
     build_train_step,
     create_train_state,
     make_train_batch,
@@ -17,7 +18,7 @@ from .train import (
 )
 
 __all__ = [
-    "TrainState", "build_train_step", "create_train_state", "make_train_batch", "to_device",
+    "TrainState", "add_proposal_slots", "build_train_step", "create_train_state", "make_train_batch", "to_device",
     "train", "evaluate", "run_evaluation", "check_expected_results", "CheckpointManager",
     "load_pretrained", "restore_variables", "overlay_compatible", "latest_checkpoint",
     "latest_step",

@@ -7,8 +7,11 @@ Port of the detection family of the JAX package's ``engine/evaluator.py``
 built on the CPU) and gives fixed-shape detections in network-input
 coordinates; the host scales the boxes to the original resolution, pastes
 the masks there and streams each image into the COCO bbox and segm
-evaluators. Test-time augmentation, the VOC, semantic and panoptic
-evaluators, keypoint and proposal evaluation and the drawn examples raise
+evaluators; a ``ProposalNetwork``'s proposals go to the proposal-recall
+evaluator (``box_proposals/AR@100``, ``box_proposals/AR@1000``) instead.
+``EVAL.CLASS_AGNOSTIC`` zeroes the GT and predicted classes before the
+evaluators see them. Test-time augmentation, the VOC, semantic and panoptic
+evaluators, keypoint evaluation and the drawn examples raise
 ``NotImplementedError``: they wait for their families.
 """
 
@@ -20,7 +23,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from ..evaluation.coco_eval import CocoEvaluator
+from ..evaluation.coco_eval import CocoEvaluator, ProposalEvaluator
 from ..evaluation.np_masks import paste_masks
 from .train import to_device
 
@@ -39,8 +42,12 @@ _NOT_PORTED_METRICS = (
 )
 
 
+# What ``predict`` reads of a batch: the images, and a Fast R-CNN's proposal slots.
+_PREDICT_INPUTS = ("image", "image_size", "proposal_boxes", "proposal_scores", "proposal_valid")
+
+
 def build_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
-    """``predict(batch) -> outputs``: the batch (numpy arrays) goes to the
+    """``predict(batch) -> outputs``: the batch's inputs (numpy arrays) go to the
     model's device, ``model.predict`` runs there, and the outputs come back
     as numpy arrays (``boxes``, ``scores``, ``pred_classes``, ``is_valid``
     and, from a model with a mask head, ``pred_masks``)."""
@@ -48,7 +55,7 @@ def build_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
     device = next(model.parameters()).device
 
     def predict(batch: Dict) -> Dict[str, np.ndarray]:
-        inputs = to_device({k: batch[k] for k in ("image", "image_size")}, device)
+        inputs = to_device({k: v for k, v in batch.items() if k in _PREDICT_INPUTS}, device)
         out = model.predict(inputs).get_fields()
         return {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
                 for k, v in out.items()
@@ -74,13 +81,11 @@ def build_detection_evaluators(cfg) -> Dict[str, tuple]:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
+    if cfg.MODEL.META_ARCHITECTURE not in ("GeneralizedRCNN", "ProposalNetwork"):
         raise NotImplementedError(
             f"evaluating {cfg.MODEL.META_ARCHITECTURE} is not ported")
     if cfg.TEST.AUG.ENABLED:
         raise NotImplementedError("TEST.AUG (test-time augmentation) is not ported")
-    if cfg.EVAL.CLASS_AGNOSTIC:
-        raise NotImplementedError("EVAL.CLASS_AGNOSTIC is not ported")
 
 
 def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
@@ -99,12 +104,17 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
     """
     _check_supported(cfg)
     num_classes = num_classes_of(cfg)
-    evaluators = build_detection_evaluators(cfg)
-    if tuple(cfg.EVAL.METRICS) == ("coco_detection_metrics",) and cfg.MODEL.MASK_ON:
-        evaluators["segm"] = (CocoEvaluator(num_classes, "segm"), "segm")
+    if cfg.MODEL.META_ARCHITECTURE == "ProposalNetwork":
+        evaluators = {"box_proposals": (ProposalEvaluator(), "bbox")}
+    else:
+        evaluators = build_detection_evaluators(cfg)
+        if tuple(cfg.EVAL.METRICS) == ("coco_detection_metrics",) and cfg.MODEL.MASK_ON:
+            evaluators["segm"] = (CocoEvaluator(num_classes, "segm"), "segm")
     class_names = getattr(dataset, "class_names", None) or getattr(dataset, "thing_classes", None)
     if (cfg.EVAL.INCLUDE_METRICS_PER_CATEGORY or cfg.EVAL.ALL_METRICS_PER_CATEGORY) and class_names:
         for ev, _ in evaluators.values():
+            if not isinstance(ev, CocoEvaluator):
+                continue
             ev.per_category = cfg.EVAL.INCLUDE_METRICS_PER_CATEGORY
             ev.all_per_category = cfg.EVAL.ALL_METRICS_PER_CATEGORY
             ev.class_names = list(class_names)
@@ -126,9 +136,12 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
 
             valid = out["is_valid"][i]
             boxes = out["boxes"][i][valid] * np.array([sx, sy, sx, sy], np.float32)
-            det = {"boxes": boxes, "scores": out["scores"][i][valid],
-                   "classes": out["pred_classes"][i][valid]}
-            gt = {"boxes": raw["boxes"], "classes": np.asarray(raw["classes"]),
+            classes = out["pred_classes"][i][valid]
+            gt_classes = np.asarray(raw["classes"])
+            if cfg.EVAL.CLASS_AGNOSTIC:  # localization only
+                classes, gt_classes = np.zeros_like(classes), np.zeros_like(gt_classes)
+            det = {"boxes": boxes, "scores": out["scores"][i][valid], "classes": classes}
+            gt = {"boxes": raw["boxes"], "classes": gt_classes,
                   "is_crowd": raw["is_crowd"], "areas": raw.get("areas")}
             det_masks = None
             if "pred_masks" in out and any(kind == "segm" for _, kind in evaluators.values()):

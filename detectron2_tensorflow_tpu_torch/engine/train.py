@@ -93,6 +93,25 @@ def make_train_batch(cfg, height: int = 800, width: int = 1344) -> Dict[str, np.
     }
 
 
+def add_proposal_slots(cfg, batch: Dict[str, np.ndarray], training: bool,
+                       seed: int = 0) -> Dict[str, np.ndarray]:
+    """``batch`` with the precomputed-proposal slots a ``MODEL.LOAD_PROPOSALS``
+    model reads: per image, ``data.jittered_proposals`` of its ``gt_boxes``
+    (8 jittered copies of each valid GT box, scored U(0, 10)) in the
+    loader's top-k slots (``PRECOMPUTED_PROPOSAL_TOPK_TRAIN`` or ``_TEST``)."""
+    from ..data.loader import proposal_slots
+    from ..data.synthetic import jittered_proposals
+
+    rng = np.random.default_rng(seed)
+    topk = (cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if training
+            else cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
+    slots = []
+    for boxes, valid, (h, w) in zip(batch["gt_boxes"], batch["gt_valid"], batch["image_size"]):
+        props, scores = jittered_proposals(boxes[valid], int(h), int(w), rng)
+        slots.append(proposal_slots(props, scores, topk))
+    return {**batch, **{k: np.stack([s[k] for s in slots]) for k in slots[0]}}
+
+
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """A batch of numpy arrays (or tensors) as tensors on ``device``."""
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}

@@ -1,5 +1,5 @@
 from . import rle
-from .coco_eval import CocoEvaluator
+from .coco_eval import CocoEvaluator, ProposalEvaluator
 from .np_masks import fullframe_masks_to_image, paste_masks
 
-__all__ = ["CocoEvaluator", "fullframe_masks_to_image", "paste_masks", "rle"]
+__all__ = ["CocoEvaluator", "ProposalEvaluator", "fullframe_masks_to_image", "paste_masks", "rle"]

@@ -3,8 +3,9 @@
 Port of the JAX package's ``evaluation/coco_eval.py`` (bbox and segm): the
 COCOeval algorithm (greedy per-category matching over IoU thresholds
 0.50:0.05:0.95, crowd-ignore semantics, area ranges, 101-point interpolated
-precision). Keypoint OKS and the proposal-recall evaluator wait for their
-families.
+precision), and :class:`ProposalEvaluator`, the class-agnostic proposal
+recall (Detectron2's ``box_proposals`` task) of its ``ProposalEvaluator``.
+Keypoint OKS waits for its family.
 
 Inputs are plain dicts at ORIGINAL image resolution:
   gt:  boxes [G,4] xyxy, classes [G], is_crowd [G], (masks [G,H,W] bool)
@@ -299,3 +300,51 @@ class CocoEvaluator:
             aps.append(float(p.mean()))
             by_class[c] = aps[-1]
         return (float(np.mean(aps)) if aps else float("nan")), by_class
+
+
+class ProposalEvaluator:
+    """Class-agnostic proposal recall (Detectron2's ``box_proposals`` task).
+
+    AR@N is the mean over the IoU thresholds 0.50:0.05:0.95 of the share of
+    non-crowd GT boxes that the top-N proposals (by score) cover, each GT
+    box taking the overlap of a greedy best-overlap assignment: the largest
+    remaining (proposal, GT) IoU is taken, its proposal and GT leave, and so
+    on. ``evaluate`` returns ``AR@100`` and ``AR@1000`` in percent.
+    """
+
+    def __init__(self, max_dets=(100, 1000)):
+        self.max_dets = tuple(max_dets)
+        self._num_gt = 0
+        self._per_limit = {n: [] for n in self.max_dets}
+
+    def add_image(self, gt: Dict, det: Dict) -> None:
+        gt_boxes = np.asarray(gt["boxes"], np.float64).reshape(-1, 4)
+        iscrowd = np.asarray(gt.get("is_crowd", np.zeros(len(gt_boxes), bool)), bool)
+        gt_boxes = gt_boxes[~iscrowd]
+        props = np.asarray(det["boxes"], np.float64).reshape(-1, 4)
+        scores = np.asarray(det["scores"], np.float64).reshape(-1)
+        props = props[np.argsort(-scores, kind="stable")]
+        self._num_gt += len(gt_boxes)
+        if len(gt_boxes) == 0:
+            return
+        for n in self.max_dets:
+            top = props[:n]
+            overlaps = np.zeros(len(gt_boxes))
+            if len(top):
+                ious = box_iou_matrix(top, gt_boxes, np.zeros(len(gt_boxes), bool))
+                for _ in range(min(len(top), len(gt_boxes))):
+                    pi, gi = divmod(int(np.argmax(ious)), ious.shape[1])
+                    if ious[pi, gi] <= 0:
+                        break
+                    overlaps[gi] = ious[pi, gi]
+                    ious[pi, :] = -1
+                    ious[:, gi] = -1
+            self._per_limit[n].append(overlaps)
+
+    def evaluate(self) -> Dict[str, float]:
+        out = {}
+        for n in self.max_dets:
+            ov = np.concatenate(self._per_limit[n]) if self._per_limit[n] else np.zeros(0)
+            out[f"AR@{n}"] = (100 * float(np.mean([(ov >= t).mean() for t in IOU_THRESHS]))
+                              if len(ov) else 0.0)
+        return out

@@ -1,3 +1,3 @@
-from .meta_arch import build_model
+from .meta_arch import GeneralizedRCNN, ProposalNetwork, build_model
 
-__all__ = ["build_model"]
+__all__ = ["build_model", "GeneralizedRCNN", "ProposalNetwork"]

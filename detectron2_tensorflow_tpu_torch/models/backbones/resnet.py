@@ -1,4 +1,4 @@
-"""ResNet trunk: depths 18 to 152, FrozenBN or GN, res5 dilated or not; and
+"""ResNet trunk: depths 18 to 152, FrozenBN, BN/SyncBN or GN, res5 dilated or not; and
 the res5 stage alone, as the ROI head of C4 models.
 
 Port of the JAX package's ``models/backbones/resnet.py``: bottleneck blocks
@@ -11,22 +11,25 @@ layer is a conv's ``norm`` too, which is how the solver finds it.
 Stages up to ``FREEZE_AT`` (1 = the stem, 2 = the stem and res2) are
 frozen as in the JAX package: their outputs are detached (its
 ``stop_gradient``), and the solver leaves their parameters out of the
-optimizer (``solver.trainable_parameters``).
+optimizer (``solver.trainable_parameters``). No norm is swapped for FrozenBN
+there (Detectron2 would): a trainable BN in a frozen stage still normalizes
+with batch moments in training and still updates its running statistics,
+as in the JAX package.
 
 ``build_resnet_backbone`` reads the user's switch for the fused bottleneck
 tail (``D2TPU_ENABLE_FUSED_EPILOGUE``, see ``ops/fused_residual.py``) once,
 when the model is built, as the JAX package reads it when it traces; with it
 on, every bottleneck block's ``conv3`` runs the tail as one fused kernel when
 its norm is FrozenBN, in frozen stages too (their forward still runs). A
-basic block ends in a 3x3 conv and a GN block in GN, so neither takes it.
+basic block ends in a 3x3 conv and a GN or BN block in its norm, so none
+of them takes it.
 ``RES5_DILATION`` above 1 (2 in the DC5 configs) keeps res5 at stride 16:
 its first block does not stride and its 3x3 convs are dilated (padding =
 dilation), as in the JAX package. :func:`build_res5_head` builds res5 on
 its own, as the JAX package's ``Res5ROIHeads`` does: bottleneck blocks
 whatever the depth, ``RES2_OUT_CHANNELS * 8`` wide, first stride 2, the
-trunk's norm, fed by the trunk's res4 channels. BN/SyncBN, deformable
-convs, the space-to-depth stem and rematerialization raise
-``NotImplementedError``.
+trunk's norm, fed by the trunk's res4 channels. Deformable convs, the
+space-to-depth stem and rematerialization raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from torch import nn
 from ...ops.fused_residual import fused_epilogue_enabled
 from ..layers import Conv2d, max_pool
 
+NORMS = ("FrozenBN", "BN", "SyncBN", "GN")
 BLOCKS_PER_STAGE = {
     18: (2, 2, 2, 2),
     34: (3, 4, 6, 3),
@@ -194,9 +198,9 @@ def build_resnet_backbone(cfg) -> ResNet:
     r = cfg.MODEL.RESNETS
     if cfg.MODEL.BACKBONE.NAME != "ResNet":
         raise NotImplementedError(f"backbone '{cfg.MODEL.BACKBONE.NAME}' is not ported")
-    if r.NORM not in ("FrozenBN", "GN"):
+    if r.NORM not in NORMS:
         raise NotImplementedError(f"MODEL.RESNETS.NORM '{r.NORM}' is not ported "
-                                  "(FrozenBN and GN are)")
+                                  f"(known: {NORMS})")
     for key in ("STEM_SPACE_TO_DEPTH", "REMAT"):
         if r[key]:
             raise NotImplementedError(f"MODEL.RESNETS.{key} is not ported")

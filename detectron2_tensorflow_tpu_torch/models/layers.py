@@ -1,4 +1,4 @@
-"""Shared building blocks: conv with norm and activation, FrozenBN, GN, deconv.
+"""Shared building blocks: conv with norm and activation, FrozenBN, BN, GN, deconv.
 
 Port of the JAX package's ``models/layers.py``. The
 JAX package runs NHWC convs with HWIO kernels; here convs are PyTorch's
@@ -15,6 +15,13 @@ What carries over exactly:
     float32 whatever the input dtype, the result cast to the input's dtype.
     Flax takes the variance as ``E[x^2] - E[x]^2``, ``F.group_norm`` as a
     two-pass (Welford) sum; in float32 they agree to ~1e-7 relative;
+  * trainable BN (the JAX package's ``BatchNorm``; SyncBN is the same
+    layer, as under its data mesh) with its semantics, not
+    ``torch.nn.BatchNorm2d``'s: float32 batch moments with
+    the biased variance ``max(E[x^2] - E[x]^2, 0)``, running statistics
+    updated as ``0.9 * running + 0.1 * batch`` (``F.batch_norm`` would
+    write the unbiased variance), eps 1e-5, the float32 result cast to the
+    input's dtype;
   * a conv runs in its input's dtype (its weight and bias are cast, so
     float32 training parameters compute in bf16), as the JAX package's
     convs do.
@@ -77,13 +84,54 @@ class GroupNorm(nn.GroupNorm):
                             self.eps).to(x.dtype)
 
 
+def batch_moments(x: torch.Tensor):
+    """Per-channel float32 mean and biased variance of ``[N, C, H, W]``,
+    as the JAX package's BN takes them (the fast variance)."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    return mean, var
+
+
+class BatchNorm2d(nn.Module):
+    """Trainable BN with the JAX package's semantics (module docstring): batch
+    moments in training, running statistics otherwise. ``weight`` and
+    ``bias`` are trained; ``running_mean`` and ``running_var`` are float32
+    buffers, Detectron2's names."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean, var = batch_moments(x)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
+        return y.to(x.dtype)
+
+
 def get_norm(norm: str, channels: int) -> Optional[nn.Module]:
-    """The norm layer the config names: none, FrozenBN or GN. BN and SyncBN
-    come with the first config that trains them."""
+    """The norm layer the config names: none, FrozenBN, BN (SyncBN is BN on
+    one card) or GN."""
     if norm == "":
         return None
     if norm == "FrozenBN":
         return FrozenBatchNorm2d(channels)
+    if norm in ("BN", "SyncBN"):
+        return BatchNorm2d(channels)
     if norm == "GN":
         return GroupNorm(channels)
     raise NotImplementedError(f"norm '{norm}' is not ported")

@@ -3,31 +3,33 @@
 from __future__ import annotations
 
 import torch
+from torch import nn
 
-from ..layers import GroupNorm
-from .rcnn import DTYPES, GeneralizedRCNN, init_weights
+from ..layers import BatchNorm2d, GroupNorm
+from .rcnn import DTYPES, init_weights, meta_architecture
 
 
 def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
                 state_dict=None, training: bool = False,
-                init: str = "serving") -> GeneralizedRCNN:
+                init: str = "serving") -> nn.Module:
     """Build the model on ``device`` (the card unless the caller passes
     ``device="cpu"``; without a card that raises), computing in
-    ``cfg.MODEL.DTYPE``.
+    ``cfg.MODEL.DTYPE``: the ``GeneralizedRCNN`` or ``ProposalNetwork``
+    that ``MODEL.META_ARCHITECTURE`` names.
 
     Weights come from ``state_dict`` (for example ``convert.py``'s output)
     or, without one, from :func:`init_weights` drawn from ``generator``
     (seed 0 when none is given) by the recipe ``init`` names ("serving", or
     "jax": the JAX package's own initializers, which training from scratch
     uses). For serving (eval mode) parameters are stored in the model dtype
-    but GN's, which computes in float32; for ``training`` they stay float32
+    but GN's and BN's, which compute in float32; for ``training`` they stay float32
     and each layer casts them to its input's dtype, as the JAX package keeps
     float32 parameters. The FrozenBN buffers stay float32, as the JAX
-    package folds them in float32. On CUDA the weights are put in ``channels_last`` layout.
+    package folds them in float32, and so do BN's running statistics. On CUDA the weights are put in ``channels_last`` layout.
     """
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")
-    model = GeneralizedRCNN(cfg)
+    model = meta_architecture(cfg)(cfg)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:
@@ -37,7 +39,7 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
     model.train(training)
     if not training:
         dtype = DTYPES[cfg.MODEL.DTYPE]
-        keep = {id(p) for m in model.modules() if isinstance(m, GroupNorm)
+        keep = {id(p) for m in model.modules() if isinstance(m, (GroupNorm, BatchNorm2d))
                 for p in m.parameters()}
         with torch.no_grad():
             for p in model.parameters():

@@ -1,5 +1,6 @@
 """GeneralizedRCNN: Faster and Mask R-CNN, with an FPN (R50-FPN) or on one
-feature level (C4, DC5), serving and training losses.
+feature level (C4, DC5), Fast R-CNN over loaded proposals, and the RPN-only
+ProposalNetwork; serving and training losses.
 
 Port of the non-cascade branches of ``predict_fn`` and ``loss_fn`` in the
 JAX package's ``models/meta_arch/rcnn.py``. Serving: trunk and neck (FPN or
@@ -18,6 +19,20 @@ with the box pooler and runs res5 again for the mask head. Without
 ``MASK_ON`` (Faster R-CNN) there is no mask branch and ``predict`` returns
 no ``pred_masks``.
 
+With ``MODEL.LOAD_PROPOSALS`` (Fast R-CNN) the model has no RPN, not even
+its parameters: the proposals come from the batch (``proposal_boxes``,
+``proposal_scores``, ``proposal_valid``, the loader's fixed top-k slots), in
+serving and in training, where there is no RPN loss (the JAX
+``batch_proposals``). :class:`ProposalNetwork` is the trunk, the neck and
+the RPN alone (the JAX ``build_proposal_network``): RPN losses in training,
+and ``predict`` returns the ``_TEST`` proposals as instances of class 0
+scored by their objectness logits.
+
+A model with trainable BN normalizes with batch moments (and updates its
+running statistics) in ``losses`` when it was built for training, and
+always with its running statistics in ``predict``, as the JAX package
+applies ``train=True`` and ``train=False``.
+
 Parameters follow Detectron2's names (``backbone.bottom_up.*`` with an FPN,
 ``backbone.*`` without one, ``proposal_generator.rpn_head.*``,
 ``roi_heads.box_head.*``, ``roi_heads.res5.*``, ...).
@@ -27,6 +42,7 @@ viewed as NCHW, which is PyTorch's ``channels_last`` layout.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
@@ -35,6 +51,7 @@ from torch import nn
 
 from ...structures import Instances
 from ..backbones.resnet import ResNet, build_resnet_backbone, output_shapes
+from ..layers import BatchNorm2d
 from ..necks.fpn import build_neck
 from ..roi_heads.roi_heads import Res5ROIHeads, StandardROIHeads
 from ..rpn import RPN, add_ground_truth_to_proposals
@@ -45,38 +62,18 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 ROI_HEADS = {"StandardROIHeads": StandardROIHeads, "Res5ROIHeads": Res5ROIHeads}
 
 
-class GeneralizedRCNN(nn.Module):
-    """Faster or Mask R-CNN; ``predict(batch)`` is the serving entry point."""
+class _Detector(nn.Module):
+    """What every meta-architecture here shares: preprocessing, the trunk
+    and neck (``backbone``), and ``predict`` with the norms in eval mode."""
 
-    def __init__(self, cfg):
-        super().__init__()
+    def _build_backbone(self, cfg) -> Dict[str, tuple]:
         m = cfg.MODEL
-        if m.META_ARCHITECTURE != "GeneralizedRCNN":
-            raise NotImplementedError(f"meta-architecture '{m.META_ARCHITECTURE}' is not ported")
-        if m.KEYPOINT_ON or m.LOAD_PROPOSALS or m.ROI_HEADS.NAME not in ROI_HEADS:
-            raise NotImplementedError(
-                "only Faster and Mask R-CNN with StandardROIHeads or Res5ROIHeads (no "
-                "keypoints, no loaded proposals) are ported"
-            )
-        ported = [("PROPOSAL_GENERATOR.NAME", "RPN")]
-        if m.ROI_HEADS.NAME == "StandardROIHeads":
-            ported.append(("ROI_BOX_HEAD.NAME", "FastRCNNConvFCHead"))
-        if m.MASK_ON:
-            ported.append(("ROI_MASK_HEAD.NAME", "MaskRCNNConvUpsampleHead"))
-        for key, name in ported:
-            group, leaf = key.split(".")
-            if m[group][leaf] != name:
-                raise NotImplementedError(f"MODEL.{key} '{m[group][leaf]}' is not ported")
         self.dtype = DTYPES[m.DTYPE]
         self.pixel_mean = list(m.PIXEL_MEAN)
         self.pixel_std = list(m.PIXEL_STD)
         self.input_format = m.INPUT_FORMAT
-        self.mask_on = m.MASK_ON
         self.backbone, shapes = build_neck(cfg, build_resnet_backbone(cfg), output_shapes(cfg))
-        rpn_in = [shapes[f] for f in m.RPN.IN_FEATURES]
-        self.proposal_generator = RPN(cfg, [s for _, s in rpn_in], rpn_in[0][0])
-        roi_in = [shapes[f] for f in m.ROI_HEADS.IN_FEATURES]
-        self.roi_heads = ROI_HEADS[m.ROI_HEADS.NAME](cfg, [s for _, s in roi_in], roi_in[0][0])
+        return shapes
 
     @property
     def trunk(self) -> ResNet:
@@ -90,18 +87,81 @@ class GeneralizedRCNN(nn.Module):
                               self.input_format, self.dtype)
         return self.backbone(x.permute(0, 3, 1, 2))
 
-    @torch.inference_mode()
     def predict(self, batch: Dict[str, torch.Tensor]) -> Instances:
+        """Serving: ``_predict`` without gradients, with every trainable BN on
+        its running statistics (a model built for training returns to its
+        mode after)."""
+        with torch.inference_mode(), _norms_in_eval(self):
+            return self._predict(batch)
+
+
+@contextlib.contextmanager
+def _norms_in_eval(model: nn.Module):
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d) and m.training]
+    for m in norms:
+        m.train(False)
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.train(True)
+
+
+def batch_proposals(batch: Dict[str, torch.Tensor]) -> Instances:
+    """The loader's precomputed-proposal slots as proposals (the JAX
+    ``batch_proposals``)."""
+    return Instances(proposal_boxes=batch["proposal_boxes"],
+                     objectness_logits=batch["proposal_scores"],
+                     is_valid=batch["proposal_valid"])
+
+
+class GeneralizedRCNN(_Detector):
+    """Faster, Mask or Fast R-CNN; ``predict(batch)`` is the serving entry point."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        m = cfg.MODEL
+        if m.META_ARCHITECTURE != "GeneralizedRCNN":
+            raise NotImplementedError(f"meta-architecture '{m.META_ARCHITECTURE}' is not ported "
+                                      "by GeneralizedRCNN")
+        if m.KEYPOINT_ON or m.ROI_HEADS.NAME not in ROI_HEADS:
+            raise NotImplementedError(
+                "only Faster, Mask and Fast R-CNN with StandardROIHeads or Res5ROIHeads (no "
+                "keypoints) are ported"
+            )
+        self.load_proposals = m.LOAD_PROPOSALS
+        ported = [] if self.load_proposals else [("PROPOSAL_GENERATOR.NAME", "RPN")]
+        if m.ROI_HEADS.NAME == "StandardROIHeads":
+            ported.append(("ROI_BOX_HEAD.NAME", "FastRCNNConvFCHead"))
+        if m.MASK_ON:
+            ported.append(("ROI_MASK_HEAD.NAME", "MaskRCNNConvUpsampleHead"))
+        for key, name in ported:
+            group, leaf = key.split(".")
+            if m[group][leaf] != name:
+                raise NotImplementedError(f"MODEL.{key} '{m[group][leaf]}' is not ported")
+        self.mask_on = m.MASK_ON
+        shapes = self._build_backbone(cfg)
+        if not self.load_proposals:
+            rpn_in = [shapes[f] for f in m.RPN.IN_FEATURES]
+            self.proposal_generator = RPN(cfg, [s for _, s in rpn_in], rpn_in[0][0])
+        roi_in = [shapes[f] for f in m.ROI_HEADS.IN_FEATURES]
+        self.roi_heads = ROI_HEADS[m.ROI_HEADS.NAME](cfg, [s for _, s in roi_in], roi_in[0][0])
+
+    def _predict(self, batch: Dict[str, torch.Tensor]) -> Instances:
         """``batch = {"image": [B, H, W, 3] float, "image_size": [B, 2] int32}``
-        on the model's device -> ``Instances`` with ``boxes [B, D, 4]``,
+        (and, with ``LOAD_PROPOSALS``, the ``proposal_*`` slots) on the
+        model's device -> ``Instances`` with ``boxes [B, D, 4]``,
         ``scores [B, D]``, ``pred_classes [B, D]``, ``is_valid [B, D]`` and,
         with ``MASK_ON``, ``pred_masks [B, D, 2S, 2S]`` (probabilities; 28 x
         28 at the configs' resolutions)."""
         image_sizes = batch["image_size"]
         features = self.features(batch["image"])
-        rpn = self.proposal_generator
-        logits, deltas = rpn.rpn_head([features[f] for f in rpn.in_features])
-        proposals = rpn.proposals(logits, deltas, image_sizes)
+        if self.load_proposals:
+            proposals = batch_proposals(batch)
+        else:
+            rpn = self.proposal_generator
+            logits, deltas = rpn.rpn_head([features[f] for f in rpn.in_features])
+            proposals = rpn.proposals(logits, deltas, image_sizes)
 
         heads = self.roi_heads
         storage = heads.pooling_storage(features)
@@ -125,9 +185,9 @@ class GeneralizedRCNN(nn.Module):
                generator: Optional[torch.Generator] = None,
                noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
                ) -> Dict[str, torch.Tensor]:
-        """The training losses of one batch: ``loss_rpn_cls``, ``loss_rpn_loc``,
-        ``loss_cls``, ``loss_box_reg`` and, with ``MASK_ON``, ``loss_mask``
-        (float32 scalars).
+        """The training losses of one batch: ``loss_rpn_cls``, ``loss_rpn_loc``
+        (not with ``LOAD_PROPOSALS``), ``loss_cls``, ``loss_box_reg`` and,
+        with ``MASK_ON``, ``loss_mask`` (float32 scalars).
 
         ``batch`` holds ``image [B, H, W, 3]``, ``image_size [B, 2]`` and the
         GT fields ``gt_boxes [B, G, 4]``, ``gt_classes [B, G]``,
@@ -135,17 +195,24 @@ class GeneralizedRCNN(nn.Module):
         frames) and optionally ``gt_is_crowd [B, G]``. The two samplers draw
         their uniform noise from ``generator`` (on the batch's device), RPN
         first, unless ``noise = {"rpn": (pos, neg), "roi": (pos, neg)}``
-        hands the draws in (``[B, anchors]`` and ``[B, proposals]``).
+        hands the draws in (``[B, anchors]`` and ``[B, proposals]``). With
+        ``LOAD_PROPOSALS`` the batch holds the ``proposal_*`` slots and the
+        RPN draw is neither made nor read.
         """
         image_sizes = batch["image_size"]
         features = self.features(batch["image"])
-        rpn = self.proposal_generator
-        logits, deltas = rpn.rpn_head([features[f] for f in rpn.in_features])
-        b, dev = logits[0].shape[0], logits[0].device
-        if noise is None:
-            noise = {"rpn": draw_noise(generator, (b, sum(l[0].numel() for l in logits)), dev)}
-        losses = rpn.losses(logits, deltas, batch, image_sizes, noise["rpn"])
-        proposals = rpn.proposals(logits, deltas, image_sizes, training=True)
+        b, dev = image_sizes.shape[0], image_sizes.device
+        noise = dict(noise or {})
+        if self.load_proposals:
+            losses = {}
+            proposals = batch_proposals(batch)
+        else:
+            rpn = self.proposal_generator
+            logits, deltas = rpn.rpn_head([features[f] for f in rpn.in_features])
+            if "rpn" not in noise:
+                noise["rpn"] = draw_noise(generator, (b, sum(l[0].numel() for l in logits)), dev)
+            losses = rpn.losses(logits, deltas, batch, image_sizes, noise["rpn"])
+            proposals = rpn.proposals(logits, deltas, image_sizes, training=True)
 
         heads = self.roi_heads
         if heads.proposal_append_gt:
@@ -175,6 +242,72 @@ class GeneralizedRCNN(nn.Module):
         return losses
 
 
+class ProposalNetwork(_Detector):
+    """The RPN-only meta-architecture: trunk, neck and RPN (the JAX
+    ``build_proposal_network``). ``losses`` are the RPN's; ``predict``
+    returns the ``POST_NMS_TOPK_TEST`` proposals as ``Instances`` with
+    ``boxes``, ``scores`` (objectness logits, -1e10 on empty slots),
+    ``pred_classes`` (0) and ``is_valid``."""
+
+    load_proposals = False
+
+    def __init__(self, cfg):
+        super().__init__()
+        m = cfg.MODEL
+        if m.META_ARCHITECTURE != "ProposalNetwork":
+            raise NotImplementedError(f"meta-architecture '{m.META_ARCHITECTURE}' is not "
+                                      "ProposalNetwork")
+        if m.PROPOSAL_GENERATOR.NAME != "RPN":
+            raise NotImplementedError(
+                f"MODEL.PROPOSAL_GENERATOR.NAME '{m.PROPOSAL_GENERATOR.NAME}' is not ported")
+        shapes = self._build_backbone(cfg)
+        rpn_in = [shapes[f] for f in m.RPN.IN_FEATURES]
+        self.proposal_generator = RPN(cfg, [s for _, s in rpn_in], rpn_in[0][0])
+
+    def _rpn_outputs(self, batch):
+        features = self.features(batch["image"])
+        rpn = self.proposal_generator
+        return rpn.rpn_head([features[f] for f in rpn.in_features])
+
+    def _predict(self, batch: Dict[str, torch.Tensor]) -> Instances:
+        logits, deltas = self._rpn_outputs(batch)
+        props = self.proposal_generator.proposals(logits, deltas, batch["image_size"])
+        scores = props.objectness_logits
+        return Instances(boxes=props.proposal_boxes, scores=scores,
+                         pred_classes=torch.zeros(scores.shape, dtype=torch.int32,
+                                                  device=scores.device),
+                         is_valid=props.is_valid)
+
+    def losses(self, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """``loss_rpn_cls`` and ``loss_rpn_loc`` of one batch (the fields of
+        :meth:`GeneralizedRCNN.losses` but the masks); the sampler's draws
+        come from ``generator`` unless ``noise = {"rpn": (pos, neg)}``."""
+        logits, deltas = self._rpn_outputs(batch)
+        rpn_noise = (noise or {}).get("rpn")
+        if rpn_noise is None:
+            b = logits[0].shape[0]
+            rpn_noise = draw_noise(generator, (b, sum(l[0].numel() for l in logits)),
+                                   logits[0].device)
+        return self.proposal_generator.losses(logits, deltas, batch, batch["image_size"],
+                                              rpn_noise)
+
+
+META_ARCHITECTURES = {"GeneralizedRCNN": GeneralizedRCNN, "ProposalNetwork": ProposalNetwork}
+
+
+def meta_architecture(cfg):
+    """The model class ``MODEL.META_ARCHITECTURE`` names; raises for the
+    families not ported yet."""
+    name = cfg.MODEL.META_ARCHITECTURE
+    if name not in META_ARCHITECTURES:
+        raise NotImplementedError(f"meta-architecture '{name}' is not ported "
+                                  f"(ported: {sorted(META_ARCHITECTURES)})")
+    return META_ARCHITECTURES[name]
+
+
 # Layers the JAX package initializes with small normals (std by port name).
 _SMALL_INIT = {
     "proposal_generator.rpn_head.conv": 0.01,
@@ -190,7 +323,7 @@ _TRUNC_STD = 0.87962566103423978
 INIT_RECIPES = ("serving", "jax")
 
 
-def init_weights(model: GeneralizedRCNN, generator: torch.Generator,
+def init_weights(model: nn.Module, generator: torch.Generator,
                  recipe: str = "serving") -> None:
     """Seeded random weights: ``recipe`` "serving" (``_init_for_serving``)
     or "jax".
@@ -200,7 +333,8 @@ def init_weights(model: GeneralizedRCNN, generator: torch.Generator,
     variance ``2 / fan_out`` (``variance_scaling(2.0, "fan_out",
     "normal")``), the box head's FCs uniform with variance ``1 / fan_in``,
     the small normals of the RPN head and the predictors, zero biases, GN
-    at identity (FrozenBN keeps its identity buffers).
+    and BN at identity with BN's running statistics at (0, 1) (FrozenBN
+    keeps its identity buffers).
     """
     if recipe == "jax":
         _init_like_jax(model, generator)
@@ -210,7 +344,7 @@ def init_weights(model: GeneralizedRCNN, generator: torch.Generator,
     _init_for_serving(model, generator)
 
 
-def _init_like_jax(model: GeneralizedRCNN, generator: torch.Generator) -> None:
+def _init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -228,12 +362,15 @@ def _init_like_jax(model: GeneralizedRCNN, generator: torch.Generator) -> None:
                     w.copy_(t)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.GroupNorm):
+            elif isinstance(mod, (nn.GroupNorm, BatchNorm2d)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+                if isinstance(mod, BatchNorm2d):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
 
 
-def _init_for_serving(model: GeneralizedRCNN, generator: torch.Generator) -> None:
+def _init_for_serving(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights that keep activations of order one.
 
     Convs and FCs are variance-preserving (He-normal over fan-in, with the

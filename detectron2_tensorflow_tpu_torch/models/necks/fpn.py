@@ -2,8 +2,8 @@
 the max-pool top block p6), or none.
 
 Port of the JAX package's ``models/necks/fpn.py`` for sum fusion and the
-``MAXPOOL`` top block, with no norm or GN on the lateral and output convs
-(``NECK.NORM``; a GN conv has no bias), and of its identity neck
+``MAXPOOL`` top block, with no norm or any of the trunk's (FrozenBN, BN,
+SyncBN, GN) on the lateral and output convs (``NECK.NORM``; a conv with a norm has no bias), and of its identity neck
 (``DummyNeck``, ``NECK.NAME ""``) for the single-level C4 and DC5 models.
 Module names follow Detectron2 (``fpn_lateral3``, ``fpn_output3``,
 ``fpn_lateral3.norm``); without a neck the trunk is the model's
@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..backbones.resnet import NORMS
 from ..layers import Conv2d, max_pool
 
 
@@ -67,8 +68,9 @@ def build_fpn(cfg, bottom_up: nn.Module, trunk_shapes: Dict[str, tuple]) -> FPN:
     if (n.NAME != "FPN" or n.ACTIVATION != ""
             or n.FUSE_TYPE != "sum" or n.TOP_BLOCK_TYPE != "MAXPOOL"):
         raise NotImplementedError("only the sum-fused FPN with a MAXPOOL top block is ported")
-    if n.NORM not in ("", "GN"):
-        raise NotImplementedError(f"MODEL.NECK.NORM '{n.NORM}' is not ported (none and GN are)")
+    if n.NORM not in ("",) + NORMS:
+        raise NotImplementedError(f"MODEL.NECK.NORM '{n.NORM}' is not ported "
+                                  f"(none and {NORMS} are)")
     return FPN(
         bottom_up,
         n.IN_FEATURES,

@@ -527,7 +527,10 @@ class ROIPooler:
                  sampling_ratio: int, pooler_type: str = "ROIAlignV2",
                  canonical_box_size: int = 224, canonical_level: int = 4,
                  max_image_size: int = 0):
-        if pooler_type != "ROIAlignV2":
+        # The JAX pooler records ``aligned = pooler_type == "ROIAlignV2"`` but
+        # never reads it, so "ROIAlign" pools exactly as "ROIAlignV2" there;
+        # the port keeps that.
+        if pooler_type not in ("ROIAlignV2", "ROIAlign"):
             raise NotImplementedError(f"pooler '{pooler_type}' is not ported")
         if not max_image_size:
             raise ValueError("the pooler needs max_image_size to size its patch")

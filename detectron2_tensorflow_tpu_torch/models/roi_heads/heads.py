@@ -1,13 +1,17 @@
-"""Box and mask heads: ``FastRCNNConvFCHead`` (2 FC) and
-``MaskRCNNConvUpsampleHead`` (4 convs, or none on C4, 2x deconv, 1x1
-predictor).
+"""Box and mask heads: ``FastRCNNConvFCHead`` (``NUM_CONV`` 3x3 convs,
+then ``NUM_FC`` FCs) and ``MaskRCNNConvUpsampleHead`` (4 convs, or none on
+C4, 2x deconv, 1x1 predictor), their convs with the config's norm or none.
 
 Port of the JAX package's ``models/roi_heads/heads.py``. Module
-names follow Detectron2 (``fc1``, ``mask_fcn1``, ``deconv``, ``predictor``).
-Pooled features arrive NHWC ``[N, S, S, C]``; ``fc1`` flattens them in that
-(h, w, c) order as the JAX package does, so its weight is the JAX kernel
-transposed (a D2 checkpoint, flattened (c, h, w), needs its columns
-permuted; see ``convert.py``).
+names follow Detectron2 (``conv1``, ``conv1.norm``, ``fc1``, ``mask_fcn1``,
+``mask_fcn1.norm``, ``deconv``, ``predictor``); a conv with a norm has no
+bias. Pooled features arrive NHWC ``[N, S, S, C]``; ``fc1`` flattens them
+(after the convs) in that (h, w, c) order as the JAX package's
+``_FlattenDense`` does, so its weight is the JAX kernel transposed (a D2
+checkpoint, flattened (c, h, w), needs its columns permuted; see
+``convert.py``). A BN in a head takes its training moments over every
+fixed-capacity ROI slot, padded slots (which pool zeros) included, as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -20,13 +24,18 @@ from ..layers import Conv2d, ConvTranspose2d, Linear
 
 
 class FastRCNNConvFCHead(nn.Module):
-    """``num_fc`` FC + relu layers on pooled ``[N, S, S, C]`` -> ``[N, fc_dim]``."""
+    """``num_conv`` 3x3 conv (+ norm) + relu layers, then ``num_fc`` FC +
+    relu layers on pooled ``[N, S, S, C]`` -> ``[N, fc_dim]``."""
 
-    def __init__(self, in_channels: int, resolution: int, num_conv: int,
+    def __init__(self, in_channels: int, resolution: int, num_conv: int, conv_dim: int,
                  num_fc: int, fc_dim: int, norm: str):
         super().__init__()
-        if num_conv != 0 or norm != "":
-            raise NotImplementedError("only the conv-free, norm-free box head is ported")
+        self.convs = []
+        for i in range(num_conv):
+            conv = Conv2d(in_channels, conv_dim, 3, norm=norm, activation="relu")
+            self.add_module(f"conv{i + 1}", conv)
+            self.convs.append(conv)
+            in_channels = conv_dim
         in_dim = resolution * resolution * in_channels
         self.fcs = []
         for i in range(num_fc):
@@ -36,6 +45,11 @@ class FastRCNNConvFCHead(nn.Module):
             in_dim = fc_dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.convs:
+            x = x.permute(0, 3, 1, 2)  # NHWC memory seen as NCHW (channels_last)
+            for conv in self.convs:
+                x = conv(x)
+            x = x.permute(0, 2, 3, 1)
         x = x.reshape(x.shape[0], -1)
         for fc in self.fcs:
             x = F.relu(fc(x))
@@ -43,8 +57,8 @@ class FastRCNNConvFCHead(nn.Module):
 
 
 class MaskRCNNConvUpsampleHead(nn.Module):
-    """``num_conv`` 3x3 convs + 2x deconv + relu + 1x1 per-class logits
-    (C4's head has no conv: its deconv reads the res5 features).
+    """``num_conv`` 3x3 convs (+ norm) + 2x deconv + relu + 1x1 per-class
+    logits (C4's head has no conv: its deconv reads the res5 features).
 
     Input NHWC ``[N, S, S, C]`` -> logits NHWC ``[N, 2S, 2S, K]``.
     """
@@ -52,12 +66,10 @@ class MaskRCNNConvUpsampleHead(nn.Module):
     def __init__(self, in_channels: int, num_classes: int, num_conv: int,
                  conv_dim: int, norm: str, cls_agnostic: bool):
         super().__init__()
-        if norm != "":
-            raise NotImplementedError("only the norm-free mask head is ported")
         self.convs = []
         ch = in_channels
         for i in range(num_conv):
-            conv = Conv2d(ch, conv_dim, 3, activation="relu")
+            conv = Conv2d(ch, conv_dim, 3, norm=norm, activation="relu")
             self.add_module(f"mask_fcn{i + 1}", conv)
             self.convs.append(conv)
             ch = conv_dim

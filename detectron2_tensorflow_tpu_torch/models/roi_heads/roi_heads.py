@@ -93,8 +93,8 @@ class StandardROIHeads(nn.Module):
     def _build_box_branch(self, cfg, in_channels: int) -> int:
         """The box head and predictor; returns the mask head's input channels."""
         bh = cfg.MODEL.ROI_BOX_HEAD
-        self.box_head = FastRCNNConvFCHead(in_channels, bh.POOLER_RESOLUTION,
-                                           bh.NUM_CONV, bh.NUM_FC, bh.FC_DIM, bh.NORM)
+        self.box_head = FastRCNNConvFCHead(in_channels, bh.POOLER_RESOLUTION, bh.NUM_CONV,
+                                           bh.CONV_DIM, bh.NUM_FC, bh.FC_DIM, bh.NORM)
         self.box_predictor = FastRCNNOutputLayers(bh.FC_DIM, self.num_classes,
                                                   self.cls_agnostic_bbox_reg)
         return in_channels

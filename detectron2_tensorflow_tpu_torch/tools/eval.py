@@ -9,8 +9,14 @@ one checkpoint file), by default the training directory
 ``<LOGS.ROOT_DIR or OUTPUT_DIR>/<LOGS.TRAIN>``; without one, from
 ``PRETRAINS``; else the model's random weights, with a warning. The
 ``DATASETS.VAL`` split is read by ``DATASETS.TRAIN_FORMAT``
-(``build_eval_dataset``) and evaluated by the evaluators ``EVAL.METRICS``
-selects (COCO bbox and segm); each metric is printed as ``name: value``.
+(``build_eval_dataset``; the COCO JSON with ``PROPOSAL_FILES_TEST[0]``
+attached under ``MODEL.LOAD_PROPOSALS``) and evaluated by the evaluators
+``EVAL.METRICS`` selects (COCO bbox and segm; proposal recall
+``box_proposals/AR@100`` and ``AR@1000`` for a ``ProposalNetwork``); each
+metric is printed as ``name: value``. With ``TEST.PRECISE_BN.ENABLED`` the
+BN statistics are first re-estimated over ``TEST.PRECISE_BN.NUM_ITER``
+evaluation batches (``engine.tta.precise_bn``; a model without BN is left
+as it is).
 ``TEST.EXPECTED_RESULTS`` is then checked and a failure exits with the
 failing lines. ``--dump_results`` writes the detections as a COCO results
 JSON. ``--watch N`` polls the checkpoint directory every N seconds,
@@ -19,26 +25,26 @@ after ``--watch_timeout`` idle seconds. It runs on the card unless
 ``--device cpu``.
 
 Not ported: the native eval loader (``DATALOADER.NATIVE_EVAL_IO``: one line
-says so and ``build_dataloader`` serves), ``TEST.PRECISE_BN`` (BN is not
-ported) and the panoptic and semantic metrics (raise).
+says so and ``build_dataloader`` serves) and the panoptic and semantic
+metrics (raise).
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import logging
 import os
 import time
 
 from ..config import finalize, get_cfg
-from ..data import CocoDataset, TFRecordDataset, build_dataloader
+from ..data import build_dataloader
 from ..engine import check_expected_results, run_evaluation
 from ..engine.checkpoint import latest_checkpoint, latest_step, load_pretrained, restore_variables
+from ..engine.tta import precise_bn
 from ..evaluation.coco_results import CocoResultsWriter
 from ..models import build_model
-from .train import check_family, checkpoint_dir
+from .train import checkpoint_dir, load_dataset
 
 
 def parse_args(argv=None):
@@ -74,22 +80,13 @@ def load_variables(cfg, model, checkpoint) -> str:
 
 
 def build_eval_dataset(cfg):
-    """The ``DATASETS.VAL`` split: its records when ``DATASETS.TRAIN_FORMAT``
-    is ``records``, or ``auto`` and ``<ROOT>/<VAL>.record-*`` exist; else the
-    COCO JSON."""
+    """The ``DATASETS.VAL`` split (``tools.train.load_dataset``, with
+    ``PROPOSAL_FILES_TEST``)."""
     names = tuple(cfg.EVAL.METRICS)
     for name in ("panoptic_segmentation_metrics", "semantic_segmentation_metrics"):
         if name in names:
             raise NotImplementedError(f"EVAL.METRICS {name}: the panoptic family is not ported")
-    check_family(cfg)
-    root = cfg.DATASETS.ROOT_DIR
-    pattern = os.path.join(root, cfg.DATASETS.VAL + ".record-*")
-    fmt = cfg.DATASETS.TRAIN_FORMAT
-    if fmt == "records" or (fmt == "auto" and glob.glob(pattern)):
-        logging.info("evaluating from records: %s", pattern)
-        return TFRecordDataset(pattern, load_masks=cfg.MODEL.MASK_ON)
-    return CocoDataset(os.path.join(root, cfg.DATASETS.VAL + ".json"),
-                       os.path.join(root, cfg.DATASETS.VAL), load_masks=cfg.MODEL.MASK_ON)
+    return load_dataset(cfg, cfg.DATASETS.VAL, cfg.DATASETS.PROPOSAL_FILES_TEST)
 
 
 def main(argv=None):
@@ -100,9 +97,6 @@ def main(argv=None):
     if args.opts:
         cfg.merge_from_list(args.opts)
     finalize(cfg, training=False, device=args.device)
-    if cfg.TEST.PRECISE_BN.ENABLED:
-        raise NotImplementedError("TEST.PRECISE_BN: BatchNorm (BN/SyncBN) is not ported, so "
-                                  "there are no statistics to re-estimate")
 
     dataset = build_eval_dataset(cfg)
     model = build_model(cfg, device=args.device)
@@ -113,6 +107,10 @@ def main(argv=None):
 
     def eval_once():
         load_variables(cfg, model, ckpt)
+        if cfg.TEST.PRECISE_BN.ENABLED:
+            n = cfg.TEST.PRECISE_BN.NUM_ITER
+            used = precise_bn(model, build_dataloader(cfg, dataset, training=False), n)
+            logging.info("precise BN: statistics from %d batches", used)
         writer = None
         if args.dump_results:
             writer = CocoResultsWriter(getattr(dataset, "contiguous_to_cat_id", None))

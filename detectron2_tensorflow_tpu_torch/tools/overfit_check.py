@@ -1,22 +1,28 @@
 """Learning check: overfit a small detector on 8 synthetic images and report AP.
 
-    python -m detectron2_tensorflow_tpu_torch.tools.overfit_check [STEPS] [--arch rcnn|c4]
-        [--device cpu] [KEY VALUE ...]
+    python -m detectron2_tensorflow_tpu_torch.tools.overfit_check [STEPS]
+        [--arch rcnn|c4|cls_agnostic] [--eval_at N[,N...]] [--device cpu]
+        [KEY VALUE ...]
 
 The port's counterpart of the repo's ``tools/overfit_check.py`` for its
-``rcnn`` (Mask R-CNN R50-FPN's YAML) and ``c4`` (Mask R-CNN R50-C4's YAML)
-families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
-``config.small_cfg()``, anchors scaled to 10-30 px boxes, ResNet-18 with GN
-trained from the JAX package's initializers (``FREEZE_AT 0``), 3 classes, 64
-ROIs per image, 8 images per step, LR 0.01 after 100 warm-up steps. It
-trains STEPS (default 600) steps on ``data.SyntheticDataset(n=8,
-num_classes=3)``, evaluates COCO bbox (and segm) AP on the same images and
-lists the GT instances no detection finds (IoU >= 0.5, same class, score
-above 0.5) on stderr. ``KEY VALUE`` overrides apply last (for example
-narrower widths). It runs on the card unless ``--device cpu``. The last line
-of stdout is one JSON object: ``arch``, ``steps``, ``train_seconds``,
-``final_loss``, ``bbox_ap``, ``bbox_ap50`` and, with masks, ``segm_ap``,
-``segm_ap50``. It gates nothing itself: a caller reads the APs.
+``rcnn`` (Mask R-CNN R50-FPN's YAML), ``c4`` (Mask R-CNN R50-C4's YAML) and
+``cls_agnostic`` (``Misc/mask_rcnn_R_50_FPN_1x_cls_agnostic.yaml``: one
+shared box regressor and a one-channel mask head) families, with that
+tool's recipe (``overfit_cfg``): the tiny inputs of ``config.small_cfg()``,
+anchors scaled to 10-30 px boxes, ResNet-18 with GN trained from the JAX
+package's initializers (``FREEZE_AT 0``), 3 classes, 64 ROIs per image, 8
+images per step, LR 0.01 after 100 warm-up steps. It trains STEPS (default
+600) steps on ``data.SyntheticDataset(n=8, num_classes=3)``, evaluates COCO
+bbox (and segm) AP on the same images and lists on stderr the GT instances
+no detection finds (IoU >= 0.5, same class, score above 0.5) and the
+detections above 0.5 that find none. ``KEY VALUE`` overrides apply last
+(for example narrower widths). It runs on the card unless ``--device cpu``.
+The last line of stdout is one JSON object: ``arch``, ``steps``,
+``train_seconds``, ``final_loss``, ``bbox_ap``, ``bbox_ap50`` and, with
+masks, ``segm_ap``, ``segm_ap50``. ``--eval_at`` also evaluates after each
+of those earlier step counts and prints the same object for it (``steps`` =
+N) on a line of its own; training goes on from there unchanged. It gates
+nothing itself: a caller reads the APs.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from ..models import build_model
 REPO_CONFIGS = {
     "rcnn": "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml",
     "c4": "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml",
+    "cls_agnostic": "configs/Misc/mask_rcnn_R_50_FPN_1x_cls_agnostic.yaml",
 }
 
 
@@ -60,7 +67,7 @@ def overfit_cfg(arch: str):
     cfg.TRANSFORM = tiny.TRANSFORM
     cfg.INPUT = tiny.INPUT
     cfg.TRANSFORM.RESIZE.MINI_MASK_SIZE = 28
-    if arch == "rcnn":  # anchors for 10-30 px boxes, one size per FPN level
+    if arch != "c4":  # anchors for 10-30 px boxes, one size per FPN level
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8], [16], [32], [64], [128]]
     else:  # one feature level: one set of sizes
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8, 16, 32, 64, 128]]
@@ -86,21 +93,29 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("steps", nargs="?", type=int, default=600)
-    p.add_argument("--arch", default="rcnn", help="rcnn (the default) or c4")
+    p.add_argument("--arch", default="rcnn", help="rcnn (the default), c4 or cls_agnostic")
+    p.add_argument("--eval_at", default="",
+                   help="comma-separated step counts below STEPS to evaluate after as well")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args, opts = p.parse_known_args(argv)
     if any(o.startswith("--") for o in opts):
         p.error(f"unknown options {opts}")
+    args.eval_at = sorted({int(n) for n in args.eval_at.split(",") if n})
+    if any(not 0 < n < args.steps for n in args.eval_at):
+        p.error(f"--eval_at {args.eval_at}: each must lie in [1, STEPS)")
     args.opts = opts  # KEY VALUE overrides
     return args
 
 
 def find_instances(cfg, model, ds, device, arch: str):
-    """(found, missed) GT instances: a same-class detection above the report
-    threshold with IoU >= 0.5, on each image resized and padded as the
-    evaluation loader does; each miss is listed on stderr."""
+    """(found, missed, false) on each image resized and padded as the
+    evaluation loader does: GT instances with a same-class detection above
+    the report threshold at IoU >= 0.5, those without, and detections above
+    the threshold with no same-class GT at IoU >= 0.5 (each of which costs
+    AP50 when it outranks a true one). Each miss and false detection is
+    listed on stderr."""
     r = cfg.TRANSFORM.RESIZE
-    found = missed = 0
+    found = missed = false = 0
     for i in range(len(ds)):
         s = ds[i]
         h, w = s["image"].shape[:2]
@@ -115,22 +130,57 @@ def find_instances(cfg, model, ds, device, arch: str):
                                       device))
         boxes = det.boxes[0].float().cpu().numpy() / np.array([nw / w, nh / h] * 2)
         cls = det.pred_classes[0].cpu().numpy()
-        ok = det.is_valid[0].cpu().numpy() & (det.scores[0].float().cpu().numpy() > 0.5)
+        scores = det.scores[0].float().cpu().numpy()
+        ok = det.is_valid[0].cpu().numpy() & (scores > 0.5)
+        same = cls[:, None] == s["classes"][None, :]  # [detections, GT]
+        overlap = np.where(same, box_iou(boxes, s["boxes"]), 0.0)
         for g, gbox in enumerate(s["boxes"]):
-            best = 0.0
-            for b in boxes[ok & (cls == s["classes"][g])]:
-                ix = max(0.0, min(gbox[2], b[2]) - max(gbox[0], b[0]))
-                iy = max(0.0, min(gbox[3], b[3]) - max(gbox[1], b[1]))
-                union = ((gbox[2] - gbox[0]) * (gbox[3] - gbox[1])
-                         + (b[2] - b[0]) * (b[3] - b[1]) - ix * iy)
-                best = max(best, ix * iy / max(union, 1e-6))
+            best = overlap[ok, g].max(initial=0.0)
             if best >= 0.5:
                 found += 1
             else:
                 missed += 1
                 print(f"MISS img{i} gt{g} cls={int(s['classes'][g])} "
                       f"box={np.round(gbox, 1).tolist()} best_iou={best:.2f}", file=sys.stderr)
-    return found, missed
+        for k in np.flatnonzero(ok):
+            best = overlap[k].max(initial=0.0)
+            if best < 0.5:
+                false += 1
+                print(f"FALSE img{i} cls={int(cls[k])} box={np.round(boxes[k], 1).tolist()} "
+                      f"score={scores[k]:.3f} best_iou={best:.2f}", file=sys.stderr)
+    return found, missed, false
+
+
+def box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """[len(a), len(b)] IoU of two sets of (x0, y0, x1, y1) boxes."""
+    lo = np.maximum(a[:, None, :2], b[None, :, :2])
+    hi = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(hi - lo, 0.0, None), axis=-1)
+    area_a = np.prod(a[:, 2:] - a[:, :2], axis=-1)
+    area_b = np.prod(b[:, 2:] - b[:, :2], axis=-1)
+    return inter / np.maximum(area_a[:, None] + area_b[None, :] - inter, 1e-6)
+
+
+def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: float):
+    """Evaluate ``model`` on ``ds`` and print the JSON line of ``steps``."""
+    model.eval()
+    results = evaluate(cfg, model, ds, build_dataloader(cfg, ds, training=False, seed=0))
+    found, missed, false = find_instances(cfg, model, ds, device, arch)
+    print(f"instances found {found} / {found + missed}, {false} false detections above 0.5",
+          file=sys.stderr)
+    out = {
+        "arch": arch,
+        "steps": steps,
+        "train_seconds": round(train_s, 1),
+        "final_loss": loss,
+        "bbox_ap": round(float(results.get("bbox/AP", float("nan"))), 2),
+        "bbox_ap50": round(float(results.get("bbox/AP50", float("nan"))), 2),
+    }
+    if "segm/AP" in results:
+        out["segm_ap"] = round(float(results["segm/AP"]), 2)
+        out["segm_ap50"] = round(float(results.get("segm/AP50", float("nan"))), 2)
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def main(argv=None):
@@ -146,33 +196,20 @@ def main(argv=None):
     step = build_train_step(cfg, state)
     train_iter = build_dataloader(cfg, ds, training=True, seed=0)
 
-    t0 = time.time()
+    train_s = 0.0
     last_loss = None
     for i in range(args.steps):
+        t0 = time.time()
         metrics = step(to_device(next(train_iter), device))
-        if i % 100 == 0 or i == args.steps - 1:
+        if i % 100 == 0 or i == args.steps - 1 or i + 1 in args.eval_at:
             last_loss = float(metrics["total_loss"])
             print(f"step {i}: total_loss={last_loss:.4f}", file=sys.stderr)
-    train_s = time.time() - t0
+        train_s += time.time() - t0
+        if i + 1 in args.eval_at:
+            report(cfg, model, ds, device, args.arch, i + 1, train_s, last_loss)
+            model.train()
     train_iter.close()
-
-    model.eval()
-    results = evaluate(cfg, model, ds, build_dataloader(cfg, ds, training=False, seed=0))
-    found, missed = find_instances(cfg, model, ds, device, args.arch)
-    print(f"instances found {found} / {found + missed}", file=sys.stderr)
-    out = {
-        "arch": args.arch,
-        "steps": args.steps,
-        "train_seconds": round(train_s, 1),
-        "final_loss": last_loss,
-        "bbox_ap": round(float(results.get("bbox/AP", float("nan"))), 2),
-        "bbox_ap50": round(float(results.get("bbox/AP50", float("nan"))), 2),
-    }
-    if "segm/AP" in results:
-        out["segm_ap"] = round(float(results["segm/AP"]), 2)
-        out["segm_ap50"] = round(float(results.get("segm/AP50", float("nan"))), 2)
-    print(json.dumps(out), flush=True)
-    return out
+    return report(cfg, model, ds, device, args.arch, args.steps, train_s, last_loss)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ Builds chip_smoke's model (Mask R-CNN R50-FPN, bf16, seeded random weights,
 ``SCORE_THRESH_TEST = 0``; with ``--config_file``, that YAML's model, for
 example ``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml``, in
 bf16 with the same threshold), serves a random 800x1344 batch of each given
-size (default 2), and prints: images/s on the host clock around
+size (default 2; a ``LOAD_PROPOSALS`` model gets ``engine.add_proposal_slots``'s
+proposals around ``make_train_batch``'s random boxes), and prints: images/s on the host clock around
 synchronized runs; from ``torch.profiler``, the device time per batch, the
 device's idle share (1 - device time / wall time), the device time by
 category (convs, GEMMs, the hand-written kernels, sorts, the rest), each
@@ -31,6 +32,7 @@ from torch.profiler import ProfilerActivity
 from torch.profiler import profile as profile_ctx
 
 from detectron2_tensorflow_tpu_torch import bench_cfg, build_model, get_cfg
+from detectron2_tensorflow_tpu_torch.engine import add_proposal_slots, make_train_batch
 from detectron2_tensorflow_tpu_torch.ops.fused_residual import fused_epilogue_enabled
 
 CATEGORIES = (
@@ -78,6 +80,13 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
     image = torch.from_numpy(rng.uniform(0, 255, (batch, 800, 1344, 3)).astype(np.float32)).to(dev)
     inputs = {"image": image,
               "image_size": torch.tensor([[800, 1333]] * batch, dtype=torch.int32, device=dev)}
+    if cfg.MODEL.LOAD_PROPOSALS:  # proposals around train_cfg's random GT boxes
+        gt = make_train_batch(cfg, 800, 1344)
+        slots = add_proposal_slots(cfg, {k: gt[k][:batch] for k in ("gt_boxes", "gt_valid",
+                                                                     "image_size")},
+                                   training=False)
+        inputs.update({k: torch.from_numpy(v).to(dev) for k, v in slots.items()
+                       if k.startswith("proposal_")})
     for _ in range(3):
         model.predict(inputs)
     torch.cuda.synchronize()

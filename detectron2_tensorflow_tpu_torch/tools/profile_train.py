@@ -27,6 +27,7 @@ import torch
 
 from detectron2_tensorflow_tpu_torch import build_model, train_cfg
 from detectron2_tensorflow_tpu_torch.engine import (
+    add_proposal_slots,
     build_train_step,
     create_train_state,
     make_train_batch,
@@ -54,7 +55,10 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
                         training=True)
     state = create_train_state(cfg, model, torch.Generator(device=dev).manual_seed(0))
     step = build_train_step(cfg, state)
-    data = {k: torch.from_numpy(v).to(dev) for k, v in make_train_batch(cfg).items()}
+    data = make_train_batch(cfg)
+    if cfg.MODEL.LOAD_PROPOSALS:
+        data = add_proposal_slots(cfg, data, training=True)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
     for _ in range(2):
         step(data)
     torch.cuda.synchronize()

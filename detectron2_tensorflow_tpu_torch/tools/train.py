@@ -6,7 +6,10 @@
 The port's counterpart of the repo's ``train.py``. The dataset is
 ``<DATASETS.ROOT_DIR>/<DATASETS.TRAIN>.record-*`` or
 ``<DATASETS.TRAIN>.json`` + ``<DATASETS.TRAIN>/`` by ``DATASETS.TRAIN_FORMAT``
-(``build_train_dataset``). The model starts from the JAX package's
+(``build_train_dataset``); with ``MODEL.LOAD_PROPOSALS`` and
+``DATASETS.PROPOSAL_FILES_TRAIN``, the COCO JSON whatever the format, with
+the first proposal file (a Detectron2 pickle under ``DATASETS.ROOT_DIR``)
+attached, as the repo's ``train.py`` does. The model starts from the JAX package's
 initializers (seed ``max(SEED, 0)``), or ``PRETRAINS``, or resumes from the
 newest checkpoint in ``<LOGS.ROOT_DIR or OUTPUT_DIR>/<LOGS.TRAIN>``; it
 trains to ``--max_iter`` (else ``SOLVER.MAX_ITER``, scaled with the batch),
@@ -18,7 +21,7 @@ losses and the hand-written kernels' launches during training.
 The JAX package's native (C++ JPEG) train loader is not ported: with
 ``DATALOADER.NATIVE_TRAIN_IO`` on, one line says so and ``build_dataloader``
 serves, as in the JAX CLI where the native loader is unusable. Keypoint and
-precomputed-proposal training raise: their families are not ported.
+panoptic training raise: their families are not ported.
 """
 
 from __future__ import annotations
@@ -65,29 +68,37 @@ def check_family(cfg) -> None:
     """Raise for the configs whose data or model families are not ported."""
     if cfg.MODEL.KEYPOINT_ON:
         raise NotImplementedError("MODEL.KEYPOINT_ON: the keypoint family is not ported")
-    if cfg.MODEL.LOAD_PROPOSALS:
-        raise NotImplementedError(
-            "MODEL.LOAD_PROPOSALS: precomputed proposals (DATASETS.PROPOSAL_FILES_*) are "
-            "not ported")
     if cfg.MODEL.META_ARCHITECTURE in _PANOPTIC_ARCHS:
         raise NotImplementedError(
             f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE}: semantic GT "
             "(BUILD_RECORDS.TYPE coco_pano) belongs to the panoptic family, not ported")
 
 
-def build_train_dataset(cfg):
-    """The training set by ``DATASETS.TRAIN_FORMAT``: ``records``, or
-    ``auto`` when ``<ROOT>/<TRAIN>.record-*`` shards exist, reads them;
-    otherwise the COCO JSON."""
+def load_dataset(cfg, split: str, proposal_files):
+    """``<ROOT>/<split>``: its records when ``DATASETS.TRAIN_FORMAT`` is
+    ``records``, or ``auto`` and ``<ROOT>/<split>.record-*`` exist, unless
+    proposals are loaded (their ids key to the annotations file); else the
+    COCO JSON, with ``proposal_files[0]`` attached under
+    ``MODEL.LOAD_PROPOSALS``."""
     check_family(cfg)
-    pattern = os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.TRAIN + ".record-*")
+    root = cfg.DATASETS.ROOT_DIR
+    pattern = os.path.join(root, split + ".record-*")
     fmt = cfg.DATASETS.TRAIN_FORMAT
-    if fmt == "records" or (fmt == "auto" and glob.glob(pattern)):
-        logging.info("training from records: %s", pattern)
+    json_only = cfg.MODEL.LOAD_PROPOSALS and len(proposal_files) > 0
+    if fmt == "records" or (fmt == "auto" and glob.glob(pattern) and not json_only):
+        logging.info("reading records: %s", pattern)
         return TFRecordDataset(pattern, load_masks=cfg.MODEL.MASK_ON)
-    return CocoDataset(os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.TRAIN + ".json"),
-                       os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.TRAIN),
-                       load_masks=cfg.MODEL.MASK_ON)
+    ds = CocoDataset(os.path.join(root, split + ".json"), os.path.join(root, split),
+                     load_masks=cfg.MODEL.MASK_ON)
+    if json_only:
+        ds.set_proposals(os.path.join(root, proposal_files[0]))
+    return ds
+
+
+def build_train_dataset(cfg):
+    """The ``DATASETS.TRAIN`` split (:func:`load_dataset`, with
+    ``PROPOSAL_FILES_TRAIN``)."""
+    return load_dataset(cfg, cfg.DATASETS.TRAIN, cfg.DATASETS.PROPOSAL_FILES_TRAIN)
 
 
 def checkpoint_dir(cfg) -> str:
@@ -118,6 +129,9 @@ def main(argv=None):
         val_ds = CocoDataset(os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.VAL + ".json"),
                              os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.VAL),
                              load_masks=cfg.MODEL.MASK_ON)
+        if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
+            val_ds.set_proposals(os.path.join(cfg.DATASETS.ROOT_DIR,
+                                              cfg.DATASETS.PROPOSAL_FILES_TEST[0]))
 
         def eval_fn(state, step):
             return run_evaluation(cfg, state.model, val_ds,

@@ -504,9 +504,15 @@ def test_single_level_patch_fits_the_kernel():
 
 
 def test_proposal_network_raises_by_name():
+    """``GeneralizedRCNN`` names any other meta-architecture it is handed
+    (the C4 RPN YAML's ``ProposalNetwork`` builds through ``build_model``),
+    and ``build_model`` names the families not ported yet."""
     _, tcfg = yaml_cfgs("configs/COCO-Detection/rpn_R_50_C4_1x.yaml")
     with pytest.raises(NotImplementedError, match="ProposalNetwork"), torch.device("meta"):
         GeneralizedRCNN(tcfg)
+    _set(tcfg, "MODEL.META_ARCHITECTURE", "SingleStageDetector")
+    with pytest.raises(NotImplementedError, match="SingleStageDetector"):
+        build_model(tcfg, device="cpu")
 
 
 def test_faster_r_cnn_evaluates_boxes_only():
@@ -540,3 +546,49 @@ def test_overfit_check_c4_runs_on_the_cpu(capsys):
                             capsys)
     assert out["arch"] == "c4" and out["steps"] == 2 and np.isfinite(out["final_loss"])
     assert {"bbox_ap", "bbox_ap50", "segm_ap", "segm_ap50"} <= set(out)
+
+
+def test_overfit_check_eval_at_reports_an_earlier_step(capsys):
+    """``--eval_at 1`` of a two-step run: a JSON line for step 1 with the
+    same keys before the last line's step 2, and training goes on after it."""
+    out = overfit_check.main(["2", "--arch", "c4", "--device", "cpu", "--eval_at", "1",
+                              *OVERFIT_NARROW, "MODEL.RESNETS.WIDTH_PER_GROUP", "4"])
+    captured = capsys.readouterr()
+    lines = [json.loads(ln) for ln in captured.out.strip().splitlines()]
+    assert [r["steps"] for r in lines] == [1, 2] and lines[-1] == out
+    assert len([ln for ln in captured.err.splitlines() if ln.startswith("instances found")]) == 2
+    assert set(lines[0]) == set(out) and np.isfinite(lines[0]["final_loss"])
+    assert lines[0]["train_seconds"] <= out["train_seconds"]
+    with pytest.raises(SystemExit):
+        overfit_check.parse_args(["2", "--eval_at", "2"])
+
+
+def test_overfit_check_counts_found_missed_and_false_detections():
+    """``find_instances`` on a stand-in model that returns, per image, each
+    GT box but the first (scaled to the resized image) with its class, the
+    first GT box with a wrong class, and one box on no instance, all scored
+    0.9, plus a low-scored box on no instance: every first GT is missed and
+    both confident wrong boxes are false; the low one is not counted."""
+    import types
+
+    cfg = overfit_check.overfit_cfg("c4")
+    ds = overfit_check.SyntheticDataset(n=3, num_classes=3)
+    samples = iter(ds[i] for i in range(len(ds)))
+
+    def predict(batch):
+        s = next(samples)
+        (nh, nw), (h, w) = batch["image_size"][0].tolist(), s["image"].shape[:2]
+        boxes = (np.concatenate([s["boxes"], [[0, 0, 4, 4], [0, 0, 5, 5]]])
+                 * np.array([nw / w, nh / h] * 2))
+        classes = np.concatenate([[(s["classes"][0] + 1) % 3], s["classes"][1:], [0, 0]])
+        scores = np.array([0.9] * (len(boxes) - 1) + [0.3])
+        return types.SimpleNamespace(
+            boxes=torch.tensor(boxes)[None], pred_classes=torch.tensor(classes)[None],
+            scores=torch.tensor(scores)[None], is_valid=torch.ones(1, len(boxes), dtype=bool))
+
+    found, missed, false = overfit_check.find_instances(
+        cfg, types.SimpleNamespace(predict=predict), ds, "cpu", "c4")
+    n_gt = sum(len(ds[i]["boxes"]) for i in range(len(ds)))
+    assert (found, missed, false) == (n_gt - 3, 3, 6)
+    iou = overfit_check.box_iou(np.array([[0, 0, 2, 2.]]), np.array([[1, 1, 3, 3.], [0, 0, 2, 2]]))
+    np.testing.assert_allclose(iou, [[1 / 7, 1.0]])

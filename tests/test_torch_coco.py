@@ -342,7 +342,7 @@ def test_dataset_format_choice_matches_jax(tmp_path, fmt, shards):
 
 @pytest.mark.parametrize("key,value,match", [
     ("MODEL.KEYPOINT_ON", True, "KEYPOINT_ON"),
-    ("MODEL.LOAD_PROPOSALS", True, "LOAD_PROPOSALS"),
+    ("MODEL.META_ARCHITECTURE", "SemanticSegmentor", "coco_pano"),
     ("MODEL.META_ARCHITECTURE", "PanopticFPN", "coco_pano"),
 ])
 def test_unported_families_raise_naming_the_key(tmp_path, key, value, match):

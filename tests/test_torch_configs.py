@@ -267,8 +267,9 @@ def test_jax_cfgnode_and_port_cfgnode_agree_on_construction():
 
 # -- the models a config builds -------------------------------------------------
 
-# The files whose model the port has (Mask R-CNN FPN: R50, R101, X101, the
-# class-agnostic heads, and the R18-GN overfit config); every other file must
+# The files whose model the port has (Faster, Mask and Fast R-CNN on FPN, C4
+# and DC5 trunks: R50, R101, X101, the class-agnostic heads, GN and SyncBN,
+# the R18-GN overfit config; the RPN-only ProposalNetwork); every other file must
 # raise NotImplementedError on a key the port does not read yet, never build
 # while ignoring one.
 BUILDS = {
@@ -285,6 +286,16 @@ BUILDS = {
     "configs/COCO-Detection/faster_rcnn_R_50_FPN_1x.yaml",
     "configs/COCO-Detection/faster_rcnn_R_50_FPN_3x.yaml",
     "configs/COCO-Detection/faster_rcnn_X_101_32x8d_FPN_3x.yaml",
+    "configs/COCO-Detection/fast_rcnn_R_50_FPN_1x.yaml",
+    "configs/COCO-Detection/rpn_R_50_C4_1x.yaml",
+    "configs/COCO-Detection/rpn_R_50_FPN_1x.yaml",
+    "configs/Misc/mask_rcnn_R_50_FPN_3x_gn.yaml",
+    "configs/Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml",
+    "configs/Misc/scratch_mask_rcnn_R_50_FPN_3x_gn.yaml",
+    "configs/quick_schedules/fast_rcnn_R_50_FPN_inference_acc_test.yaml",
+    "configs/quick_schedules/fast_rcnn_R_50_FPN_instant_test.yaml",
+    "configs/quick_schedules/rpn_R_50_FPN_inference_acc_test.yaml",
+    "configs/quick_schedules/rpn_R_50_FPN_instant_test.yaml",
     "configs/COCO-InstanceSegmentation/mask_rcnn_R_101_C4_3x.yaml",
     "configs/COCO-InstanceSegmentation/mask_rcnn_R_101_DC5_3x.yaml",
     "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml",
@@ -313,10 +324,10 @@ BUILDS = {
 def _meta_model(cfg):
     import torch
 
-    from detectron2_tensorflow_tpu_torch.models.meta_arch.rcnn import GeneralizedRCNN
+    from detectron2_tensorflow_tpu_torch.models.meta_arch.rcnn import meta_architecture
 
     with torch.device("meta"):
-        return GeneralizedRCNN(cfg)
+        return meta_architecture(cfg)(cfg)
 
 
 @pytest.mark.parametrize("path", CONFIGS)

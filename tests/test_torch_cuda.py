@@ -604,3 +604,47 @@ def test_fused_residual_gradients_on_the_card_equal_the_cpu(dev):
         grads[str(where)] = [t.grad.cpu() for t in (x, weight, sc)]
     for got, want in zip(grads[str(dev)], grads["cpu"]):
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_nms_keep_kernel_one_level_2x6000_max_keep_2000(dev):
+    """``rpn_R_50_C4_1x``'s serving shape: one RPN level of 6000 candidates
+    per image for 2 images, keeping at most 2000; bit-equal to the plain
+    version, as chip_smoke holds it."""
+    rng = np.random.default_rng(11)
+    boxes, valid = chip_smoke.clustered_boxes(rng, 2, 6000, objects=600)
+    boxes, valid = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+    want = chip_smoke.greedy_keep_reference_rows(boxes, valid, 0.7, 2000)
+    got = greedy_keep(boxes, valid, 0.7, max_keep=2000)
+    assert torch.equal(got.cpu(), want.cpu()) and int(got.sum(1).max()) <= 2000
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_batch_norm_on_the_card_equals_the_cpu(dev, dtype, train):
+    """The trainable BN layer on a channels_last card tensor against the CPU:
+    outputs within one ulp of their dtype plus 1e-5 of the largest value,
+    the running statistics it writes in training within 1e-6 relative."""
+    from detectron2_tensorflow_tpu_torch.models.layers import BatchNorm2d
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((rng.standard_normal((4, 64, 17, 23)) * 3 + 1).astype(np.float32))
+    weight = torch.from_numpy(rng.uniform(0.5, 1.5, 64).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.3, 64).astype(np.float32))
+    outs, stats = {}, {}
+    for where in ("cpu", dev):
+        bn = BatchNorm2d(64)
+        with torch.no_grad():
+            bn.weight.copy_(weight)
+            bn.bias.copy_(bias)
+            bn.running_var.fill_(1.5)
+        bn.to(where).train(train)
+        xin = x.to(where, dtype)
+        if str(where) != "cpu":
+            xin = xin.contiguous(memory_format=torch.channels_last)
+        outs[str(where)] = bn(xin).float().cpu()
+        stats[str(where)] = (bn.running_mean.cpu(), bn.running_var.cpu())
+    got, want = outs[str(dev)], outs["cpu"]
+    ulp = torch.finfo(dtype).eps * torch.maximum(got.abs(), want.abs())
+    assert bool(((got - want).abs() <= ulp + 1e-5 * float(want.abs().max())).all())
+    for g, w in zip(stats[str(dev)], stats["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)

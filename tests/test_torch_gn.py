@@ -424,9 +424,9 @@ def test_fused_tails_only_on_frozen_bn_bottlenecks(depth, norm, tails):
 
 @pytest.mark.parametrize("key,value,match", [
     ("MODEL.NECK.TOP_BLOCK_TYPE", "P6P7", "MAXPOOL"),
-    ("MODEL.RESNETS.NORM", "BN", "NORM 'BN'"),
-    ("MODEL.RESNETS.NORM", "SyncBN", "NORM 'SyncBN'"),
-    ("MODEL.NECK.NORM", "BN", "NECK.NORM 'BN'"),
+    ("MODEL.RESNETS.NORM", "naiveSyncBN", "NORM 'naiveSyncBN'"),
+    ("MODEL.RESNETS.NORM", "LN", "NORM 'LN'"),
+    ("MODEL.NECK.NORM", "LN", "NECK.NORM 'LN'"),
     ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True], "DEFORM"),
     ("MODEL.RESNETS.STEM_SPACE_TO_DEPTH", True, "STEM_SPACE_TO_DEPTH"),
     ("MODEL.RESNETS.REMAT", True, "REMAT"),
