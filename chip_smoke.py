@@ -79,7 +79,7 @@ any failure exits non-zero:
      ``TEST.EXPECTED_RESULTS`` ``[['bbox', 'AP', 88.0, 10.0], ['segm', 'AP',
      84.0, 12.0]]``; it prints the APs, the final loss, the train seconds,
      the seconds per iteration and the loader's host seconds per batch.
-     Beside (b) run the overfit gates of phases 9 and 10, three
+     Beside (b) run the overfit gates of phases 9, 10 and 11, five
      ``tools.overfit_check`` subprocesses (host-bound, as (b) is);
   9. single_level: the C4 (``Res5ROIHeads``) and DC5 (dilated res5)
      families. Each kernel at their shapes against its plain version, timed
@@ -129,7 +129,24 @@ any failure exits non-zero:
      on tie-free weights, as ``tests/test_torch_norms.py`` holds them
      against JAX). ``tools.overfit_check 600 --arch cls_agnostic`` runs
      with phase 9's two gates in phase 8, as a third subprocess at once
-     (bbox AP50 >= 90).
+     (bbox AP50 >= 90);
+ 11. single_stage_cascade: RetinaNet and Cascade Mask R-CNN. ``nms_keep``
+     bit-equal at RetinaNet's serving shape (2 x 5000 class-offset
+     candidates, IoU 0.5, ``max_keep`` 100), timed beside its bound; narrow
+     float32 RetinaNet and Cascade models and train steps held against the
+     CPU; ``retinanet_R_50_FPN_1x.yaml`` and
+     ``cascade_mask_rcnn_R_50_FPN_1x.yaml`` (bf16, ``SCORE_THRESH_TEST`` 0,
+     seeded random weights) serve 2 x 800 x 1344 with the switch off and on
+     (per ``predict`` RetinaNet 1 ``nms_keep`` and no pooling, the cascade 2
+     ``nms_keep`` and 4 ``roi_patch_fwd``: three box stages and the masks;
+     16 fused tails on, 0 off; 100 valid finite clipped detections per
+     image) and train 3 steps at 8 x 800 x 1344 (per step RetinaNet no
+     kernel, the cascade 1 / 4 / 4 ``nms_keep`` / ``roi_patch_fwd`` /
+     ``roi_patch_bwd``; losses finite, the frozen stem and res2 bit-equal,
+     every trainable parameter moved, RetinaNet's ``loss_normalizer``
+     moved; device ms per step and peak memory). Their overfit gates,
+     ``tools.overfit_check 600 --arch retinanet`` and ``--arch cascade``,
+     run in phase 8 beside the others (bbox AP50 >= 90).
 
 Each phase's seconds are printed on a line of their own. A probe line then
 says whether ``cv2``, ``PIL`` and ``torchvision`` import and whether ``g++``
@@ -830,15 +847,19 @@ def narrow_cfg():
     return cfg
 
 
-def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     "):
+def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
+                            prepare=None):
     """Narrow float32 model (``narrow_cfg()`` unless ``cfg``) on a 2 x 128 x
     160 input: the card's output (kernels) against the CPU's (plain
-    versions), same weights, with the fused tail switched off or on for
-    both. A ``LOAD_PROPOSALS`` model reads
-    proposals around random boxes (``engine.add_proposal_slots``)."""
+    versions), same weights (``prepare(model)`` adjusts the CPU model's
+    first), with the fused tail switched off or on for both. A
+    ``LOAD_PROPOSALS`` model reads proposals around random boxes
+    (``engine.add_proposal_slots``)."""
     cfg = cfg or narrow_cfg()
     with fused_switch(fused):
         cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+        if prepare is not None:
+            prepare(cpu_model)
         gpu_model = build_model(cfg, device=dev, state_dict=cpu_model.state_dict())
     if fused_tails(gpu_model) != (FUSED_TAILS if fused else 0):
         raise AssertionError(f"narrow model built with {fused_tails(gpu_model)} fused tails")
@@ -913,29 +934,35 @@ def tie_order(got, want):
 
 
 def check_outputs(cfg, out, batch, b, h, w, label, mask_size=28, phase="model     "):
+    """100 valid finite detections per image, boxes clipped and, from a model
+    with a mask head, probabilities in [0, 1] that ``detector_postprocess``
+    pastes into the image."""
     f = out.get_fields()
-    for k in ("boxes", "scores", "pred_masks"):
+    masks = "pred_masks" in f
+    for k in ("boxes", "scores", "pred_masks")[:3 if masks else 2]:
         if not bool(torch.isfinite(f[k]).all()):
             raise AssertionError(f"{label}: non-finite {k}")
     if (tuple(f["boxes"].shape) != (b, 100, 4)
-            or tuple(f["pred_masks"].shape) != (b, 100, mask_size, mask_size)):
+            or masks and tuple(f["pred_masks"].shape) != (b, 100, mask_size, mask_size)):
         raise AssertionError(f"{label}: unexpected shapes {out}")
     per_image = f["is_valid"].sum(1).tolist()
     if per_image != [100] * b:
         raise AssertionError(f"{label}: valid detections per image {per_image}, expected 100")
-    m = f["pred_masks"]
-    if not (float(m.min()) >= 0.0 and float(m.max()) <= 1.0):
-        raise AssertionError(f"{label}: mask probabilities outside [0, 1]")
     bx = f["boxes"]
-    if bool((bx[..., 2] > 1333).any()) or bool((bx[..., 3] > 800).any()):
+    if bool((bx < 0).any()) or bool((bx[..., 2] > 1333).any()) or bool((bx[..., 3] > 800).any()):
         raise AssertionError(f"{label}: boxes not clipped to the image size")
-    pasted = detector_postprocess(cfg, out, batch).pred_masks
-    if tuple(pasted.shape) != (b, 100, h, w) or pasted.dtype != torch.uint8:
-        raise AssertionError(f"{label}: postprocess gave {tuple(pasted.shape)} {pasted.dtype}")
-    log(f"{phase} {label}: outputs finite, 100 valid detections per image, scores in "
-        f"[{float(f['scores'].min()):.4f}, {float(f['scores'].max()):.4f}], "
-        f"{len(set(f['pred_classes'].flatten().tolist()))} classes, pasted masks "
-        f"{tuple(pasted.shape)} with {int(pasted.sum())} pixels set")
+    pasted = ""
+    if masks:
+        m = f["pred_masks"]
+        if not (float(m.min()) >= 0.0 and float(m.max()) <= 1.0):
+            raise AssertionError(f"{label}: mask probabilities outside [0, 1]")
+        p = detector_postprocess(cfg, out, batch).pred_masks
+        if tuple(p.shape) != (b, 100, h, w) or p.dtype != torch.uint8:
+            raise AssertionError(f"{label}: postprocess gave {tuple(p.shape)} {p.dtype}")
+        pasted = f", pasted masks {tuple(p.shape)} with {int(p.sum())} pixels set"
+    log(f"{phase} {label}: outputs finite, 100 valid detections per image, boxes clipped, "
+        f"scores in [{float(f['scores'].min()):.4f}, {float(f['scores'].max()):.4f}], "
+        f"{len(set(f['pred_classes'].flatten().tolist()))} classes{pasted}")
 
 
 # Timing turns of the switch: off, on, on, off, twice.
@@ -1054,21 +1081,26 @@ def tie_free(model) -> None:
                 mod.bias.fill_(3.0)
 
 
-def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held=None):
+def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held=None,
+                            prepare=None):
     """Narrow float32 train step (``narrow_train_cfg()`` unless ``cfg``) on a
     2 x 128 x 160 batch: losses and gradients on the card (kernels) against
     the CPU (plain versions), from the same weights, sampler noise and
     proposals (a ``LOAD_PROPOSALS`` model's from the batch), with the fused
-    tail switched off or on for both. ``held``: the parameter-name prefixes
-    whose gradients are held (the others must be finite), on tie-free
-    weights (:func:`tie_free`), for models whose normalized layers make the
-    rest ill-conditioned; None holds every gradient."""
+    tail switched off or on for both (a model without an RPN or ROI heads
+    draws no noise). ``held``: the parameter-name prefixes whose gradients
+    are held (the others must be finite), on tie-free weights
+    (:func:`tie_free`), for models whose normalized layers make the rest
+    ill-conditioned; None holds every gradient. ``prepare(model)`` adjusts
+    the CPU model's weights first."""
     cfg = cfg or narrow_train_cfg()
     with fused_switch(fused):
         cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED),
                                 training=True)
         if held is not None:
             tie_free(cpu_model)
+        if prepare is not None:
+            prepare(cpu_model)
         gpu_model = build_model(cfg, device=dev, state_dict=cpu_model.state_dict(),
                                 training=True)
     if fused_tails(gpu_model) != (FUSED_TAILS if fused else 0):
@@ -1080,7 +1112,7 @@ def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held
     gbatch = {k: v.to(dev) for k, v in batch.items()}
     gen = torch.Generator().manual_seed(SEED + 1)
     noise, proposals, gprops = {}, None, None
-    if not cpu_model.load_proposals:
+    if hasattr(cpu_model, "proposal_generator"):
         with torch.no_grad():
             feats = cpu_model.features(batch["image"])
             rpn = cpu_model.proposal_generator
@@ -1089,7 +1121,7 @@ def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held
         cpu_model.load_state_dict(gpu_model.state_dict())  # BN statistics the probe moved
         noise["rpn"] = draw_noise(gen, (2, sum(l[0].numel() for l in logits)), "cpu")
         gprops = type(proposals)(**{k: v.to(dev) for k, v in proposals.get_fields().items()})
-    if not isinstance(cpu_model, ProposalNetwork):
+    if hasattr(cpu_model, "roi_heads"):
         n_props = (cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if cpu_model.load_proposals
                    else proposals.is_valid.shape[1]) + nb["gt_boxes"].shape[1]
         noise["roi"] = draw_noise(gen, (2, n_props), "cpu")
@@ -1808,14 +1840,14 @@ def train_single_level(dev, name: str):
     return launches
 
 
-OVERFIT_STEPS = {"c4": 1200, "rcnn": 600, "cls_agnostic": 600}
+OVERFIT_STEPS = {"c4": 1200, "rcnn": 600, "cls_agnostic": 600, "retinanet": 600, "cascade": 600}
 
 
 def start_overfit_gates():
     """Start ``tools.overfit_check`` on c4 (1200 steps, evaluated at 600 as
-    well), rcnn and (phase 10's family) cls_agnostic (600 each) as three
-    subprocesses at once (each is host-bound); :func:`finish_overfit_gates`
-    reads them."""
+    well), rcnn, (phase 10's family) cls_agnostic and (phase 11's)
+    retinanet and cascade (600 each) as subprocesses at once (each is
+    host-bound); :func:`finish_overfit_gates` reads them."""
     procs = {}
     for arch, steps in OVERFIT_STEPS.items():
         cmd = [sys.executable, "-m", "detectron2_tensorflow_tpu_torch.tools.overfit_check",
@@ -1941,13 +1973,14 @@ PRECISE_BN_BATCHES = 4
 
 
 def two_stage_cfg(name: str, narrow: bool = False, batch: int = 0):
-    """``name``'s YAML as ``single_level_cfg`` shapes it: bf16 at full width
-    (``SCORE_THRESH_TEST`` 0) or narrow float32, ``batch`` > 0 for
-    training."""
+    """``name``'s YAML (phase 10's or 11's) as ``single_level_cfg`` shapes
+    it: bf16 at full width (``SCORE_THRESH_TEST`` 0, the ROI heads' and
+    RetinaNet's) or narrow float32, ``batch`` > 0 for training."""
     cfg = get_cfg()
-    cfg.merge_from_file(str(ROOT / TWO_STAGE[name]["yaml"]))
+    cfg.merge_from_file(str(ROOT / SPECS[name]["yaml"]))
     cfg.MODEL.DTYPE = "bfloat16"
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
     if narrow:
         for k, v in (NORM_NARROW if name in ("gn", "syncbn") else NARROW).items():
             cfg.MODEL.RESNETS[k] = v
@@ -1956,8 +1989,10 @@ def two_stage_cfg(name: str, narrow: bool = False, batch: int = 0):
         cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 64
         cfg.MODEL.ROI_MASK_HEAD.CONV_DIM = 32
         cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
+        cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES = 5
         cfg.MODEL.DTYPE = "float32"
         cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.05
+        cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.05
         cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN = 64
         cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST = 64
     if batch:
@@ -2044,12 +2079,12 @@ def check_proposal_outputs(cfg, out, b: int, label: str) -> str:
     return str(f["is_valid"].sum(1).tolist())
 
 
-def serve_two_stage(rng, dev, name: str, turns=(False,)):
+def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage "):
     """``name``'s YAML (bf16, seeded random weights) serving 2 x 800 x 1344,
     with the fused tail off and on in ``turns``: launches per ``predict``
     asserted (no fused tail but on FrozenBN trunks), outputs checked, img/s
     and device ms per call with the idle share. Returns the launches."""
-    spec = TWO_STAGE[name]
+    spec = SPECS[name]
     cfg = two_stage_cfg(name)
     models = {}
     for fused in set(turns):
@@ -2086,13 +2121,13 @@ def serve_two_stage(rng, dev, name: str, turns=(False,)):
         label = f"{name} fused tail {'on' if fused else 'off'}"
         if isinstance(models[fused], ProposalNetwork):
             valid = check_proposal_outputs(cfg, out, b, label)
-            log(f"two_stage  {label}: {cfg.MODEL.RPN.POST_NMS_TOPK_TEST} proposal slots per "
+            log(f"{tag} {label}: {cfg.MODEL.RPN.POST_NMS_TOPK_TEST} proposal slots per "
                 f"image, finite, clipped, class 0, valid per image {valid}")
         else:
-            check_outputs(cfg, out, batch, b, 800, 1344, label, phase="two_stage ")
+            check_outputs(cfg, out, batch, b, 800, 1344, label, phase=tag)
     timing = {f: profile_predict.device_time(lambda: models[f].predict(batch), 3)
               for f in models}
-    log(f"two_stage  {name} predict, {iters} runs a turn ({''.join('N' if f else 'F' for f in turns)}), "
+    log(f"{tag} {name} predict, {iters} runs a turn ({''.join('N' if f else 'F' for f in turns)}), "
         f"batch {b} at 800x1344 bf16: " + "; ".join(
             f"switch {'on' if f else 'off'} {np.median(rates[f]):.2f} img/s, device ms per "
             f"predict {timing[f][0]:.2f} (idle share {timing[f][2]:.3f})" for f in models)
@@ -2102,15 +2137,16 @@ def serve_two_stage(rng, dev, name: str, turns=(False,)):
     return launches
 
 
-def train_two_stage(rng, dev, name: str):
+def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False):
     """``name``'s YAML (bf16, float32 parameters, seeded random weights) on a
     seeded 8 x 800 x 1344 batch: TWO_STAGE_STEPS steps, launches per step
     asserted, losses finite, the frozen stem and res2 parameters bit-equal,
     every trainable parameter moved; with BN every running statistic moved
     (the frozen stem's too), then ``precise_bn`` over PRECISE_BN_BATCHES
-    batches and a served ``predict``. Returns the steps' launches and the
-    model's peak memory."""
-    spec = TWO_STAGE[name]
+    batches and a served ``predict``; a RetinaNet's ``loss_normalizer``
+    moved; with ``profile``, one more step under the profiler (device ms,
+    idle share). Returns the steps' launches and the model's peak memory."""
+    spec = SPECS[name]
     cfg = two_stage_cfg(name, batch=8)
     b = 8
     batch = {k: torch.from_numpy(v).to(dev) for k, v in make_train_batch(cfg, 800, 1344).items()}
@@ -2156,14 +2192,26 @@ def train_two_stage(rng, dev, name: str):
     still = [n for n, t in stats.items() if torch.equal(t, start[n])]
     if still or (name == "syncbn") != bool(stats):
         raise AssertionError(f"{name}: running statistics that did not move: {still}")
-    log(f"two_stage  {name} train {TWO_STAGE_STEPS} steps of batch {b} at 800x1344 bf16 in "
-        f"{wall:.2f} s (the first step's set-up included), peak memory {peak:.1f} GiB; launches "
+    normalizer = ""
+    if "loss_normalizer" in start:
+        norm = model.loss_normalizer
+        if torch.equal(norm, start["loss_normalizer"]) or not bool(torch.isfinite(norm)):
+            raise AssertionError(f"{name}: loss_normalizer {float(norm)} did not move")
+        normalizer = (f", loss_normalizer {float(start['loss_normalizer']):.1f} -> "
+                      f"{float(norm):.1f}")
+    profiled = ""
+    if profile:
+        device_ms, _, idle, _ = profile_predict.device_time(lambda: step(batch), 1)
+        profiled = f"; then device ms per step under the profiler {device_ms:.2f}, idle {idle:.3f}"
+    log(f"{tag} {name} train {TWO_STAGE_STEPS} steps of batch {b} at 800x1344 bf16 in "
+        f"{wall:.2f} s (the first step's set-up included{profiled}), peak memory {peak:.1f} GiB; "
+        f"launches "
         f"{launches}; first " + ", ".join(f"{k} {v:.4f}" for k, v in values[0].items())
         + f"; last total_loss {values[-1]['total_loss']:.4f}; {len(frozen)} frozen parameters "
           f"bit-equal, all {len(trainable)} trainable parameters changed (or, {len(rounded)} "
           f"of them, took updates below float32's resolution at the warm-up's learning rate)"
         + (f", all {len(stats)} BN running statistics moved (the frozen stem's "
-           f"{sum('stem.' in n for n in stats)} too)" if stats else ""))
+           f"{sum('stem.' in n for n in stats)} too)" if stats else "") + normalizer)
     if name == "syncbn":
         t0 = time.perf_counter()
         batches = [{"image": batch["image"][i:i + 2]} for i in range(0, 2 * PRECISE_BN_BATCHES, 2)]
@@ -2279,6 +2327,62 @@ def run_two_stage(rng, dev):
     return {"nms": nms, "serving": serving, "training": training, "fast": fast}
 
 
+# -- phase 11: single_stage_cascade ------------------------------------------------
+
+RETINA_YAML = "configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml"
+CASCADE_YAML = "configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml"
+# Launches of each kernel per predict and per train step (the JAX trace's
+# counts): RetinaNet's one class-aware NMS over its five levels' candidates
+# and no pooling, no kernel in its step (dense assignment, no NMS); the
+# cascade's RPN and final NMS, and three box pools plus the mask pool, each
+# its own forward and, in training, backward (the JAX cascade fuses no pools).
+SINGLE_STAGE_CASCADE = {
+    "retinanet": {"yaml": RETINA_YAML, "predict": {"nms_keep": 1, "roi_patch_fwd": 0},
+                  "step": {"nms_keep": 0, "roi_patch_fwd": 0, "roi_patch_bwd": 0}},
+    "cascade": {"yaml": CASCADE_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 4},
+                "step": {"nms_keep": 1, "roi_patch_fwd": 4, "roi_patch_bwd": 4}},
+}
+SPECS = {**TWO_STAGE, **SINGLE_STAGE_CASCADE}
+SSC = "ssc       "  # the phase's log tag
+
+
+def check_retinanet_nms(rng, dev):
+    """``nms_keep`` bit-equal at RetinaNet's serving shape: per image 5 levels
+    x 1000 candidates shifted by ``class * (max coordinate + 1)`` over 80
+    classes (up to ~1.06e5), IoU 0.5, ``max_keep`` 100."""
+    boxes, valid = clustered_boxes(rng, 2, 5000, objects=300)
+    boxes = class_offset(boxes, rng.integers(0, 80, (2, 5000)))
+    return nms_case(dev, "retinanet class-offset 2x5000 iou=0.5 max_keep=100", boxes, valid,
+                    0.5, 100, plain=greedy_keep_reference_rows, reps=20, tag=f"{SSC} nms_keep")
+
+
+def spread_scores(model) -> None:
+    """RetinaNet's classifier weights x100: the narrow model's logits then
+    spread over several units, so that no two candidates at a level's top-k
+    boundary sit closer than the card and the CPU round them."""
+    with torch.no_grad():
+        model.head.cls_score.weight.mul_(100.0)
+
+
+def run_single_stage_cascade(rng, dev):
+    """Phase 11: RetinaNet and Cascade Mask R-CNN. The new ``nms_keep`` shape;
+    narrow float32 models and train steps card against CPU; each YAML
+    served 2 x 800 x 1344 bf16 (switch off and on) and trained 3 steps at 8
+    x 800 x 1344, launches asserted. Returns the NMS result and the runs'
+    launches."""
+    nms = check_retinanet_nms(rng, dev)
+    for name, prepare in (("retinanet", spread_scores), ("cascade", None)):
+        check_small_against_cpu(rng, dev, False, two_stage_cfg(name, narrow=True),
+                                label=f"{SSC} {name}", prepare=prepare)
+        check_train_against_cpu(dev, False, two_stage_cfg(name, narrow=True, batch=2),
+                                label=f"{SSC} {name}")
+    serving, training = {}, {}
+    for name in SINGLE_STAGE_CASCADE:
+        serving[name] = serve_two_stage(rng, dev, name, turns=(False, True), tag=SSC)
+        training[name] = train_two_stage(rng, dev, name, tag=SSC, profile=True)
+    return {"nms": nms, "serving": serving, "training": training}
+
+
 def probe():
     """What the card's machine offers a JPEG route (decides nothing here).
     Each module is imported in a child interpreter, so this one imports none."""
@@ -2353,6 +2457,8 @@ def main() -> None:
         single = run_single_level(rng, dev)
     with phase_seconds("two_stage"), fused_switch(False):
         two = run_two_stage(rng, dev)
+    with phase_seconds("single_stage_cascade"), fused_switch(False):
+        ssc = run_single_stage_cascade(rng, dev)
     probe()
     log(f"seconds    total {time.perf_counter() - START:.1f}")
 
@@ -2376,6 +2482,9 @@ def main() -> None:
         kernel_line("nms_keep@two_stage_" + two["nms"]["case"].replace(" ", "_"), NMS_SRC,
                     tpu_kernel("*/ops/pallas/nms_keep.py", 161),
                     two["serving"]["rpn_c4"]["nms_keep"], two["nms"], two["nms"]["err"]),
+        kernel_line("nms_keep@single_stage_cascade_" + ssc["nms"]["case"].replace(" ", "_"),
+                    NMS_SRC, tpu_kernel("*/ops/pallas/nms_keep.py", 161),
+                    ssc["serving"]["retinanet"]["nms_keep"], ssc["nms"], ssc["nms"]["err"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -305,3 +305,11 @@ def get_cfg() -> CfgNode:
     from .defaults import _C
 
     return _C.clone()
+
+
+def num_classes_of(cfg) -> int:
+    """Detection class count: ``SINGLE_STAGE_HEAD`` for single-stage
+    detectors, ``ROI_HEADS`` for R-CNNs."""
+    if cfg.MODEL.META_ARCHITECTURE == "SingleStageDetector":
+        return cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES
+    return cfg.MODEL.ROI_HEADS.NUM_CLASSES

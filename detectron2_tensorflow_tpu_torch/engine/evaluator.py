@@ -2,14 +2,16 @@
 
 Port of the detection family of the JAX package's ``engine/evaluator.py``
 (``build_predict``, ``build_detection_evaluators``, ``evaluate``,
-``run_evaluation``, ``num_classes_of``, ``check_expected_results``).
+``run_evaluation``, ``check_expected_results``; ``num_classes_of`` is in
+``config``).
 ``model.predict`` runs on the model's device (the card, unless the model was
 built on the CPU) and gives fixed-shape detections in network-input
 coordinates; the host scales the boxes to the original resolution, pastes
 the masks there and streams each image into the COCO bbox and segm
 evaluators; a ``ProposalNetwork``'s proposals go to the proposal-recall
 evaluator (``box_proposals/AR@100``, ``box_proposals/AR@1000``) instead.
-``EVAL.CLASS_AGNOSTIC`` zeroes the GT and predicted classes before the
+A RetinaNet (``SingleStageDetector``) predicts no masks, so it gets the bbox
+evaluator alone. ``EVAL.CLASS_AGNOSTIC`` zeroes the GT and predicted classes before the
 evaluators see them. Test-time augmentation, the VOC, semantic and panoptic
 evaluators, keypoint evaluation and the drawn examples raise
 ``NotImplementedError``: they wait for their families.
@@ -23,6 +25,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..config import num_classes_of
 from ..evaluation.coco_eval import CocoEvaluator, ProposalEvaluator
 from ..evaluation.np_masks import paste_masks
 from .train import to_device
@@ -81,7 +84,8 @@ def build_detection_evaluators(cfg) -> Dict[str, tuple]:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.MODEL.META_ARCHITECTURE not in ("GeneralizedRCNN", "ProposalNetwork"):
+    if cfg.MODEL.META_ARCHITECTURE not in ("GeneralizedRCNN", "ProposalNetwork",
+                                           "SingleStageDetector"):
         raise NotImplementedError(
             f"evaluating {cfg.MODEL.META_ARCHITECTURE} is not ported")
     if cfg.TEST.AUG.ENABLED:
@@ -178,14 +182,6 @@ def run_evaluation(cfg, model, dataset, data_iter, max_images: Optional[int] = N
         raise ValueError(f"EVAL.METRICS selects no evaluator: {names}")
     batches = data_iter() if callable(data_iter) else iter(data_iter)
     return evaluate(cfg, model, dataset, batches, max_images, results_writer)
-
-
-def num_classes_of(cfg) -> int:
-    """Detection class count: ``SINGLE_STAGE_HEAD`` for single-stage
-    detectors, ``ROI_HEADS`` for R-CNNs."""
-    if cfg.MODEL.META_ARCHITECTURE == "SingleStageDetector":
-        return cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES
-    return cfg.MODEL.ROI_HEADS.NUM_CLASSES
 
 
 def _index_of(dataset, image_id: int) -> int:

@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.meta_arch.rcnn import GeneralizedRCNN
+from ..config import num_classes_of
 from ..solver import Optimizer, build_optimizer, scaled_max_iter
 from .checkpoint import CheckpointManager, load_pretrained
 
@@ -30,7 +30,7 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class TrainState:
-    model: GeneralizedRCNN
+    model: torch.nn.Module  # a GeneralizedRCNN, ProposalNetwork or SingleStageDetector
     optimizer: Optimizer
     generator: torch.Generator  # the samplers' noise, on the model's device
     step: int = 0
@@ -38,7 +38,7 @@ class TrainState:
     history: List[Tuple[int, Dict[str, float], float]] = dataclasses.field(default_factory=list)
 
 
-def create_train_state(cfg, model: GeneralizedRCNN,
+def create_train_state(cfg, model: torch.nn.Module,
                        generator: torch.Generator) -> TrainState:
     """State for training ``model`` (built with ``build_model(...,
     training=True)``); the samplers draw from ``generator``."""
@@ -50,7 +50,8 @@ def build_train_step(cfg, state: TrainState) -> Callable[..., Dict[str, torch.Te
     """``step(batch, noise=None) -> metrics``: losses, backward and one
     optimizer update of ``state``. ``metrics`` holds ``total_loss`` and each
     loss as detached scalars on the device (reading them synchronizes).
-    ``noise`` is passed on to ``GeneralizedRCNN.losses``."""
+    ``noise`` is passed on to the model's ``losses`` (a RetinaNet's moves
+    its ``loss_normalizer`` there, which the checkpoints carry)."""
     del cfg  # the optimizer was built from it in create_train_state
 
     def step_fn(batch: Dict[str, torch.Tensor],
@@ -71,7 +72,9 @@ def make_train_batch(cfg, height: int = 800, width: int = 1344) -> Dict[str, np.
     ``bench_train.py`` ``make_train_batch`` draws it (equal to it at the
     defaults): ``IMS_PER_BATCH`` images of ``height x width`` with image size
     ``(height, min(width, 1333))``, ``MAX_GT_INSTANCES`` random GT boxes per
-    image (scaled by ``height / 800``), classes and 56x56 mini-masks."""
+    image (scaled by ``height / 800``), classes (of the model's class count:
+    ``ROI_HEADS`` or, for a single-stage model, ``SINGLE_STAGE_HEAD``) and
+    56x56 mini-masks."""
     b = cfg.SOLVER.IMS_PER_BATCH
     g = cfg.INPUT.MAX_GT_INSTANCES
     rng = np.random.default_rng(0)
@@ -80,7 +83,7 @@ def make_train_batch(cfg, height: int = 800, width: int = 1344) -> Dict[str, np.
     boxes[..., :2] = rng.uniform(0, 600, (b, g, 2)) * k
     boxes[..., 2:] = boxes[..., :2] + rng.uniform(20, 200, (b, g, 2)) * k
     image = rng.uniform(0, 255, (b, height, width, 3)).astype(np.float32)
-    classes = rng.integers(0, cfg.MODEL.ROI_HEADS.NUM_CLASSES, (b, g)).astype(np.int32)
+    classes = rng.integers(0, num_classes_of(cfg), (b, g)).astype(np.int32)
     masks = rng.uniform(0, 1, (b, g, 56, 56)).astype(np.float32)
     return {
         "image": image,
@@ -140,7 +143,7 @@ def restore_train_state(state: TrainState, payload: Dict[str, Any]) -> None:
 
 def train(
     cfg,
-    model: GeneralizedRCNN,
+    model: torch.nn.Module,
     data_iter: Iterator[Dict[str, Any]],
     max_iter: Optional[int] = None,
     checkpoint_dir: Optional[str] = None,

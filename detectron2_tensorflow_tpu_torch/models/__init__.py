@@ -1,3 +1,3 @@
-from .meta_arch import GeneralizedRCNN, ProposalNetwork, build_model
+from .meta_arch import GeneralizedRCNN, ProposalNetwork, SingleStageDetector, build_model
 
-__all__ = ["build_model", "GeneralizedRCNN", "ProposalNetwork"]
+__all__ = ["build_model", "GeneralizedRCNN", "ProposalNetwork", "SingleStageDetector"]

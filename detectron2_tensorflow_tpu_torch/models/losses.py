@@ -1,8 +1,8 @@
 """Detection losses, elementwise and unreduced: callers apply validity
 masks and normalizers.
 
-Port of ``smooth_l1_loss``, ``sigmoid_cross_entropy`` and
-``softmax_cross_entropy`` in the JAX package's ``models/losses.py``.
+Port of ``smooth_l1_loss``, ``sigmoid_focal_loss``, ``sigmoid_cross_entropy``
+and ``softmax_cross_entropy`` in the JAX package's ``models/losses.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,20 @@ def sigmoid_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.
     there and ``jnp.abs`` 1): ``torch.relu`` and ``torch.abs`` give 0 each."""
     return (torch.relu(logits) - logits * targets
             + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor, alpha: float = 0.25,
+                       gamma: float = 2.0) -> torch.Tensor:
+    """Focal loss on sigmoid logits (Lin et al. 2017), ``targets`` in {0, 1}:
+    :func:`sigmoid_cross_entropy` (and its subgradients at 0) scaled by
+    ``(1 - p_t) ** gamma`` and, for ``alpha >= 0``, by ``alpha_t``."""
+    p = torch.sigmoid(logits)
+    ce = sigmoid_cross_entropy(logits, targets)
+    p_t = p * targets + (1.0 - p) * (1.0 - targets)
+    loss = ce * (1.0 - p_t) ** gamma
+    if alpha >= 0:
+        loss = (alpha * targets + (1.0 - alpha) * (1.0 - targets)) * loss
+    return loss
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

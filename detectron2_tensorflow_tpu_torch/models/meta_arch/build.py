@@ -6,7 +6,8 @@ import torch
 from torch import nn
 
 from ..layers import BatchNorm2d, GroupNorm
-from .rcnn import DTYPES, init_weights, meta_architecture
+from .common import DTYPES
+from .rcnn import init_weights, meta_architecture
 
 
 def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
@@ -14,8 +15,8 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
                 init: str = "serving") -> nn.Module:
     """Build the model on ``device`` (the card unless the caller passes
     ``device="cpu"``; without a card that raises), computing in
-    ``cfg.MODEL.DTYPE``: the ``GeneralizedRCNN`` or ``ProposalNetwork``
-    that ``MODEL.META_ARCHITECTURE`` names.
+    ``cfg.MODEL.DTYPE``: the ``GeneralizedRCNN``, ``ProposalNetwork`` or
+    ``SingleStageDetector`` that ``MODEL.META_ARCHITECTURE`` names.
 
     Weights come from ``state_dict`` (for example ``convert.py``'s output)
     or, without one, from :func:`init_weights` drawn from ``generator``
@@ -25,7 +26,8 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
     but GN's and BN's, which compute in float32; for ``training`` they stay float32
     and each layer casts them to its input's dtype, as the JAX package keeps
     float32 parameters. The FrozenBN buffers stay float32, as the JAX
-    package folds them in float32, and so do BN's running statistics. On CUDA the weights are put in ``channels_last`` layout.
+    package folds them in float32, and so do BN's running statistics and
+    RetinaNet's ``loss_normalizer``. On CUDA the weights are put in ``channels_last`` layout.
     """
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")

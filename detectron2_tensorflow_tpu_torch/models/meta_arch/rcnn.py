@@ -1,9 +1,9 @@
-"""GeneralizedRCNN: Faster and Mask R-CNN, with an FPN (R50-FPN) or on one
-feature level (C4, DC5), Fast R-CNN over loaded proposals, and the RPN-only
-ProposalNetwork; serving and training losses.
+"""GeneralizedRCNN: Faster, Mask and Cascade Mask R-CNN, with an FPN (R50-FPN)
+or on one feature level (C4, DC5), Fast R-CNN over loaded proposals, and the
+RPN-only ProposalNetwork; serving and training losses.
 
-Port of the non-cascade branches of ``predict_fn`` and ``loss_fn`` in the
-JAX package's ``models/meta_arch/rcnn.py``. Serving: trunk and neck (FPN or
+Port of ``predict_fn`` and ``loss_fn`` in the JAX package's
+``models/meta_arch/rcnn.py`` (the families above). Serving: trunk and neck (FPN or
 none), RPN proposals, one pooling storage shared by the box and mask
 poolers, box head and class-aware NMS to fixed detection slots, mask head on
 the detections. Training: RPN losses, training proposals (without gradient)
@@ -18,6 +18,13 @@ leading (foreground) slots in training; in serving it pools the detections
 with the box pooler and runs res5 again for the mask head. Without
 ``MASK_ON`` (Faster R-CNN) there is no mask branch and ``predict`` returns
 no ``pred_masks``.
+
+``CascadeROIHeads`` follows the JAX cascade branches: three box stages,
+each pooling its own boxes (the JAX package fuses no pools there), the
+pooled features' gradient scaled by 1/3 in training, where the later stages
+re-match their refined boxes without sampling again and the mask head pools
+the stage-0 sample; in serving the mask head pools the detections of the
+averaged stages.
 
 With ``MODEL.LOAD_PROPOSALS`` (Fast R-CNN) the model has no RPN, not even
 its parameters: the proposals come from the batch (``proposal_boxes``,
@@ -35,76 +42,32 @@ applies ``train=True`` and ``train=False``.
 
 Parameters follow Detectron2's names (``backbone.bottom_up.*`` with an FPN,
 ``backbone.*`` without one, ``proposal_generator.rpn_head.*``,
-``roi_heads.box_head.*``, ``roi_heads.res5.*``, ...).
+``roi_heads.box_head.*``, ``roi_heads.box_head.{k}.*`` for a cascade,
+``roi_heads.res5.*``, ...).
 Activations stay NHWC in memory: images enter as ``[B, H, W, 3]`` and are
 viewed as NCHW, which is PyTorch's ``channels_last`` layout.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
+import re
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ...structures import Instances
-from ..backbones.resnet import ResNet, build_resnet_backbone, output_shapes
 from ..layers import BatchNorm2d
-from ..necks.fpn import build_neck
+from ..roi_heads.cascade import CascadeROIHeads
 from ..roi_heads.roi_heads import Res5ROIHeads, StandardROIHeads
 from ..rpn import RPN, add_ground_truth_to_proposals
 from ..sampling import draw_noise
-from .common import preprocess_images
+from .common import Detector
+from .single_stage import SingleStageDetector
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-ROI_HEADS = {"StandardROIHeads": StandardROIHeads, "Res5ROIHeads": Res5ROIHeads}
-
-
-class _Detector(nn.Module):
-    """What every meta-architecture here shares: preprocessing, the trunk
-    and neck (``backbone``), and ``predict`` with the norms in eval mode."""
-
-    def _build_backbone(self, cfg) -> Dict[str, tuple]:
-        m = cfg.MODEL
-        self.dtype = DTYPES[m.DTYPE]
-        self.pixel_mean = list(m.PIXEL_MEAN)
-        self.pixel_std = list(m.PIXEL_STD)
-        self.input_format = m.INPUT_FORMAT
-        self.backbone, shapes = build_neck(cfg, build_resnet_backbone(cfg), output_shapes(cfg))
-        return shapes
-
-    @property
-    def trunk(self) -> ResNet:
-        """The ResNet trunk (``backbone.bottom_up`` with an FPN, else ``backbone``)."""
-        return getattr(self.backbone, "bottom_up", self.backbone)
-
-    def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Raw ``[B, H, W, 3]`` images -> the neck's ``{p2..p6}`` (or the
-        trunk's ``{res4}`` / ``{res5}``) ``[B, C, H, W]`` (NHWC memory)."""
-        x = preprocess_images(images, self.pixel_mean, self.pixel_std,
-                              self.input_format, self.dtype)
-        return self.backbone(x.permute(0, 3, 1, 2))
-
-    def predict(self, batch: Dict[str, torch.Tensor]) -> Instances:
-        """Serving: ``_predict`` without gradients, with every trainable BN on
-        its running statistics (a model built for training returns to its
-        mode after)."""
-        with torch.inference_mode(), _norms_in_eval(self):
-            return self._predict(batch)
-
-
-@contextlib.contextmanager
-def _norms_in_eval(model: nn.Module):
-    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d) and m.training]
-    for m in norms:
-        m.train(False)
-    try:
-        yield
-    finally:
-        for m in norms:
-            m.train(True)
+ROI_HEADS = {"StandardROIHeads": StandardROIHeads, "Res5ROIHeads": Res5ROIHeads,
+             "CascadeROIHeads": CascadeROIHeads}
 
 
 def batch_proposals(batch: Dict[str, torch.Tensor]) -> Instances:
@@ -115,8 +78,9 @@ def batch_proposals(batch: Dict[str, torch.Tensor]) -> Instances:
                      is_valid=batch["proposal_valid"])
 
 
-class GeneralizedRCNN(_Detector):
-    """Faster, Mask or Fast R-CNN; ``predict(batch)`` is the serving entry point."""
+class GeneralizedRCNN(Detector):
+    """Faster, Mask, Cascade Mask or Fast R-CNN; ``predict(batch)`` is the
+    serving entry point."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -126,12 +90,12 @@ class GeneralizedRCNN(_Detector):
                                       "by GeneralizedRCNN")
         if m.KEYPOINT_ON or m.ROI_HEADS.NAME not in ROI_HEADS:
             raise NotImplementedError(
-                "only Faster, Mask and Fast R-CNN with StandardROIHeads or Res5ROIHeads (no "
-                "keypoints) are ported"
+                f"ROI heads '{m.ROI_HEADS.NAME}' (keypoints {m.KEYPOINT_ON}): only Faster, Mask "
+                f"and Fast R-CNN with {', '.join(ROI_HEADS)} (no keypoints) are ported"
             )
         self.load_proposals = m.LOAD_PROPOSALS
         ported = [] if self.load_proposals else [("PROPOSAL_GENERATOR.NAME", "RPN")]
-        if m.ROI_HEADS.NAME == "StandardROIHeads":
+        if m.ROI_HEADS.NAME in ("StandardROIHeads", "CascadeROIHeads"):
             ported.append(("ROI_BOX_HEAD.NAME", "FastRCNNConvFCHead"))
         if m.MASK_ON:
             ported.append(("ROI_MASK_HEAD.NAME", "MaskRCNNConvUpsampleHead"))
@@ -165,20 +129,10 @@ class GeneralizedRCNN(_Detector):
 
         heads = self.roi_heads
         storage = heads.pooling_storage(features)
-        pooled = heads.pool_box_features(proposals.proposal_boxes, storage,
-                                         valid=proposals.is_valid)
-        scores, deltas, _ = heads.box_outputs(pooled)
-        detections = heads.box_inference(scores.float(), deltas.float(), proposals,
-                                         image_sizes)
+        detections = heads.box_detections(proposals, storage, image_sizes)
         if not self.mask_on:
             return detections
-        if heads.is_res5:  # the detections through the box pooler and res5 again
-            pooled = heads.pool_box_features(detections.boxes, storage,
-                                             valid=detections.is_valid)
-            mask_in = heads.box_outputs(pooled)[2]
-        else:
-            mask_in = heads.pool_mask_features(detections.boxes, storage,
-                                               valid=detections.is_valid)
+        mask_in = heads.detection_mask_features(detections, storage)
         return heads.mask_inference(heads.mask_head(mask_in), detections)
 
     def losses(self, batch: Dict[str, torch.Tensor],
@@ -221,28 +175,15 @@ class GeneralizedRCNN(_Detector):
         if roi_noise is None:
             roi_noise = draw_noise(generator, proposals.is_valid.shape, dev)
         sampled = heads.label_and_sample_proposals(proposals, batch, roi_noise)
-        m = heads.mask_slots
-        storage = heads.pooling_storage(features)
-        mask_in = None
-        if self.mask_on and not heads.is_res5:
-            box_in, mask_in = heads.pool_multi(
-                [(heads.box_pooler, sampled.boxes, sampled.valid),
-                 (heads.mask_pooler, sampled.boxes[:, :m], sampled.valid[:, :m])],
-                storage,
-            )
-        else:
-            box_in = heads.pool_box_features(sampled.boxes, storage, valid=sampled.valid)
-        scores, box_deltas, roi_feats = heads.box_outputs(box_in)
-        losses.update(heads.box_losses(scores.float(), box_deltas.float(), sampled))
+        box_losses, mask_in = heads.box_branch_losses(sampled, heads.pooling_storage(features),
+                                                      batch)
+        losses.update(box_losses)
         if self.mask_on:
-            if heads.is_res5:  # the res5 features of the leading (foreground) slots
-                rf = roi_feats.reshape((b, -1) + roi_feats.shape[1:])[:, :m]
-                mask_in = rf.reshape((-1,) + rf.shape[2:])
             losses["loss_mask"] = heads.mask_loss(heads.mask_head(mask_in), sampled, batch)
         return losses
 
 
-class ProposalNetwork(_Detector):
+class ProposalNetwork(Detector):
     """The RPN-only meta-architecture: trunk, neck and RPN (the JAX
     ``build_proposal_network``). ``losses`` are the RPN's; ``predict``
     returns the ``POST_NMS_TOPK_TEST`` proposals as ``Instances`` with
@@ -295,7 +236,8 @@ class ProposalNetwork(_Detector):
                                               rpn_noise)
 
 
-META_ARCHITECTURES = {"GeneralizedRCNN": GeneralizedRCNN, "ProposalNetwork": ProposalNetwork}
+META_ARCHITECTURES = {"GeneralizedRCNN": GeneralizedRCNN, "ProposalNetwork": ProposalNetwork,
+                      "SingleStageDetector": SingleStageDetector}
 
 
 def meta_architecture(cfg):
@@ -308,7 +250,8 @@ def meta_architecture(cfg):
     return META_ARCHITECTURES[name]
 
 
-# Layers the JAX package initializes with small normals (std by port name).
+# Layers the JAX package initializes with small normals (std by port name; a
+# cascade's stages, ``roi_heads.box_predictor.{k}``, as the one predictor).
 _SMALL_INIT = {
     "proposal_generator.rpn_head.conv": 0.01,
     "proposal_generator.rpn_head.objectness_logits": 0.01,
@@ -316,32 +259,50 @@ _SMALL_INIT = {
     "roi_heads.box_predictor.cls_score": 0.01,
     "roi_heads.box_predictor.bbox_pred": 0.001,
     "roi_heads.mask_head.predictor": 0.001,
+    "head.cls_score": 0.01,
+    "head.bbox_pred": 0.01,
 }
+# RetinaNet's towers: normal(0.01) in the JAX package, variance-preserving for serving.
+_JAX_TOWERS = ("head.cls_subnet.", "head.bbox_subnet.")
 # The JAX initializers' truncated normal keeps [-2, 2] standard deviations and rescales by
 # this factor so that the kept values have the asked variance.
 _TRUNC_STD = 0.87962566103423978
 INIT_RECIPES = ("serving", "jax")
 
 
+def _small_std(name: str, jax_recipe: bool) -> Optional[float]:
+    """The small normal's std of layer ``name``, or None (the recipe's rule)."""
+    name = re.sub(r"^roi_heads\.box_predictor\.\d+\.", "roi_heads.box_predictor.", name)
+    if jax_recipe and name.startswith(_JAX_TOWERS):
+        return 0.01
+    return _SMALL_INIT.get(name)
+
+
 def init_weights(model: nn.Module, generator: torch.Generator,
                  recipe: str = "serving") -> None:
     """Seeded random weights: ``recipe`` "serving" (``_init_for_serving``)
-    or "jax".
+    or "jax". Either way RetinaNet's classifier bias starts at its prior
+    (``RetinaNetHead.prior_bias``), as in the JAX package.
 
     "jax" draws from the JAX package's initializers, the ones its ``train.py``
     starts from scratch with: convs and the deconv truncated normal with
     variance ``2 / fan_out`` (``variance_scaling(2.0, "fan_out",
-    "normal")``), the box head's FCs uniform with variance ``1 / fan_in``,
-    the small normals of the RPN head and the predictors, zero biases, GN
+    "normal")``; RetinaNet's P6 and P7 too), the box head's FCs uniform with
+    variance ``1 / fan_in``, the small normals of the RPN head, the
+    predictors and RetinaNet's head (every conv of it), zero biases, GN
     and BN at identity with BN's running statistics at (0, 1) (FrozenBN
     keeps its identity buffers).
     """
     if recipe == "jax":
         _init_like_jax(model, generator)
-        return
-    if recipe != "serving":
+    elif recipe == "serving":
+        _init_for_serving(model, generator)
+    else:
         raise ValueError(f"unknown init recipe {recipe!r} (known: {INIT_RECIPES})")
-    _init_for_serving(model, generator)
+    head = getattr(model, "head", None)
+    if head is not None:
+        with torch.no_grad():
+            head.cls_score.bias.fill_(head.prior_bias)
 
 
 def _init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
@@ -349,8 +310,9 @@ def _init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
         for name, mod in model.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 w = mod.weight
-                if name in _SMALL_INIT:
-                    w.copy_(torch.randn(w.shape, generator=generator) * _SMALL_INIT[name])
+                small = _small_std(name, jax_recipe=True)
+                if small is not None:
+                    w.copy_(torch.randn(w.shape, generator=generator) * small)
                 elif isinstance(mod, nn.Linear):
                     limit = math.sqrt(3.0 / w.shape[1])
                     w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * limit)
@@ -374,7 +336,9 @@ def _init_for_serving(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights that keep activations of order one.
 
     Convs and FCs are variance-preserving (He-normal over fan-in, with the
-    JAX package's small normals for the RPN head and the predictors), and
+    JAX package's small normals for the RPN head, the predictors and
+    RetinaNet's classifier and box convs: its sigmoid scores start near the
+    prior, unsaturated), and
     every bottleneck's last FrozenBN scales its branch by 0.2, so the
     residual stream does not grow with depth. With zero biases the network
     is linear in the input's scale up to the softmax; the stem's FrozenBN
@@ -382,16 +346,14 @@ def _init_for_serving(model: nn.Module, generator: torch.Generator) -> None:
     the class softmax unsaturated (scores near 1/81 at 80 classes) and the
     RPN deltas small, so proposals are real boxes near their anchors.
     """
-    small = _SMALL_INIT
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 w = mod.weight
-                if name in small:
-                    std = small[name]
-                elif isinstance(mod, nn.ConvTranspose2d):  # stride = kernel: one tap
+                std = _small_std(name, jax_recipe=False)
+                if std is None and isinstance(mod, nn.ConvTranspose2d):  # stride = kernel
                     std = math.sqrt(2.0 / w.shape[0])
-                else:
+                elif std is None:
                     std = math.sqrt(2.0 / w[0].numel())
                 w.copy_(torch.randn(w.shape, generator=generator) * std)
                 if mod.bias is not None:

@@ -1,13 +1,19 @@
 """Necks: the FPN (lateral 1x1s, nearest-2x top-down sums, 3x3 outputs, and
-the max-pool top block p6), or none.
+a top block: the max-pool p6, or RetinaNet's p6 and p7), or none.
 
 Port of the JAX package's ``models/necks/fpn.py`` for sum fusion and the
-``MAXPOOL`` top block, with no norm or any of the trunk's (FrozenBN, BN,
+``MAXPOOL`` and ``P6P7`` top blocks, with no norm or any of the trunk's (FrozenBN, BN,
 SyncBN, GN) on the lateral and output convs (``NECK.NORM``; a conv with a norm has no bias), and of its identity neck
 (``DummyNeck``, ``NECK.NAME ""``) for the single-level C4 and DC5 models.
 Module names follow Detectron2 (``fpn_lateral3``, ``fpn_output3``,
 ``fpn_lateral3.norm``); without a neck the trunk is the model's
 ``backbone`` itself (``backbone.res2.0.conv1.weight``), as in Detectron2.
+
+The ``P6P7`` block (``backbone.top_block.p6`` / ``.p7``, Detectron2's
+``LastLevelP6P7`` names) is a 3x3 stride-2 conv on the coarsest FPN output
+(p5 over ``res3..res5``), then another on ``relu(p6)``. Its input is always
+that output, as in the JAX package, whose ``top_block_in_feature`` no config
+key sets; Detectron2's RetinaNet takes ``res5`` there instead.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ from torch import nn
 from ..backbones.resnet import NORMS
 from ..layers import Conv2d, max_pool
 
+# The ported top blocks and the levels each adds above the coarsest output.
+TOP_BLOCKS = {"MAXPOOL": 1, "P6P7": 2}
+
 
 class FPN(nn.Module):
     """Trunk plus pyramid: images -> ``{p2..p6: [B, C, H, W]}``.
@@ -33,7 +42,7 @@ class FPN(nn.Module):
 
     def __init__(self, bottom_up: nn.Module, in_features: List[str],
                  in_channels: List[int], strides: List[int], out_channels: int,
-                 norm: str = ""):
+                 norm: str = "", top_block: str = "MAXPOOL"):
         super().__init__()
         self.bottom_up = bottom_up
         self.in_features = list(in_features)
@@ -43,6 +52,8 @@ class FPN(nn.Module):
                             Conv2d(ch, out_channels, 1, norm=norm))
             self.add_module(f"fpn_output{name_stage}",
                             Conv2d(out_channels, out_channels, 3, norm=norm))
+        if top_block == "P6P7":
+            self.top_block = LastLevelP6P7(out_channels)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.pyramid(self.bottom_up(images))
@@ -59,15 +70,33 @@ class FPN(nn.Module):
             prev = lateral
             results[f"p{stage}"] = getattr(self, f"fpn_output{stage}")(lateral)
         last = self.stages[-1]
-        results[f"p{last + 1}"] = max_pool(results[f"p{last}"], 1, 2)
+        if hasattr(self, "top_block"):
+            results[f"p{last + 1}"], results[f"p{last + 2}"] = self.top_block(results[f"p{last}"])
+        else:
+            results[f"p{last + 1}"] = max_pool(results[f"p{last}"], 1, 2)
         return dict(sorted(results.items()))
+
+
+class LastLevelP6P7(nn.Module):
+    """RetinaNet's top block: ``p6 = conv(p5)``, ``p7 = conv(relu(p6))``, 3x3
+    stride-2 convs with bias and no norm."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.p6 = Conv2d(channels, channels, 3, stride=2)
+        self.p7 = Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x: torch.Tensor):
+        p6 = self.p6(x)
+        return p6, self.p7(F.relu(p6))
 
 
 def build_fpn(cfg, bottom_up: nn.Module, trunk_shapes: Dict[str, tuple]) -> FPN:
     n = cfg.MODEL.NECK
     if (n.NAME != "FPN" or n.ACTIVATION != ""
-            or n.FUSE_TYPE != "sum" or n.TOP_BLOCK_TYPE != "MAXPOOL"):
-        raise NotImplementedError("only the sum-fused FPN with a MAXPOOL top block is ported")
+            or n.FUSE_TYPE != "sum" or n.TOP_BLOCK_TYPE not in TOP_BLOCKS):
+        raise NotImplementedError(f"only the sum-fused FPN with a {' or '.join(TOP_BLOCKS)} top "
+                                  "block is ported")
     if n.NORM not in ("",) + NORMS:
         raise NotImplementedError(f"MODEL.NECK.NORM '{n.NORM}' is not ported "
                                   f"(none and {NORMS} are)")
@@ -78,14 +107,18 @@ def build_fpn(cfg, bottom_up: nn.Module, trunk_shapes: Dict[str, tuple]) -> FPN:
         [trunk_shapes[f][1] for f in n.IN_FEATURES],
         n.OUT_CHANNELS,
         n.NORM,
+        n.TOP_BLOCK_TYPE,
     )
 
 
 def output_strides(cfg, trunk_shapes: Dict[str, tuple]) -> Dict[str, int]:
-    """``{p_k: stride}`` of the FPN's outputs, p6 included."""
+    """``{p_k: stride}`` of the FPN's outputs, the top block's p6 (and p7)
+    included."""
     strides = [trunk_shapes[f][1] for f in cfg.MODEL.NECK.IN_FEATURES]
     out = {f"p{int(math.log2(s))}": s for s in strides}
-    out[f"p{int(math.log2(strides[-1])) + 1}"] = strides[-1] * 2
+    last = int(math.log2(strides[-1]))
+    for extra in range(1, TOP_BLOCKS[cfg.MODEL.NECK.TOP_BLOCK_TYPE] + 1):
+        out[f"p{last + extra}"] = strides[-1] * 2 ** extra
     return out
 
 

@@ -19,7 +19,7 @@ no positive is dropped. Without ``MASK_ON`` there is no mask head.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -50,8 +50,6 @@ class SampledProposals:
 class StandardROIHeads(nn.Module):
     """The box head, box predictor and mask head (D2's names), with the
     pooling and inference around them."""
-
-    is_res5 = False
 
     def __init__(self, cfg, strides: List[int], in_channels: int):
         super().__init__()
@@ -220,6 +218,37 @@ class StandardROIHeads(nn.Module):
         den = torch.clamp(fg.sum().float() * (out * out), min=1.0)
         return num / den
 
+    def box_branch_losses(self, sampled: SampledProposals, storage_pack,
+                          gt: Dict[str, torch.Tensor]
+                          ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+        """Training's box branch: ``(box losses, the mask head's input
+        [B*M, S, S, C] or None without MASK_ON)``. The box and mask ROIs of
+        the sample are pooled by one fused op."""
+        if self.mask_on:
+            m = self.mask_slots
+            box_in, mask_in = self.pool_multi(
+                [(self.box_pooler, sampled.boxes, sampled.valid),
+                 (self.mask_pooler, sampled.boxes[:, :m], sampled.valid[:, :m])],
+                storage_pack,
+            )
+        else:
+            box_in = self.pool_box_features(sampled.boxes, storage_pack, valid=sampled.valid)
+            mask_in = None
+        scores, deltas, _ = self.box_outputs(box_in)
+        return self.box_losses(scores.float(), deltas.float(), sampled), mask_in
+
+    def box_detections(self, proposals: Instances, storage_pack, image_sizes) -> Instances:
+        """Serving's box branch: pool every proposal slot, box head, then
+        ``box_inference``."""
+        pooled = self.pool_box_features(proposals.proposal_boxes, storage_pack,
+                                        valid=proposals.is_valid)
+        scores, deltas, _ = self.box_outputs(pooled)
+        return self.box_inference(scores.float(), deltas.float(), proposals, image_sizes)
+
+    def detection_mask_features(self, detections: Instances, storage_pack) -> torch.Tensor:
+        """The mask head's input for the detections: their mask-pooled ROIs."""
+        return self.pool_mask_features(detections.boxes, storage_pack, valid=detections.is_valid)
+
     def box_inference(self, class_logits, deltas, proposals: Instances,
                       image_sizes) -> Instances:
         b, p = proposals.proposal_boxes.shape[:2]
@@ -256,8 +285,6 @@ class Res5ROIHeads(StandardROIHeads):
     ``Res5ROIHeads`` wiring (``_build_rcnn_parts`` and the module's ``box``
     method)."""
 
-    is_res5 = True
-
     def _build_box_branch(self, cfg, in_channels: int) -> int:
         self.res5 = build_res5_head(cfg, in_channels)
         out = cfg.MODEL.RESNETS.RES2_OUT_CHANNELS * 8
@@ -271,3 +298,22 @@ class Res5ROIHeads(StandardROIHeads):
         feats = self.res5(pooled.permute(0, 3, 1, 2))  # NHWC memory seen as NCHW
         scores, deltas = self.box_predictor(feats.mean(dim=(2, 3)))
         return scores, deltas, feats.permute(0, 2, 3, 1)
+
+    def box_branch_losses(self, sampled: SampledProposals, storage_pack,
+                          gt: Dict[str, torch.Tensor]
+                          ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+        """The box ROIs pooled alone; the mask head's input is the res5
+        features of the leading (foreground) ``mask_slots`` of each image."""
+        box_in = self.pool_box_features(sampled.boxes, storage_pack, valid=sampled.valid)
+        scores, deltas, feats = self.box_outputs(box_in)
+        losses = self.box_losses(scores.float(), deltas.float(), sampled)
+        if not self.mask_on:
+            return losses, None
+        b = sampled.boxes.shape[0]
+        rf = feats.reshape((b, -1) + feats.shape[1:])[:, :self.mask_slots]
+        return losses, rf.reshape((-1,) + rf.shape[2:])
+
+    def detection_mask_features(self, detections: Instances, storage_pack) -> torch.Tensor:
+        """The detections through the box pooler and res5 again."""
+        pooled = self.pool_box_features(detections.boxes, storage_pack, valid=detections.is_valid)
+        return self.box_outputs(pooled)[2]

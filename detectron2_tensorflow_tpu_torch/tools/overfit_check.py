@@ -1,21 +1,26 @@
 """Learning check: overfit a small detector on 8 synthetic images and report AP.
 
     python -m detectron2_tensorflow_tpu_torch.tools.overfit_check [STEPS]
-        [--arch rcnn|c4|cls_agnostic] [--eval_at N[,N...]] [--device cpu]
-        [KEY VALUE ...]
+        [--arch rcnn|c4|cls_agnostic|retinanet|cascade] [--eval_at N[,N...]]
+        [--device cpu] [KEY VALUE ...]
 
 The port's counterpart of the repo's ``tools/overfit_check.py`` for its
-``rcnn`` (Mask R-CNN R50-FPN's YAML), ``c4`` (Mask R-CNN R50-C4's YAML) and
+``rcnn`` (Mask R-CNN R50-FPN's YAML), ``c4`` (Mask R-CNN R50-C4's YAML),
 ``cls_agnostic`` (``Misc/mask_rcnn_R_50_FPN_1x_cls_agnostic.yaml``: one
-shared box regressor and a one-channel mask head) families, with that
-tool's recipe (``overfit_cfg``): the tiny inputs of ``config.small_cfg()``,
-anchors scaled to 10-30 px boxes, ResNet-18 with GN trained from the JAX
+shared box regressor and a one-channel mask head), ``retinanet``
+(``retinanet_R_50_FPN_1x.yaml``, 3 classes; the JAX recipe also sets
+``MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST`` 0.3, which its RetinaNet never
+reads: it keeps ``MODEL.RETINANET.SCORE_THRESH_TEST`` 0.05, and so does
+this one) and ``cascade`` (``Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml``)
+families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
+``config.small_cfg()``, anchors scaled to 10-30 px boxes, ResNet-18 with GN trained from the JAX
 package's initializers (``FREEZE_AT 0``), 3 classes, 64 ROIs per image, 8
 images per step, LR 0.01 after 100 warm-up steps. It trains STEPS (default
 600) steps on ``data.SyntheticDataset(n=8, num_classes=3)``, evaluates COCO
 bbox (and segm) AP on the same images and lists on stderr the GT instances
-no detection finds (IoU >= 0.5, same class, score above 0.5) and the
-detections above 0.5 that find none. ``KEY VALUE`` overrides apply last
+no detection finds (IoU >= 0.5, same class, score above the report
+threshold) and the detections above it that find none (the JAX tool's
+threshold: 0.5 for ``rcnn``, 0.25 for the other archs). ``KEY VALUE`` overrides apply last
 (for example narrower widths). It runs on the card unless ``--device cpu``.
 The last line of stdout is one JSON object: ``arch``, ``steps``,
 ``train_seconds``, ``final_loss``, ``bbox_ap``, ``bbox_ap50`` and, with
@@ -46,7 +51,15 @@ REPO_CONFIGS = {
     "rcnn": "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml",
     "c4": "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml",
     "cls_agnostic": "configs/Misc/mask_rcnn_R_50_FPN_1x_cls_agnostic.yaml",
+    "retinanet": "configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml",
+    "cascade": "configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml",
 }
+
+
+def report_thresh(arch: str) -> float:
+    """Score above which find_instances counts a detection: the JAX tool's
+    rule, 0.5 for ``rcnn`` and 0.25 for every other arch."""
+    return 0.5 if arch == "rcnn" else 0.25
 
 
 def get_cfg_for(arch: str):
@@ -57,6 +70,9 @@ def get_cfg_for(arch: str):
         raise SystemExit(f"unknown --arch {arch} (ported: {sorted(REPO_CONFIGS)})")
     cfg = get_cfg()
     cfg.merge_from_file(str(REPO / REPO_CONFIGS[arch]))
+    if arch == "retinanet":
+        cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES = 3
+        cfg.MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST = 0.3  # read by no model (module doc)
     return cfg
 
 
@@ -93,7 +109,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("steps", nargs="?", type=int, default=600)
-    p.add_argument("--arch", default="rcnn", help="rcnn (the default), c4 or cls_agnostic")
+    p.add_argument("--arch", default="rcnn",
+                   help=f"rcnn (the default) or one of {sorted(REPO_CONFIGS)}")
     p.add_argument("--eval_at", default="",
                    help="comma-separated step counts below STEPS to evaluate after as well")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
@@ -115,6 +132,7 @@ def find_instances(cfg, model, ds, device, arch: str):
     AP50 when it outranks a true one). Each miss and false detection is
     listed on stderr."""
     r = cfg.TRANSFORM.RESIZE
+    thresh = report_thresh(arch)
     found = missed = false = 0
     for i in range(len(ds)):
         s = ds[i]
@@ -131,7 +149,7 @@ def find_instances(cfg, model, ds, device, arch: str):
         boxes = det.boxes[0].float().cpu().numpy() / np.array([nw / w, nh / h] * 2)
         cls = det.pred_classes[0].cpu().numpy()
         scores = det.scores[0].float().cpu().numpy()
-        ok = det.is_valid[0].cpu().numpy() & (scores > 0.5)
+        ok = det.is_valid[0].cpu().numpy() & (scores > thresh)
         same = cls[:, None] == s["classes"][None, :]  # [detections, GT]
         overlap = np.where(same, box_iou(boxes, s["boxes"]), 0.0)
         for g, gbox in enumerate(s["boxes"]):
@@ -166,8 +184,8 @@ def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: 
     model.eval()
     results = evaluate(cfg, model, ds, build_dataloader(cfg, ds, training=False, seed=0))
     found, missed, false = find_instances(cfg, model, ds, device, arch)
-    print(f"instances found {found} / {found + missed}, {false} false detections above 0.5",
-          file=sys.stderr)
+    print(f"instances found {found} / {found + missed}, {false} false detections above "
+          f"{report_thresh(arch)}", file=sys.stderr)
     out = {
         "arch": arch,
         "steps": steps,

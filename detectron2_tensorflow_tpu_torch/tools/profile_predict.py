@@ -4,8 +4,9 @@
 
 Builds chip_smoke's model (Mask R-CNN R50-FPN, bf16, seeded random weights,
 ``SCORE_THRESH_TEST = 0``; with ``--config_file``, that YAML's model, for
-example ``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml``, in
-bf16 with the same threshold), serves a random 800x1344 batch of each given
+example ``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml`` or
+``configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml``, in bf16 with the same
+threshold, RetinaNet's too), serves a random 800x1344 batch of each given
 size (default 2; a ``LOAD_PROPOSALS`` model gets ``engine.add_proposal_slots``'s
 proposals around ``make_train_batch``'s random boxes), and prints: images/s on the host clock around
 synchronized runs; from ``torch.profiler``, the device time per batch, the
@@ -66,9 +67,11 @@ def yaml_cfg(config_file: str):
 
 def serving_cfg(config_file: Optional[str] = None):
     """``bench_cfg()``, or ``config_file``'s model in bf16, with
-    ``SCORE_THRESH_TEST = 0`` so that every detection slot is real."""
+    ``SCORE_THRESH_TEST = 0`` (the ROI heads' and RetinaNet's) so that every
+    detection slot is real."""
     cfg = yaml_cfg(config_file) if config_file else bench_cfg()
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
     return cfg
 
 

@@ -21,6 +21,7 @@ from detectron2_tensorflow_tpu_torch.tools import eval as tools_eval
 from detectron2_tensorflow_tpu_torch.tools import make_synthetic_coco
 from detectron2_tensorflow_tpu_torch.tools import train as tools_train
 from detectron2_tensorflow_tpu_torch.tools import workflow_check
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CFG = "configs/synthetic/overfit_mask_rcnn_R_18.yaml"

@@ -4,6 +4,7 @@ configuration the other ``test_torch_*`` files share."""
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 import bench_train
@@ -21,6 +22,18 @@ NARROW = {
     "MODEL.DTYPE": "float32",
 }
 
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch's CPU ops on one thread in each test module that imports this
+    fixture (autouse there too). The port's CPU tests run narrow models:
+    under ``pytest -n`` every worker's thread pool would contend for the
+    host's cores, which costs far more than one thread loses."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 def _set(cfg, path, value):
     *parents, leaf = path.split(".")

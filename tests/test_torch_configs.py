@@ -267,12 +267,19 @@ def test_jax_cfgnode_and_port_cfgnode_agree_on_construction():
 
 # -- the models a config builds -------------------------------------------------
 
-# The files whose model the port has (Faster, Mask and Fast R-CNN on FPN, C4
-# and DC5 trunks: R50, R101, X101, the class-agnostic heads, GN and SyncBN,
-# the R18-GN overfit config; the RPN-only ProposalNetwork); every other file must
+# The files whose model the port has (Faster, Mask, Cascade Mask and Fast
+# R-CNN on FPN, C4 and DC5 trunks: R50, R101, X101, the class-agnostic heads,
+# GN and SyncBN, the R18-GN overfit config; the RPN-only ProposalNetwork;
+# RetinaNet); every other file must
 # raise NotImplementedError on a key the port does not read yet, never build
 # while ignoring one.
 BUILDS = {
+    "configs/Base-RetinaNet.yaml",
+    "configs/COCO-Detection/retinanet_R_101_FPN_3x.yaml",
+    "configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml",
+    "configs/COCO-Detection/retinanet_R_50_FPN_3x.yaml",
+    "configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml",
+    "configs/Misc/cascade_mask_rcnn_R_50_FPN_3x.yaml",
     "configs/Base-RCNN-C4.yaml",
     "configs/Base-RCNN-DilatedC5.yaml",
     "configs/Base-RCNN-FPN.yaml",

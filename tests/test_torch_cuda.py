@@ -648,3 +648,40 @@ def test_batch_norm_on_the_card_equals_the_cpu(dev, dtype, train):
     assert bool(((got - want).abs() <= ulp + 1e-5 * float(want.abs().max())).all())
     for g, w in zip(stats[str(dev)], stats["cpu"]):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+
+
+def test_nms_keep_kernel_retinanet_class_offset_2x5000(dev):
+    """RetinaNet's serving shape: 5 levels x 1000 candidates per image for 2
+    images, shifted by ``class * (max coordinate + 1)`` over 80 classes (up
+    to ~1.1e5), IoU 0.5, keeping at most 100; bit-equal to the plain
+    version, as chip_smoke holds it."""
+    rng = np.random.default_rng(12)
+    boxes, valid = chip_smoke.clustered_boxes(rng, 2, 5000, objects=300)
+    boxes = chip_smoke.class_offset(boxes, rng.integers(0, 80, (2, 5000)))
+    assert boxes.max() > 1e5
+    boxes, valid = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+    want = chip_smoke.greedy_keep_reference_rows(boxes, valid, 0.5, 100)
+    got = greedy_keep(boxes, valid, 0.5, max_keep=100)
+    assert torch.equal(got.cpu(), want.cpu()) and int(got.sum(1).min()) == 100
+
+
+def test_scale_gradient_and_focal_loss_on_the_card_equal_the_cpu(dev):
+    """The cascade's ``scale_gradient`` in bf16 bit-equal to the CPU's (its
+    value need not be its input's), and the focal loss and its gradient in
+    float32 within 1e-6 relative."""
+    from detectron2_tensorflow_tpu_torch.models.losses import sigmoid_focal_loss
+    from detectron2_tensorflow_tpu_torch.models.roi_heads.cascade import scale_gradient
+
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(0, 3, 65536).astype(np.float32)).to(torch.bfloat16)
+    assert torch.equal(scale_gradient(x.to(dev), 1 / 3).cpu(), scale_gradient(x, 1 / 3))
+    logits = torch.from_numpy(rng.normal(0, 3, 4096).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 2, 4096).astype(np.float32))
+    out = {}
+    for where in ("cpu", dev):
+        z = logits.to(where).requires_grad_(True)
+        loss = sigmoid_focal_loss(z, t.to(where))
+        loss.sum().backward()
+        out[str(where)] = (loss.detach().cpu(), z.grad.cpu())
+    for g, w in zip(out[str(dev)], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)

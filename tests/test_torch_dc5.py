@@ -52,6 +52,7 @@ from test_torch_c4 import (
 )
 from test_torch_slice import count_fused_calls, fused_custom_vjp_calls, fused_switch
 from test_torch_train import jax_proposals
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 
 # -- serving ---------------------------------------------------------------------------

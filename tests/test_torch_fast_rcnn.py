@@ -18,11 +18,9 @@ import pickle
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
-from detectron2_tensorflow_tpu import solver as jsolver
 from detectron2_tensorflow_tpu.data.coco import CocoDataset as JaxCocoDataset
 from detectron2_tensorflow_tpu.models import build_model as jax_build_model
 from detectron2_tensorflow_tpu_torch import solver as tsolver
@@ -50,6 +48,8 @@ from test_torch_c4 import (
     yaml_cfgs,
 )
 from test_torch_train import GRAD_TOL, assert_grad_close, assert_update_close, jax_noise
+from test_torch_train import jax_updated_params
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 FAST_YAML = "configs/COCO-Detection/fast_rcnn_R_50_FPN_1x.yaml"
 RTOL, ATOL = 1e-4, 1e-4
@@ -161,10 +161,8 @@ def test_fast_rcnn_train_step_matches_optax(step):
     state = create_train_state(tcfg, model, torch.Generator().manual_seed(0))
     metrics = build_train_step(tcfg, state)(step["tbatch"], noise=step["noise"])
     np.testing.assert_allclose(float(metrics["total_loss"]), step["j_total"], rtol=LOSS_RTOL)
-    params = step["variables"]["params"]
-    tx = jsolver.build_optimizer(jcfg, params)
-    updates, _ = tx.update(step["j_grads"], tx.init(params), params)
-    want = convert_variables({"params": optax.apply_updates(params, updates)})
+    want = convert_variables({"params": jax_updated_params(jcfg, step["variables"]["params"],
+                                                           step["j_grads"])})
     for name, p in model.named_parameters():
         assert_update_close(p.detach().numpy(), want[name].numpy(), start[name].numpy(),
                             GRAD_TOL, name)

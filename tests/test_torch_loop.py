@@ -51,6 +51,7 @@ from test_data import SyntheticDataset as JaxSyntheticDataset
 from test_torch_config import NARROW
 from test_torch_slice import tame_variables
 from test_torch_train import GRAD_TOL, jax_noise
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(REPO, "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml")

@@ -29,6 +29,7 @@ from detectron2_tensorflow_tpu_torch.ops.nms import (
     nms_fixed,
     nms_fixed_levels,
 )
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -47,6 +47,7 @@ from test_torch_c4 import B, H, W, images, tame, yaml_cfgs
 from test_torch_config import _set
 from test_torch_train import LOSS_RTOL, assert_grad_close, jax_noise
 from tests.test_fast_rcnn import ProposalDataset as JaxProposalDataset
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 class ProposalDataset(SyntheticDataset):
     """The JAX test's ``ProposalDataset`` in the port: each sample carries

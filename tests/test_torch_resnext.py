@@ -16,11 +16,9 @@ gradients and updates 1e-4 of each tensor's largest magnitude.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
-from detectron2_tensorflow_tpu import solver as jsolver
 from detectron2_tensorflow_tpu.models import build_model as jax_build_model
 from detectron2_tensorflow_tpu_torch import solver as tsolver
 from detectron2_tensorflow_tpu_torch.convert import convert_variables
@@ -36,7 +34,8 @@ from test_torch_c4 import (
     yaml_cfgs,
 )
 from test_torch_train import GRAD_TOL, LOSS_RTOL, MASK_LOSS_RTOL, assert_grad_close
-from test_torch_train import assert_update_close, jax_proposals
+from test_torch_train import assert_update_close, jax_proposals, jax_updated_params
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 GROUPED = {"MODEL.RESNETS.NUM_GROUPS": 4, "MODEL.RESNETS.WIDTH_PER_GROUP": 8,
            "MODEL.RESNETS.STRIDE_IN_1X1": False, "MODEL.NECK.OUT_CHANNELS": 32}
@@ -148,10 +147,8 @@ def test_grouped_train_step_update_matches_optax(grouped_step):
         metrics = build_train_step(tcfg, state)(run["tbatch"], noise=run["noise"])
     np.testing.assert_allclose(float(metrics["total_loss"]), run["j_total"], rtol=LOSS_RTOL,
                                atol=MASK_LOSS_RTOL * run["j_losses"]["loss_mask"])
-    params = run["variables"]["params"]
-    tx = jsolver.build_optimizer(jcfg, params)
-    updates, _ = tx.update(run["j_grads"], tx.init(params), params)
-    want = convert_variables({"params": optax.apply_updates(params, updates)})
+    want = convert_variables({"params": jax_updated_params(jcfg, run["variables"]["params"],
+                                                           run["j_grads"])})
     for name, p in model.named_parameters():
         assert_update_close(p.detach().numpy(), want[name].numpy(), start[name].numpy(),
                             GRAD_TOL, name)

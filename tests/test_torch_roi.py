@@ -23,6 +23,7 @@ from detectron2_tensorflow_tpu.ops.pallas.roi_patch import roi_patch_backward as
 from detectron2_tensorflow_tpu.ops.pallas.roi_patch import roi_patch_interpolate as pallas_roi
 from detectron2_tensorflow_tpu.ops.pallas.roi_patch import roi_patch_pool_multi as pallas_multi
 from detectron2_tensorflow_tpu_torch.models import poolers as tp
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 STRIDES = [4, 8, 16, 32]
 ATOL = 1e-5

@@ -36,6 +36,7 @@ from detectron2_tensorflow_tpu_torch.models.meta_arch.postprocess import (
 )
 from detectron2_tensorflow_tpu_torch.ops import fused_residual
 from test_torch_config import narrow_cfgs
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 H, W = 128, 160
 SIZES = np.array([[128, 160], [112, 150]], np.int32)

@@ -93,6 +93,7 @@ from test_torch_slice import (
     fused_switch,
     tame_variables,
 )
+from test_torch_config import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W, G = 2, 128, 160, 5
 LOSS_RTOL, MASK_LOSS_RTOL = 1e-5, 3e-4
@@ -167,6 +168,14 @@ def assert_grad_close(got, want, name):
     np.testing.assert_allclose(got, want, rtol=0, atol=GRAD_TOL * float(np.abs(want).max()),
                                err_msg=name)
     assert np.linalg.norm(got - want) <= GRAD_TOL * np.linalg.norm(want), name
+
+
+def jax_updated_params(jcfg, params, grads):
+    """``params`` after one step of the JAX optax chain on ``grads``, through
+    one jitted function (the eager chain compiles every leaf's ops apart)."""
+    tx = jsolver.build_optimizer(jcfg, params)
+    return jax.jit(lambda g, p: optax.apply_updates(p, tx.update(g, tx.init(p), p)[0]))(
+        grads, params)
 
 
 def assert_update_close(got, want, start, tol, name):
@@ -470,9 +479,13 @@ def test_optimizer_steps_match_optax(run, overrides):
     tparams = dict(model.named_parameters())
     norm = np.sqrt(sum(float((grads[n] ** 2).sum()) for n in opt_trainable(model)))
     assert (norm > tcfg.SOLVER.CLIP_GRADIENTS_BY_NORM) == bool(overrides)  # clipping triggers
-    for _ in range(3):
+    @jax.jit
+    def jstep(opt_state, params):
         updates, opt_state = tx.update(run["j_grads"], opt_state, params)
-        params = optax.apply_updates(params, updates)
+        return opt_state, optax.apply_updates(params, updates)
+
+    for _ in range(3):
+        opt_state, params = jstep(opt_state, params)
         for name, p in tparams.items():
             p.grad = grads[name].clone()
         opt.step()
@@ -506,10 +519,8 @@ def test_train_step_matches_jax_update(run):
     np.testing.assert_allclose(float(metrics["total_loss"]), run["j_total"], rtol=LOSS_RTOL,
                                atol=MASK_LOSS_RTOL * run["j_losses"]["loss_mask"])
 
-    params = run["variables"]["params"]
-    tx = jsolver.build_optimizer(jcfg, params)
-    updates, _ = tx.update(run["j_grads"], tx.init(params), params)
-    want = convert_variables({"params": optax.apply_updates(params, updates)})
+    want = convert_variables({"params": jax_updated_params(jcfg, run["variables"]["params"],
+                                                           run["j_grads"])})
     for name, p in model.named_parameters():
         assert_update_close(p.detach().numpy(), want[name].numpy(), start[name].numpy(),
                             GRAD_TOL, name)
