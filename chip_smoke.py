@@ -79,7 +79,7 @@ any failure exits non-zero:
      ``TEST.EXPECTED_RESULTS`` ``[['bbox', 'AP', 88.0, 10.0], ['segm', 'AP',
      84.0, 12.0]]``; it prints the APs, the final loss, the train seconds,
      the seconds per iteration and the loader's host seconds per batch.
-     Beside (b) run the overfit gates of phases 9, 10 and 11, five
+     Beside (b) run the overfit gates of phases 9, 10, 11 and 12, six
      ``tools.overfit_check`` subprocesses (host-bound, as (b) is);
   9. single_level: the C4 (``Res5ROIHeads``) and DC5 (dilated res5)
      families. Each kernel at their shapes against its plain version, timed
@@ -146,7 +146,29 @@ any failure exits non-zero:
      every trainable parameter moved, RetinaNet's ``loss_normalizer``
      moved; device ms per step and peak memory). Their overfit gates,
      ``tools.overfit_check 600 --arch retinanet`` and ``--arch cascade``,
-     run in phase 8 beside the others (bbox AP50 >= 90).
+     run in phase 8 beside the others (bbox AP50 >= 90);
+ 12. keypoint: Keypoint R-CNN R50-FPN. ``nms_keep`` bit-equal at its
+     training RPN (8 images x 5 levels of 2000, ``max_keep`` 1500, the
+     YAML's ``POST_NMS_TOPK_TRAIN``); ``roi_patch_fwd`` on the keypoint
+     pooler's fixed-ratio plan (sampling ratio 2, S = 14, C = 256) at 2 x
+     100 and 8 x 128, bf16 and float32, and ``roi_patch_bwd`` on it at 8 x
+     128, each timed beside its bound; a narrow float32 model and train
+     step held against the CPU (``pred_keypoints`` x, y to 1e-3 px, scores
+     to 1e-5, ``loss_keypoint`` and the gradients to the phase's standing
+     tolerances); ``keypoint_rcnn_R_50_FPN_1x.yaml`` (bf16, seeded random
+     weights) serving 2 x 800 x 1344 with the switch off and on (100 valid
+     finite clipped detections per image, every keypoint finite and inside
+     its box; per ``predict`` 2 ``nms_keep`` and 2 ``roi_patch_fwd``, 16
+     fused tails on) and training 3 steps at 8 x 800 x 1344 with 64 GT of
+     17 keypoints each (per step 1 ``nms_keep``, 2 ``roi_patch_fwd``, 2
+     ``roi_patch_bwd``: box and keypoint ROIs in one fused pool; losses
+     finite, ``loss_keypoint`` among them, the frozen stem and res2
+     bit-equal, every trainable parameter moved but the keypoint deconv's
+     bias, whose gradient is zero: a per-keypoint constant does not move a
+     softmax over the positions); device ms per call, idle share, peak
+     memory. Its overfit gate, ``tools.overfit_check 600 --arch keypoint``,
+     runs in phase 8 beside the others: bbox AP50 >= 90, and a keypoint AP
+     no more than 10 below the JAX package's on the same recipe.
 
 Each phase's seconds are printed on a line of their own. A probe line then
 says whether ``cv2``, ``PIL`` and ``torchvision`` import and whether ``g++``
@@ -476,17 +498,19 @@ def nms_case(dev, name, boxes, valid, thr, mk, plain=greedy_keep_reference, reps
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def roi_inputs(rng, dev, dtype, n, s, valid_frac=0.9, objects=None):
-    """A real storage plane (p2-p5 of an 800x1344 image, C=256, with the
+def roi_inputs(rng, dev, dtype, n, s, valid_frac=0.9, objects=None, b=2, ratio=0):
+    """A real storage plane (p2-p5 of ``b`` 800x1344 images, C=256, with the
     extent-tier aliases) and a plan for ``n`` random boxes per image,
-    jittered copies of ``objects`` objects (default ``n // 4``)."""
-    b, c = 2, 256
+    jittered copies of ``objects`` objects (default ``n // 4``), at
+    sampling ratio ``ratio`` (0: D2's adaptive rule)."""
+    c = 256
     feats = [torch.from_numpy(rng.standard_normal((b, 800 // st, 1344 // st, c)).astype(np.float32))
              .to(dev, dtype) for st in (4, 8, 16, 32)]
     storage, meta = build_storage(feats, [4, 8, 16, 32], plan_patch(1333, 32))
     boxes, _ = clustered_boxes(rng, b, n, objects=objects or max(n // 4, 8))
     valid = torch.from_numpy(rng.uniform(0, 1, (b, n)) < valid_frac).to(dev)
-    starts, wy, wx = plan_rois(meta, torch.from_numpy(boxes).to(dev), s, 0, 224, 4, valid=valid)
+    starts, wy, wx = plan_rois(meta, torch.from_numpy(boxes).to(dev), s, ratio, 224, 4,
+                               valid=valid)
     return storage.contiguous(), starts.contiguous(), wy.contiguous(), wx.contiguous(), valid
 
 
@@ -884,6 +908,14 @@ def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
         errs[k] = float((torch.gather(got[k], 1, slots) - want.get_fields()[k]).abs().max())
         if not errs[k] <= tol:
             raise AssertionError(f"small input: {k} max |err| {errs[k]} > {tol}")
+    if "pred_keypoints" in got:  # x, y and score held apart
+        slots = order[..., None, None].expand_as(got["pred_keypoints"])
+        diff = (torch.gather(got["pred_keypoints"], 1, slots) - want.pred_keypoints).abs()
+        errs["keypoints xy"] = float(diff[..., :2].max())
+        errs["keypoint scores"] = float(diff[..., 2].max())
+        for k, tol in zip(("keypoints xy", "keypoint scores"), KEYPOINT_TOL):
+            if not errs[k] <= tol:
+                raise AssertionError(f"small input: {k} max |err| {errs[k]} > {tol}")
     swapped = int((order != torch.arange(order.shape[1])).sum())
     log(f"{label} small f32 input, fused tail {'on' if fused else 'off'}, card vs CPU: "
         f"valid={int(want.is_valid.sum())} slots equal, classes equal, {swapped} slots "
@@ -891,8 +923,17 @@ def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
 
 
-# Narrow float32 model, card against CPU: boxes, scores and masks per slot.
+# Narrow float32 model, card against CPU: boxes, scores and masks per slot;
+# keypoints' x, y (px) and scores.
 SMALL_TOL = {"boxes": 1e-3, "scores": 1e-5, "pred_masks": 1e-4}
+KEYPOINT_TOL = (1e-3, 1e-5)
+# Gradients zero by construction, held below TRAIN_GRAD_TOL of the named
+# sibling's largest gradient on both sides (relative to themselves they are
+# float32 noise) and exempt from "every trainable parameter moved": the
+# keypoint deconv's bias adds one constant to a keypoint's every position,
+# which the softmax over the positions does not see.
+ZERO_GRADS = {"roi_heads.keypoint_head.score_lowres.bias":
+              "roi_heads.keypoint_head.score_lowres.weight"}
 
 
 def small_proposals(cfg, sizes, seed=SEED):
@@ -960,6 +1001,19 @@ def check_outputs(cfg, out, batch, b, h, w, label, mask_size=28, phase="model   
         if tuple(p.shape) != (b, 100, h, w) or p.dtype != torch.uint8:
             raise AssertionError(f"{label}: postprocess gave {tuple(p.shape)} {p.dtype}")
         pasted = f", pasted masks {tuple(p.shape)} with {int(p.sum())} pixels set"
+    if "pred_keypoints" in f:
+        kp = f["pred_keypoints"]
+        k = cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS
+        if tuple(kp.shape) != (b, 100, k, 3) or not bool(torch.isfinite(kp).all()):
+            raise AssertionError(f"{label}: keypoints {tuple(kp.shape)}, finite "
+                                 f"{bool(torch.isfinite(kp).all())}")
+        tol = 1e-3 * max(1.0, float(bx.abs().max()))
+        inside = ((kp[..., 0] >= bx[..., None, 0] - tol) & (kp[..., 0] <= bx[..., None, 2] + tol)
+                  & (kp[..., 1] >= bx[..., None, 1] - tol) & (kp[..., 1] <= bx[..., None, 3] + tol))
+        if not bool(inside.all()):
+            raise AssertionError(f"{label}: {int((~inside).sum())} keypoints outside their box")
+        pasted += (f", {k} keypoints per detection, all finite and inside their box, scores in "
+                   f"[{float(kp[..., 2].min()):.2e}, {float(kp[..., 2].max()):.2e}]")
     log(f"{phase} {label}: outputs finite, 100 valid detections per image, boxes clipped, "
         f"scores in [{float(f['scores'].min()):.4f}, {float(f['scores'].max()):.4f}], "
         f"{len(set(f['pred_classes'].flatten().tolist()))} classes{pasted}")
@@ -1146,6 +1200,14 @@ def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held
             raise AssertionError("narrow train step: non-finite gradients on the card")
         want_g = {n: w for n, w in want_g.items() if n.startswith(held)}
     worst, worst_norm = (0.0, ""), (0.0, "")
+    for n, sibling in ZERO_GRADS.items():
+        if n in want_g:
+            w = want_g.pop(n)
+            scale = TRAIN_GRAD_TOL * float(want_g[sibling].abs().max())
+            if not (float(w.abs().max()) <= scale and float(got_g[n].abs().max()) <= scale):
+                raise AssertionError(f"narrow train step: the zero gradient of {n} is "
+                                     f"{float(got_g[n].abs().max()):.3g} on the card, "
+                                     f"{float(w.abs().max()):.3g} on the CPU (bound {scale:.3g})")
     for n, w in want_g.items():
         diff = got_g[n] - w
         rel = float(diff.abs().max()) / max(float(w.abs().max()), 1e-30)
@@ -1606,6 +1668,10 @@ SINGLE_TURNS = (False, True, True, False)
 # 100 in 8 runs of 8; PERF.md section 6).
 OVERFIT_AP50 = 90.0
 OVERFIT_JAX_C4_BBOX_AP = 54.58
+# The keypoint gate's keypoint AP is held one-sided the same way against the
+# JAX tool's (tools/overfit_check.py 600 --arch keypoint on the CPU: bbox AP
+# 94.32, AP50 100.0, keypoint AP 84.87; PERF.md section 6).
+OVERFIT_JAX_KEYPOINT_AP = 84.87
 OVERFIT_JAX_STEPS = 600
 OVERFIT_AP_BELOW = 10.0
 
@@ -1840,14 +1906,15 @@ def train_single_level(dev, name: str):
     return launches
 
 
-OVERFIT_STEPS = {"c4": 1200, "rcnn": 600, "cls_agnostic": 600, "retinanet": 600, "cascade": 600}
+OVERFIT_STEPS = {"c4": 1200, "rcnn": 600, "cls_agnostic": 600, "retinanet": 600, "cascade": 600,
+                 "keypoint": 600}
 
 
 def start_overfit_gates():
     """Start ``tools.overfit_check`` on c4 (1200 steps, evaluated at 600 as
-    well), rcnn, (phase 10's family) cls_agnostic and (phase 11's)
-    retinanet and cascade (600 each) as subprocesses at once (each is
-    host-bound); :func:`finish_overfit_gates` reads them."""
+    well), rcnn, (phase 10's family) cls_agnostic, (phase 11's) retinanet
+    and cascade and (phase 12's) keypoint (600 each) as subprocesses at once
+    (each is host-bound); :func:`finish_overfit_gates` reads them."""
     procs = {}
     for arch, steps in OVERFIT_STEPS.items():
         cmd = [sys.executable, "-m", "detectron2_tensorflow_tpu_torch.tools.overfit_check",
@@ -1861,8 +1928,9 @@ def start_overfit_gates():
 
 def finish_overfit_gates(procs):
     """Wait for the gates; each JSON line is logged, the last of each gates
-    (bbox AP50 >= 90), and c4's at step 600 (bbox AP no more than 10 below
-    the JAX package's). Returns each family's last line."""
+    (bbox AP50 >= 90), c4's at step 600 (bbox AP no more than 10 below the
+    JAX package's) and keypoint's keypoint AP (no more than 10 below the JAX
+    package's). Returns each family's last line."""
     lines = {}
     for arch, proc in procs.items():
         t0 = time.perf_counter()
@@ -1892,6 +1960,11 @@ def finish_overfit_gates(procs):
         raise AssertionError(f"overfit --arch c4: bbox AP {c4['bbox_ap']} at step "
                              f"{OVERFIT_JAX_STEPS} more than {OVERFIT_AP_BELOW} below the JAX "
                              f"package's {OVERFIT_JAX_C4_BBOX_AP}")
+    kp = lines["keypoint"][-1]
+    if not kp.get("keypoints_ap", -1.0) >= OVERFIT_JAX_KEYPOINT_AP - OVERFIT_AP_BELOW:
+        raise AssertionError(f"overfit --arch keypoint: keypoint AP {kp.get('keypoints_ap')} "
+                             f"more than {OVERFIT_AP_BELOW} below the JAX package's "
+                             f"{OVERFIT_JAX_KEYPOINT_AP}")
     return {arch: rs[-1] for arch, rs in lines.items()}
 
 
@@ -1988,6 +2061,7 @@ def two_stage_cfg(name: str, narrow: bool = False, batch: int = 0):
         cfg.MODEL.ROI_BOX_HEAD.CONV_DIM = 32
         cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 64
         cfg.MODEL.ROI_MASK_HEAD.CONV_DIM = 32
+        cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = (32,) * 8
         cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
         cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES = 5
         cfg.MODEL.DTYPE = "float32"
@@ -2183,7 +2257,7 @@ def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False):
     rounded = [n for n in unchanged if float(buffers[trainable[n]]["momentum_buffer"].abs().max()) > 0
                and lr * float(buffers[trainable[n]]["momentum_buffer"].abs().max())
                < 0.5 * torch.finfo(torch.float32).eps * float(trainable[n].abs().max())]
-    unchanged = [n for n in unchanged if n not in rounded]
+    unchanged = [n for n in unchanged if n not in rounded and n not in ZERO_GRADS]
     if changed_frozen or unchanged or not frozen:
         raise AssertionError(f"{name}: frozen parameters changed: {changed_frozen}; trainable "
                              f"unchanged: {unchanged}")
@@ -2342,7 +2416,13 @@ SINGLE_STAGE_CASCADE = {
     "cascade": {"yaml": CASCADE_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 4},
                 "step": {"nms_keep": 1, "roi_patch_fwd": 4, "roi_patch_bwd": 4}},
 }
-SPECS = {**TWO_STAGE, **SINGLE_STAGE_CASCADE}
+KEYPOINT_YAML = "configs/COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml"
+# Keypoint R-CNN: the RPN's and the box head's NMS and two pools per predict
+# (the proposals, the detections at the keypoint pooler's 14 x 14); per step
+# the RPN's NMS and one fused pool of the box and keypoint ROIs.
+KEYPOINT = {"keypoint": {"yaml": KEYPOINT_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 2},
+                         "step": {"nms_keep": 1, "roi_patch_fwd": 2, "roi_patch_bwd": 2}}}
+SPECS = {**TWO_STAGE, **SINGLE_STAGE_CASCADE, **KEYPOINT}
 SSC = "ssc       "  # the phase's log tag
 
 
@@ -2381,6 +2461,75 @@ def run_single_stage_cascade(rng, dev):
         serving[name] = serve_two_stage(rng, dev, name, turns=(False, True), tag=SSC)
         training[name] = train_two_stage(rng, dev, name, tag=SSC, profile=True)
     return {"nms": nms, "serving": serving, "training": training}
+
+
+# -- phase 12: keypoint ---------------------------------------------------------------
+
+KP = "keypoint  "  # the phase's log tag
+
+
+def check_keypoint_kernels(rng, dev):
+    """The kernels at Keypoint R-CNN's new shapes: ``nms_keep`` bit-equal at
+    its training RPN (8 images x 4 levels of 2000 and p6's 819 padded,
+    ``max_keep`` 1500); ``roi_patch_fwd`` on the keypoint pooler's plan
+    (sampling ratio 2, S = 14, C = 256) at serving's 2 x 100 and training's
+    8 x 128, bf16 and float32; ``roi_patch_bwd`` on it at 8 x 128 (bf16 and
+    float32 cotangents, boxes clustered on 12 objects)."""
+    b, v = stacked_levels(rng, 8, 2000)
+    nms = nms_case(dev, "train rpn stacked 8x(4x2000 + 819 padded) iou=0.7 max_keep=1500",
+                   b, v, 0.7, 1500, reps=20, tag=f"{KP} nms_keep")
+    fwd = []
+    for images, n in ((2, 100), (8, 128)):
+        for dtype in (torch.bfloat16, torch.float32):
+            fwd.append(roi_fwd_case(f"keypoint ratio=2 S=14 {images}x{n}",
+                                    *roi_inputs(rng, dev, dtype, n, 14, b=images, ratio=2),
+                                    tag=f"{KP} roi_patch"))
+    torch.cuda.empty_cache()
+    storage, starts, wy, wx, valid = roi_inputs(rng, dev, torch.bfloat16, 128, 14, objects=12,
+                                                b=8, ratio=2)
+    shape = tuple(storage.shape)
+    del storage
+    bwd = []
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.from_numpy(rng.standard_normal((8, 128, 14, 14, 256)).astype(np.float32)).to(
+            dev, dtype)
+        bwd.append(roi_bwd_case("keypoint ratio=2 S=14 8x128", g, starts, wy, wx, valid, shape,
+                                tag=f"{KP} roi_bwd  "))
+    torch.cuda.empty_cache()
+    return {"nms": nms, "fwd": fwd, "bwd": bwd}
+
+
+def run_keypoint(rng, dev):
+    """Phase 12: Keypoint R-CNN R50-FPN. The kernels at its new shapes; a
+    narrow float32 model and train step card against CPU; the YAML served 2
+    x 800 x 1344 bf16 (switch off and on) and trained 3 steps at 8 x 800 x
+    1344, launches asserted. Returns the kernel results and the runs'
+    launches."""
+    kernels_ = check_keypoint_kernels(rng, dev)
+    check_small_against_cpu(rng, dev, False, two_stage_cfg("keypoint", narrow=True),
+                            label=f"{KP} keypoint")
+    check_train_against_cpu(dev, False, two_stage_cfg("keypoint", narrow=True, batch=2),
+                            label=f"{KP} keypoint")
+    serving = serve_two_stage(rng, dev, "keypoint", turns=(False, True), tag=KP)
+    training, peak = train_two_stage(rng, dev, "keypoint", tag=KP, profile=True)
+    return {**kernels_, "serving": serving, "training": training, "peak": peak}
+
+
+def keypoint_lines(kp):
+    """The ``kernels`` line's entries of phase 12's shapes (``<kernel>@keypoint_<case>``);
+    ``launches`` counts the kernel in the Keypoint R-CNN run that has the
+    shape (its training for the RPN's NMS, the 8 x 128 pools and the
+    backward, its serving for the 2 x 100 pools)."""
+    s, t = kp["serving"], kp["training"]
+    rows = [("nms_keep", NMS_SRC, tpu_kernel("*/ops/pallas/nms_keep.py", 161), t["nms_keep"],
+             kp["nms"])]
+    rows += [("roi_patch_fwd", ROI_SRC, tpu_kernel("*/ops/pallas/roi_patch.py", 667),
+              t["roi_patch_fwd"] if "8x128" in r["case"] else s["roi_patch_fwd"], r)
+             for r in kp["fwd"]]
+    rows += [("roi_patch_bwd", ROI_SRC, tpu_kernel("*/ops/pallas/roi_patch.py", 440),
+              t["roi_patch_bwd"], r) for r in kp["bwd"]]
+    return [kernel_line(f"{kernel}@keypoint_{r['case'].replace(' ', '_')}", src, replaces, n, r,
+                        r["err"]) for kernel, src, replaces, n, r in rows]
 
 
 def probe():
@@ -2459,6 +2608,8 @@ def main() -> None:
         two = run_two_stage(rng, dev)
     with phase_seconds("single_stage_cascade"), fused_switch(False):
         ssc = run_single_stage_cascade(rng, dev)
+    with phase_seconds("keypoint"), fused_switch(False):
+        kp = run_keypoint(rng, dev)
     probe()
     log(f"seconds    total {time.perf_counter() - START:.1f}")
 
@@ -2485,6 +2636,7 @@ def main() -> None:
         kernel_line("nms_keep@single_stage_cascade_" + ssc["nms"]["case"].replace(" ", "_"),
                     NMS_SRC, tpu_kernel("*/ops/pallas/nms_keep.py", 161),
                     ssc["serving"]["retinanet"]["nms_keep"], ssc["nms"], ssc["nms"]["err"]),
+        *keypoint_lines(kp),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

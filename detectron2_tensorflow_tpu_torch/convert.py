@@ -29,7 +29,8 @@ Layout changes:
     needs no row reordering: the port flattens the pooled ``[S, S, C]``
     features in (h, w, c) order, as the JAX package does. (A Detectron2
     checkpoint flattens (c, h, w); loading one needs that permutation.)
-  * the mask head's deconv: the JAX package's ``ConvTranspose2D`` applies
+  * the mask head's and the keypoint head's deconvs (``deconv``,
+    ``score_lowres``): the JAX package's ``ConvTranspose2D`` applies
     the kernel as stored, PyTorch's ``ConvTranspose2d`` applies it
     spatially flipped with in/out swapped, so the kernel is flipped in H and
     W and laid out ``[in, out, kh, kw]``;
@@ -62,6 +63,7 @@ _PREFIX = {
     "box_heads_0": "roi_heads.box_head",
     "box_predictors_0": "roi_heads.box_predictor",
     "mask_head": "roi_heads.mask_head",
+    "keypoint_head": "roi_heads.keypoint_head",
 }
 _FROZEN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _AFFINE = {"scale": "weight", "bias": "bias"}

@@ -6,7 +6,8 @@ Port of ``pick_bucket``, ``pad_sample_to_batch_arrays`` and
 * images are padded to the smallest of ``cfg.INPUT.PAD_BUCKETS`` that fits,
   so the model sees a small static set of shapes, and samples are batched
   per bucket;
-* GT is padded to ``cfg.INPUT.MAX_GT_INSTANCES`` with validity masks;
+* GT is padded to ``cfg.INPUT.MAX_GT_INSTANCES`` with validity masks
+  (keypoints too: ``gt_keypoints [G, K, 3]``, zero in the padded slots);
 * precomputed proposals (``MODEL.LOAD_PROPOSALS``) fill fixed top-k slots
   ``proposal_boxes [K, 4]``, ``proposal_scores [K]`` and
   ``proposal_valid [K]``, best score first (a stable sort), empty slots
@@ -81,6 +82,10 @@ def pad_sample_to_batch_arrays(sample: Dict, bucket, max_gt: int, mini_mask: int
         gt_masks = np.zeros((max_gt, mini_mask, mini_mask), np.float32)
         gt_masks[:keep] = sample["masks"][:keep]
         out["gt_masks"] = gt_masks
+    if sample.get("keypoints") is not None:
+        gt_kp = np.zeros((max_gt, sample["keypoints"].shape[1], 3), np.float32)
+        gt_kp[:keep] = sample["keypoints"][:keep]
+        out["gt_keypoints"] = gt_kp
     if sample.get("proposals") is not None:
         out.update(proposal_slots(sample["proposals"], sample.get("proposal_scores"),
                                   int(sample.get("proposal_topk", 1000))))

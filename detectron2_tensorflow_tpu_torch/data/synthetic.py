@@ -4,7 +4,8 @@ The recipe and constructor of ``SyntheticDataset`` in the JAX package's
 ``tests/test_data.py``: image ``i`` draws from ``default_rng(i)`` 1-3
 rectangles of ``box_range`` pixels a side, paints each with its class's grey
 level (``(class + 1) * 60``, modulo 256 here, so that more than four classes
-fit in uint8) and gives each a full-image mask. ``first_id`` (0 there) offsets the
+fit in uint8) and gives each a full-image mask and, ``with_keypoints``, four
+keypoints at its box's corners, all labelled visible. ``first_id`` (0 there) offsets the
 image ids, and with them the draws, so that a second set (a validation
 split) holds other images. Besides indexing it has the surface the
 evaluator reads from a COCO dataset: ``images`` (``(info, annotations)``
@@ -29,11 +30,12 @@ class SyntheticDataset:
     """Deterministic little detection dataset (drawn rectangles)."""
 
     def __init__(self, n=8, h=97, w=153, num_classes=3, with_masks=True,
-                 seed=0, box_range=(10, 30), first_id=0):
+                 seed=0, box_range=(10, 30), first_id=0, with_keypoints=False):
         self.n, self.h, self.w = n, h, w
         self.box_range = box_range
         self.num_classes = num_classes
         self.with_masks = with_masks
+        self.with_keypoints = with_keypoints
         self.rng = np.random.default_rng(seed)
         self.samples = [self._make(first_id + i) for i in range(n)]
         self.images = [({"id": first_id + i, "file_name": f"{first_id + i}.jpg"}, [])
@@ -65,6 +67,12 @@ class SyntheticDataset:
         }
         if self.with_masks:
             s["masks"] = np.stack(masks)
+        if self.with_keypoints:  # (x0, y0), (x1, y0), (x0, y1), (x1, y1), visible
+            b = s["boxes"]
+            s["keypoints"] = np.stack([
+                np.stack([[b[j, 0], b[j, 1], 2.0], [b[j, 2], b[j, 1], 2.0],
+                          [b[j, 0], b[j, 3], 2.0], [b[j, 2], b[j, 3], 2.0]])
+                for j in range(len(b))]).astype(np.float32)
         return s
 
     def __len__(self):

@@ -12,14 +12,16 @@ uint8 images in fixed point, so images agree to one level.
 Every augmentation the default config leaves off (crop, vertical flip,
 rotation, the colour changes, box jitter) raises ``NotImplementedError``
 naming its ``AUGMENT.*`` key. Precomputed proposals (``proposals [P, 4]``
-xyxy, with ``proposal_scores [P]``, ``MODEL.LOAD_PROPOSALS``) are flipped
-and scaled with the boxes, as the JAX ``flip_horizontal`` and
-``resize_shortest_edge`` do. Samples that carry keypoints or semantic maps
-belong to families the port does not have yet and raise.
+xyxy, with ``proposal_scores [P]``, ``MODEL.LOAD_PROPOSALS``) and keypoints
+(``keypoints [N, K, 3]``: x, y, visibility) are flipped and scaled with the
+boxes, as the JAX ``flip_horizontal`` and ``resize_shortest_edge`` do: a
+flip mirrors the labelled keypoints' x and, for COCO's 17 person
+keypoints, swaps left and right (``COCO_KP_FLIP``). Samples that carry
+semantic maps belong to a family the port does not have yet and raise.
 
 Samples are dicts: image uint8 [H, W, 3] RGB, boxes float32 [N, 4] xyxy
 absolute, classes int [N], is_crowd bool [N], masks float [N, H, W]
-(optional).
+(optional), keypoints float32 [N, K, 3] (optional).
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-_UNPORTED_FIELDS = ("keypoints", "sem_seg")
+_UNPORTED_FIELDS = ("sem_seg",)
+# COCO person-keypoint left/right swap under a horizontal flip.
+COCO_KP_FLIP = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
 _OFF_AUGMENTATIONS = (
     ("CROP.ENABLED", lambda a: a.CROP.ENABLED),
     ("VERTICAL_FLIP", lambda a: a.VERTICAL_FLIP),
@@ -102,6 +106,12 @@ def flip_horizontal(sample: Dict) -> Dict:
         pr = sample["proposals"].copy()
         pr[:, [0, 2]] = w - pr[:, [2, 0]]
         out["proposals"] = pr
+    if sample.get("keypoints") is not None and len(sample["keypoints"]):
+        kp = sample["keypoints"].copy()
+        kp[..., 0] = np.where(kp[..., 2] > 0, w - kp[..., 0], kp[..., 0])
+        if kp.shape[1] == len(COCO_KP_FLIP):
+            kp = kp[:, COCO_KP_FLIP]
+        out["keypoints"] = kp
     if sample.get("masks") is not None:
         out["masks"] = sample["masks"][:, :, ::-1]
     return out
@@ -124,6 +134,11 @@ def resize_shortest_edge(sample: Dict, min_size: int, max_size: int) -> Tuple[Di
     if sample.get("proposals") is not None and len(sample["proposals"]):
         out["proposals"] = sample["proposals"] * np.array([nw / w, nh / h, nw / w, nh / h],
                                                           np.float32)
+    if sample.get("keypoints") is not None and len(sample["keypoints"]):
+        kp = sample["keypoints"].copy()
+        kp[..., 0] *= nw / w
+        kp[..., 1] *= nh / h
+        out["keypoints"] = kp
     if sample.get("masks") is not None and len(sample["masks"]):
         out["masks"] = np.stack([resize_bilinear(m, nh, nw) for m in sample["masks"]])
     return out, scale

@@ -6,14 +6,15 @@ Port of the detection family of the JAX package's ``engine/evaluator.py``
 ``config``).
 ``model.predict`` runs on the model's device (the card, unless the model was
 built on the CPU) and gives fixed-shape detections in network-input
-coordinates; the host scales the boxes to the original resolution, pastes
-the masks there and streams each image into the COCO bbox and segm
-evaluators; a ``ProposalNetwork``'s proposals go to the proposal-recall
+coordinates; the host scales the boxes and keypoints to the original
+resolution, pastes the masks there and streams each image into the COCO
+bbox, segm and keypoint (OKS) evaluators; a ``ProposalNetwork``'s proposals go to the proposal-recall
 evaluator (``box_proposals/AR@100``, ``box_proposals/AR@1000``) instead.
 A RetinaNet (``SingleStageDetector``) predicts no masks, so it gets the bbox
 evaluator alone. ``EVAL.CLASS_AGNOSTIC`` zeroes the GT and predicted classes before the
-evaluators see them. Test-time augmentation, the VOC, semantic and panoptic
-evaluators, keypoint evaluation and the drawn examples raise
+evaluators see them. ``TEST.KEYPOINT_OKS_SIGMAS`` replaces COCO's person
+sigmas of the keypoint evaluator. Test-time augmentation, the VOC, semantic
+and panoptic evaluators and the drawn examples raise
 ``NotImplementedError``: they wait for their families.
 """
 
@@ -36,9 +37,10 @@ logger = logging.getLogger(__name__)
 _DETECTION_METRICS = {
     "coco_detection_metrics": ("bbox", lambda n: CocoEvaluator(n, "bbox")),
     "coco_instance_segmentation_metrics": ("segm", lambda n: CocoEvaluator(n, "segm")),
+    "coco_keypoint_metrics": ("keypoints", lambda n: CocoEvaluator(n, "keypoints")),
 }
 _NOT_PORTED_METRICS = (
-    "coco_keypoint_metrics", "pascal_voc_detection_metrics",
+    "pascal_voc_detection_metrics",
     "weighted_pascal_voc_detection_metrics", "pascal_voc_instance_segmentation_metrics",
     "weighted_pascal_voc_instance_segmentation_metrics", "semantic_segmentation_metrics",
     "panoptic_segmentation_metrics",
@@ -53,7 +55,8 @@ def build_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
     """``predict(batch) -> outputs``: the batch's inputs (numpy arrays) go to the
     model's device, ``model.predict`` runs there, and the outputs come back
     as numpy arrays (``boxes``, ``scores``, ``pred_classes``, ``is_valid``
-    and, from a model with a mask head, ``pred_masks``)."""
+    and, from a model with a mask or keypoint head, ``pred_masks`` or
+    ``pred_keypoints``)."""
     del cfg  # one device: no mesh to build
     device = next(model.parameters()).device
 
@@ -62,14 +65,15 @@ def build_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
         out = model.predict(inputs).get_fields()
         return {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
                 for k, v in out.items()
-                if k in ("boxes", "scores", "pred_classes", "is_valid", "pred_masks")}
+                if k in ("boxes", "scores", "pred_classes", "is_valid", "pred_masks",
+                         "pred_keypoints")}
 
     return predict
 
 
 def build_detection_evaluators(cfg) -> Dict[str, tuple]:
     """The evaluators ``EVAL.METRICS`` names: ``{prefix: (evaluator, kind)}``
-    with kind ``bbox`` or ``segm``."""
+    with kind ``bbox``, ``segm`` or ``keypoints``."""
     num_classes = num_classes_of(cfg)
     out = {}
     for name in cfg.EVAL.METRICS:
@@ -81,6 +85,14 @@ def build_detection_evaluators(cfg) -> Dict[str, tuple]:
         prefix, factory = _DETECTION_METRICS[name]
         out[prefix] = (factory(num_classes), prefix)
     return out
+
+
+def keypoint_evaluator(cfg, num_classes: int) -> CocoEvaluator:
+    """A keypoint evaluator with ``TEST.KEYPOINT_OKS_SIGMAS``, if any."""
+    ev = CocoEvaluator(num_classes, "keypoints")
+    if list(cfg.TEST.KEYPOINT_OKS_SIGMAS):
+        ev.kp_sigmas = np.asarray(list(cfg.TEST.KEYPOINT_OKS_SIGMAS), np.float64)
+    return ev
 
 
 def _check_supported(cfg) -> None:
@@ -103,17 +115,24 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
     ``results_writer`` (an ``evaluation.coco_results.CocoResultsWriter``)
     also records every kept detection, in the original image's frame. With
     the default ``EVAL.METRICS`` (bbox only) the segm evaluator is
-    added when the model predicts masks; a segm evaluator gets no images
-    from a model without them, as in the JAX package.
+    added when the model predicts masks, and the keypoint evaluator at the
+    first image that has keypoints (a dataset without any gets none), as in
+    the JAX package; a segm or keypoint evaluator gets no images from a
+    model without masks or keypoints.
     """
     _check_supported(cfg)
     num_classes = num_classes_of(cfg)
+    auto_keypoints = False
     if cfg.MODEL.META_ARCHITECTURE == "ProposalNetwork":
         evaluators = {"box_proposals": (ProposalEvaluator(), "bbox")}
     else:
         evaluators = build_detection_evaluators(cfg)
-        if tuple(cfg.EVAL.METRICS) == ("coco_detection_metrics",) and cfg.MODEL.MASK_ON:
-            evaluators["segm"] = (CocoEvaluator(num_classes, "segm"), "segm")
+        if "keypoints" in evaluators:
+            evaluators["keypoints"] = (keypoint_evaluator(cfg, num_classes), "keypoints")
+        if tuple(cfg.EVAL.METRICS) == ("coco_detection_metrics",):
+            auto_keypoints = True
+            if cfg.MODEL.MASK_ON:
+                evaluators["segm"] = (CocoEvaluator(num_classes, "segm"), "segm")
     class_names = getattr(dataset, "class_names", None) or getattr(dataset, "thing_classes", None)
     if (cfg.EVAL.INCLUDE_METRICS_PER_CATEGORY or cfg.EVAL.ALL_METRICS_PER_CATEGORY) and class_names:
         for ev, _ in evaluators.values():
@@ -147,19 +166,30 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
             det = {"boxes": boxes, "scores": out["scores"][i][valid], "classes": classes}
             gt = {"boxes": raw["boxes"], "classes": gt_classes,
                   "is_crowd": raw["is_crowd"], "areas": raw.get("areas")}
+            if (auto_keypoints and "pred_keypoints" in out and "keypoints" in raw
+                    and "keypoints" not in evaluators):
+                evaluators["keypoints"] = (keypoint_evaluator(cfg, num_classes), "keypoints")
             det_masks = None
             if "pred_masks" in out and any(kind == "segm" for _, kind in evaluators.values()):
                 det_masks = paste_masks(out["pred_masks"][i][valid], boxes, oh, ow)
+            det_kps = None
+            if "pred_keypoints" in out:  # x, y to the original frame
+                det_kps = out["pred_keypoints"][i][valid].copy()
+                det_kps[..., 0] *= sx
+                det_kps[..., 1] *= sy
             for ev, kind in evaluators.values():
                 if kind == "bbox":
                     ev.add_image(gt, det)
-                elif det_masks is not None:
+                elif kind == "segm" and det_masks is not None:
                     gt_m = dict(gt)
                     gt_m["masks"] = raw.get("masks", np.zeros((len(raw["boxes"]), oh, ow))).astype(bool)
                     ev.add_image(gt_m, {**det, "masks": det_masks})
+                elif kind == "keypoints" and det_kps is not None and "keypoints" in raw:
+                    ev.add_image({**gt, "keypoints": raw["keypoints"]},
+                                 {**det, "keypoints": det_kps})
             if results_writer is not None:
                 results_writer.add_image(image_id, boxes, det["scores"], det["classes"],
-                                         det_masks)
+                                         det_masks, det_kps)
             n_done += 1
         if max_images is not None and n_done >= max_images:
             break

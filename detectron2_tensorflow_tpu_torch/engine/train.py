@@ -73,8 +73,10 @@ def make_train_batch(cfg, height: int = 800, width: int = 1344) -> Dict[str, np.
     defaults): ``IMS_PER_BATCH`` images of ``height x width`` with image size
     ``(height, min(width, 1333))``, ``MAX_GT_INSTANCES`` random GT boxes per
     image (scaled by ``height / 800``), classes (of the model's class count:
-    ``ROI_HEADS`` or, for a single-stage model, ``SINGLE_STAGE_HEAD``) and
-    56x56 mini-masks."""
+    ``ROI_HEADS`` or, for a single-stage model, ``SINGLE_STAGE_HEAD``),
+    56x56 mini-masks and, with ``KEYPOINT_ON``, ``NUM_KEYPOINTS`` keypoints
+    per GT box, uniform in the box, visibility 0, 1 or 2 (drawn last, so
+    the other fields do not depend on it)."""
     b = cfg.SOLVER.IMS_PER_BATCH
     g = cfg.INPUT.MAX_GT_INSTANCES
     rng = np.random.default_rng(0)
@@ -85,7 +87,7 @@ def make_train_batch(cfg, height: int = 800, width: int = 1344) -> Dict[str, np.
     image = rng.uniform(0, 255, (b, height, width, 3)).astype(np.float32)
     classes = rng.integers(0, num_classes_of(cfg), (b, g)).astype(np.int32)
     masks = rng.uniform(0, 1, (b, g, 56, 56)).astype(np.float32)
-    return {
+    batch = {
         "image": image,
         "image_size": np.tile(np.array([[height, min(width, 1333)]], np.int32), (b, 1)),
         "gt_boxes": boxes,
@@ -94,6 +96,14 @@ def make_train_batch(cfg, height: int = 800, width: int = 1344) -> Dict[str, np.
         "gt_is_crowd": np.zeros((b, g), bool),
         "gt_masks": masks,
     }
+    if cfg.MODEL.KEYPOINT_ON:
+        k = cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS
+        at = rng.uniform(0, 1, (b, g, k, 2))
+        kp = np.zeros((b, g, k, 3), np.float32)
+        kp[..., :2] = boxes[:, :, None, :2] + at * (boxes[:, :, None, 2:] - boxes[:, :, None, :2])
+        kp[..., 2] = rng.integers(0, 3, (b, g, k))
+        batch["gt_keypoints"] = kp
+    return batch
 
 
 def add_proposal_slots(cfg, batch: Dict[str, np.ndarray], training: bool,

@@ -1,15 +1,18 @@
 """COCO-style AP evaluation in numpy.
 
-Port of the JAX package's ``evaluation/coco_eval.py`` (bbox and segm): the
-COCOeval algorithm (greedy per-category matching over IoU thresholds
-0.50:0.05:0.95, crowd-ignore semantics, area ranges, 101-point interpolated
-precision), and :class:`ProposalEvaluator`, the class-agnostic proposal
-recall (Detectron2's ``box_proposals`` task) of its ``ProposalEvaluator``.
-Keypoint OKS waits for its family.
+Port of the JAX package's ``evaluation/coco_eval.py`` (bbox, segm and
+keypoints): the COCOeval algorithm (greedy per-category matching over IoU
+thresholds 0.50:0.05:0.95, or over the object keypoint similarity
+(:func:`oks_matrix`) for keypoints, crowd-ignore semantics, area ranges,
+101-point interpolated precision), and :class:`ProposalEvaluator`, the
+class-agnostic proposal recall (Detectron2's ``box_proposals`` task) of its
+``ProposalEvaluator``.
 
 Inputs are plain dicts at ORIGINAL image resolution:
-  gt:  boxes [G,4] xyxy, classes [G], is_crowd [G], (masks [G,H,W] bool)
-  det: boxes [D,4] xyxy, scores [D], classes [D], (masks [D,H,W] bool)
+  gt:  boxes [G,4] xyxy, classes [G], is_crowd [G], (masks [G,H,W] bool),
+       (keypoints [G,K,3]), (areas [G]: the annotations' segment areas)
+  det: boxes [D,4] xyxy, scores [D], classes [D], (masks [D,H,W] bool),
+       (keypoints [D,K,3])
 """
 
 from __future__ import annotations
@@ -55,6 +58,37 @@ def mask_iou_matrix(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.n
     return inter / np.maximum(union, 1e-10)
 
 
+COCO_KP_SIGMAS = np.array([
+    0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072,
+    0.062, 0.062, 0.107, 0.107, 0.087, 0.087, 0.089, 0.089,
+])
+
+
+def oks_matrix(dt_kp: np.ndarray, gt_kp: np.ndarray, gt_areas: np.ndarray,
+               iscrowd: np.ndarray, sigmas: Optional[np.ndarray] = None) -> np.ndarray:
+    """[D, G] object keypoint similarity (COCO OKS) of ``[N, K, 3]`` keypoints
+    (x, y, visibility or score): per GT with a labelled keypoint, the mean
+    over its labelled keypoints of ``exp(-d^2 / (2 s^2 (2 sigma)^2))`` with
+    ``s^2`` the GT's annotation area (at least 1; pycocotools reads
+    ``gt['area']``, the segment's, not the box's). ``sigmas`` defaults to
+    COCO's 17 person keypoints'; ``iscrowd`` is not read, as in the JAX
+    package."""
+    if len(dt_kp) == 0 or len(gt_kp) == 0:
+        return np.zeros((len(dt_kp), len(gt_kp)), np.float64)
+    sigmas = COCO_KP_SIGMAS if sigmas is None else sigmas
+    var = (2 * sigmas) ** 2
+    areas = np.asarray(gt_areas, np.float64)
+    out = np.zeros((len(dt_kp), len(gt_kp)), np.float64)
+    for g in range(len(gt_kp)):
+        vis = gt_kp[g, :, 2] > 0
+        if not vis.any():
+            continue
+        d2 = (dt_kp[:, :, 0] - gt_kp[g, :, 0]) ** 2 + (dt_kp[:, :, 1] - gt_kp[g, :, 1]) ** 2
+        e = d2 / var[None, :] / max(areas[g], 1.0) / 2.0
+        out[:, g] = np.exp(-e[:, vis]).mean(axis=1)
+    return out
+
+
 def _match_image(
     dt_scores, ious, gt_ignore, iscrowd, num_thresh
 ):
@@ -92,17 +126,15 @@ def _match_image(
 class CocoEvaluator:
     """Accumulates per-image GT/detections, computes COCO APs.
 
-    ``iou_type``: "bbox" or "segm" ("keypoints" waits for the keypoint
-    family and raises).
+    ``iou_type``: "bbox", "segm" or "keypoints" (matched by OKS with
+    ``kp_sigmas``, COCO's person sigmas when None).
     """
 
     def __init__(self, num_classes: int, iou_type: str = "bbox",
                  class_names: Optional[List[str]] = None,
                  per_category: bool = False,
                  all_per_category: bool = False):
-        if iou_type == "keypoints":
-            raise NotImplementedError("keypoint evaluation (OKS) is not ported")
-        if iou_type not in ("bbox", "segm"):
+        if iou_type not in ("bbox", "segm", "keypoints"):
             raise ValueError(f"unknown iou_type '{iou_type}'")
         self.num_classes = num_classes
         self.iou_type = iou_type
@@ -112,12 +144,16 @@ class CocoEvaluator:
         # coco_evaluator.py:19-32): per-category rows for EVERY summary
         # metric (AP50/AP75/APs/m/l), not just mAP.
         self.all_per_category = all_per_category
+        # TEST.KEYPOINT_OKS_SIGMAS: per-keypoint OKS sigmas for a keypoint
+        # vocabulary other than COCO's; None = COCO's person sigmas.
+        self.kp_sigmas = None
         # per (class, area) lists across images
         self._entries: List[Dict] = []
 
     def add_image(self, gt: Dict, det: Dict) -> None:
         """Record one image's ground truth and detections (original res)."""
         use_masks = self.iou_type == "segm"
+        use_kp = self.iou_type == "keypoints"
         gt_boxes = np.asarray(gt["boxes"], np.float64).reshape(-1, 4)
         gt_classes = np.asarray(gt["classes"], np.int64).reshape(-1)
         iscrowd = np.asarray(gt.get("is_crowd", np.zeros(len(gt_boxes), bool)), bool)
@@ -147,6 +183,12 @@ class CocoEvaluator:
                 gm = np.asarray(gt["masks"], bool)[gsel] if gsel.any() else np.zeros((0, 1, 1), bool)
                 dm = np.asarray(det["masks"], bool)[dsel][order] if dsel.any() else np.zeros((0, 1, 1), bool)
                 ious = mask_iou_matrix(dm, gm, iscrowd[gsel])
+            elif use_kp:  # a class without GT or detections: empty (0, 17, 3), as in JAX
+                gk = (np.asarray(gt["keypoints"], np.float64)[gsel]
+                      if gsel.any() else np.zeros((0, 17, 3)))
+                dk = (np.asarray(det["keypoints"], np.float64)[dsel][order]
+                      if dsel.any() else np.zeros((0, 17, 3)))
+                ious = oks_matrix(dk, gk, gt_area[gsel], iscrowd[gsel], sigmas=self.kp_sigmas)
             else:
                 ious = box_iou_matrix(dt_boxes[dsel][order], gt_boxes[gsel], iscrowd[gsel])
             entry["per_class"][int(c)] = {

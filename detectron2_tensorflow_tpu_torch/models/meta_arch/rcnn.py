@@ -1,21 +1,25 @@
-"""GeneralizedRCNN: Faster, Mask and Cascade Mask R-CNN, with an FPN (R50-FPN)
-or on one feature level (C4, DC5), Fast R-CNN over loaded proposals, and the
-RPN-only ProposalNetwork; serving and training losses.
+"""GeneralizedRCNN: Faster, Mask, Keypoint and Cascade Mask R-CNN, with an FPN
+(R50-FPN) or on one feature level (C4, DC5), Fast R-CNN over loaded
+proposals, and the RPN-only ProposalNetwork; serving and training losses.
 
 Port of ``predict_fn`` and ``loss_fn`` in the JAX package's
 ``models/meta_arch/rcnn.py`` (the families above). Serving: trunk and neck (FPN or
 none), RPN proposals, one pooling storage shared by the box and mask
-poolers, box head and class-aware NMS to fixed detection slots, mask head on
-the detections. Training: RPN losses, training proposals (without gradient)
-plus the GT boxes, ROI sampling, box and mask ROIs pooled by one fused op
-(one float32 gradient accumulator for both), box and mask losses.
+poolers, box head and class-aware NMS to fixed detection slots, mask head
+and keypoint head on the detections. Training: RPN losses, training
+proposals (without gradient) plus the GT boxes, ROI sampling, box, mask and
+keypoint ROIs pooled by one fused op (one float32 gradient accumulator for
+all), box, mask and keypoint losses. ``KEYPOINT_ON`` adds the keypoint
+head with ``MASK_ON`` on or off; ``predict`` then returns
+``pred_keypoints [B, D, K, 3]`` (x, y, score) in the input frame.
 
 The single-level models follow the JAX wiring of ``Res5ROIHeads`` (C4: the
 trunk stops at res4 and the res5 stage is the ROI head) and of
 ``StandardROIHeads`` on a dilated res5 (DC5). C4 takes no fused multi-pool:
 it pools the box set alone, and its mask head reads the res5 features of the
 leading (foreground) slots in training; in serving it pools the detections
-with the box pooler and runs res5 again for the mask head. Without
+with the box pooler and runs res5 again for the mask head. Its keypoint
+head, and a cascade's, pools its ROIs on its own, as in the JAX package. Without
 ``MASK_ON`` (Faster R-CNN) there is no mask branch and ``predict`` returns
 no ``pred_masks``.
 
@@ -88,10 +92,10 @@ class GeneralizedRCNN(Detector):
         if m.META_ARCHITECTURE != "GeneralizedRCNN":
             raise NotImplementedError(f"meta-architecture '{m.META_ARCHITECTURE}' is not ported "
                                       "by GeneralizedRCNN")
-        if m.KEYPOINT_ON or m.ROI_HEADS.NAME not in ROI_HEADS:
+        if m.ROI_HEADS.NAME not in ROI_HEADS:
             raise NotImplementedError(
-                f"ROI heads '{m.ROI_HEADS.NAME}' (keypoints {m.KEYPOINT_ON}): only Faster, Mask "
-                f"and Fast R-CNN with {', '.join(ROI_HEADS)} (no keypoints) are ported"
+                f"ROI heads '{m.ROI_HEADS.NAME}': only Faster, Mask, Keypoint and Fast R-CNN "
+                f"with {', '.join(ROI_HEADS)} are ported"
             )
         self.load_proposals = m.LOAD_PROPOSALS
         ported = [] if self.load_proposals else [("PROPOSAL_GENERATOR.NAME", "RPN")]
@@ -99,11 +103,14 @@ class GeneralizedRCNN(Detector):
             ported.append(("ROI_BOX_HEAD.NAME", "FastRCNNConvFCHead"))
         if m.MASK_ON:
             ported.append(("ROI_MASK_HEAD.NAME", "MaskRCNNConvUpsampleHead"))
+        if m.KEYPOINT_ON:
+            ported.append(("ROI_KEYPOINT_HEAD.NAME", "KRCNNConvDeconvUpsampleHead"))
         for key, name in ported:
             group, leaf = key.split(".")
             if m[group][leaf] != name:
                 raise NotImplementedError(f"MODEL.{key} '{m[group][leaf]}' is not ported")
         self.mask_on = m.MASK_ON
+        self.keypoint_on = m.KEYPOINT_ON
         shapes = self._build_backbone(cfg)
         if not self.load_proposals:
             rpn_in = [shapes[f] for f in m.RPN.IN_FEATURES]
@@ -115,9 +122,10 @@ class GeneralizedRCNN(Detector):
         """``batch = {"image": [B, H, W, 3] float, "image_size": [B, 2] int32}``
         (and, with ``LOAD_PROPOSALS``, the ``proposal_*`` slots) on the
         model's device -> ``Instances`` with ``boxes [B, D, 4]``,
-        ``scores [B, D]``, ``pred_classes [B, D]``, ``is_valid [B, D]`` and,
-        with ``MASK_ON``, ``pred_masks [B, D, 2S, 2S]`` (probabilities; 28 x
-        28 at the configs' resolutions)."""
+        ``scores [B, D]``, ``pred_classes [B, D]``, ``is_valid [B, D]``,
+        with ``MASK_ON`` ``pred_masks [B, D, 2S, 2S]`` (probabilities; 28 x
+        28 at the configs' resolutions) and with ``KEYPOINT_ON``
+        ``pred_keypoints [B, D, K, 3]`` (x, y, score)."""
         image_sizes = batch["image_size"]
         features = self.features(batch["image"])
         if self.load_proposals:
@@ -130,23 +138,27 @@ class GeneralizedRCNN(Detector):
         heads = self.roi_heads
         storage = heads.pooling_storage(features)
         detections = heads.box_detections(proposals, storage, image_sizes)
-        if not self.mask_on:
-            return detections
-        mask_in = heads.detection_mask_features(detections, storage)
-        return heads.mask_inference(heads.mask_head(mask_in), detections)
+        if self.mask_on:
+            mask_in = heads.detection_mask_features(detections, storage)
+            detections = heads.mask_inference(heads.mask_head(mask_in), detections)
+        if self.keypoint_on:
+            detections = heads.detection_keypoints(detections, storage)
+        return detections
 
     def losses(self, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
                ) -> Dict[str, torch.Tensor]:
         """The training losses of one batch: ``loss_rpn_cls``, ``loss_rpn_loc``
-        (not with ``LOAD_PROPOSALS``), ``loss_cls``, ``loss_box_reg`` and,
-        with ``MASK_ON``, ``loss_mask`` (float32 scalars).
+        (not with ``LOAD_PROPOSALS``), ``loss_cls``, ``loss_box_reg``, with
+        ``MASK_ON`` ``loss_mask`` and with ``KEYPOINT_ON`` ``loss_keypoint``
+        (float32 scalars).
 
         ``batch`` holds ``image [B, H, W, 3]``, ``image_size [B, 2]`` and the
         GT fields ``gt_boxes [B, G, 4]``, ``gt_classes [B, G]``,
         ``gt_valid [B, G]``, ``gt_masks [B, G, Mm, Mm]`` (mini-masks in GT-box
-        frames) and optionally ``gt_is_crowd [B, G]``. The two samplers draw
+        frames; with ``MASK_ON``), ``gt_keypoints [B, G, K, 3]`` (x, y,
+        visibility; with ``KEYPOINT_ON``) and optionally ``gt_is_crowd [B, G]``. The two samplers draw
         their uniform noise from ``generator`` (on the batch's device), RPN
         first, unless ``noise = {"rpn": (pos, neg), "roi": (pos, neg)}``
         hands the draws in (``[B, anchors]`` and ``[B, proposals]``). With
@@ -175,11 +187,14 @@ class GeneralizedRCNN(Detector):
         if roi_noise is None:
             roi_noise = draw_noise(generator, proposals.is_valid.shape, dev)
         sampled = heads.label_and_sample_proposals(proposals, batch, roi_noise)
-        box_losses, mask_in = heads.box_branch_losses(sampled, heads.pooling_storage(features),
-                                                      batch)
+        box_losses, inputs = heads.box_branch_losses(sampled, heads.pooling_storage(features),
+                                                     batch)
         losses.update(box_losses)
         if self.mask_on:
-            losses["loss_mask"] = heads.mask_loss(heads.mask_head(mask_in), sampled, batch)
+            losses["loss_mask"] = heads.mask_loss(heads.mask_head(inputs["mask"]), sampled, batch)
+        if self.keypoint_on:
+            kp_logits = heads.keypoint_head(inputs["keypoint"]).float()
+            losses["loss_keypoint"] = heads.keypoint_loss(kp_logits, sampled, batch)
         return losses
 
 
@@ -351,8 +366,10 @@ def _init_for_serving(model: nn.Module, generator: torch.Generator) -> None:
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 w = mod.weight
                 std = _small_std(name, jax_recipe=False)
-                if std is None and isinstance(mod, nn.ConvTranspose2d):  # stride = kernel
-                    std = math.sqrt(2.0 / w.shape[0])
+                if std is None and isinstance(mod, nn.ConvTranspose2d):
+                    # Each output sums in_channels * (kernel / stride)^2 taps.
+                    taps = w.shape[0] * (w.shape[2] // mod.stride[0]) * (w.shape[3] // mod.stride[1])
+                    std = math.sqrt(2.0 / taps)
                 elif std is None:
                     std = math.sqrt(2.0 / w[0].numel())
                 w.copy_(torch.randn(w.shape, generator=generator) * std)

@@ -7,6 +7,8 @@ patch) are stacked row-wise into one NHWC plane
 ``[P, P, C]`` patch at ``(row, tx)``, and bilinear sampling with D2's
 adaptive ``sampling_ratio=0`` bin average collapses into two contractions
 with per-ROI hat-weight matrices: ``out = Wy (S x P) . patch . Wx^T``.
+A fixed ``sampling_ratio`` r > 0 (the keypoint pooler's 2) takes ``S * r``
+uniform samples per axis instead, each bin the mean of its r.
 
 The plan (:func:`plan_rois`) is the JAX package's, operation for operation,
 including the 8-aligned ``tx`` and the tier classes of the TPU kernel (a
@@ -197,17 +199,22 @@ def plan_rois(meta: StorageMeta, boxes: torch.Tensor, output_size: int,
     roi_w = scaled[..., 2] - scaled[..., 0]
     roi_h = scaled[..., 3] - scaled[..., 1]
 
-    if sampling_ratio > 0:
-        raise NotImplementedError("only D2's adaptive sampling_ratio=0 is ported")
-    r_max = max(1, -(-(p - _EXTENT_MARGIN) // output_size))
-    ry = torch.clamp(torch.ceil(roi_h / output_size), 1, r_max).to(torch.int32)
-    rx = torch.clamp(torch.ceil(roi_w / output_size), 1, r_max).to(torch.int32)
-    ns_y = (output_size * ry).to(torch.float32)
-    ns_x = (output_size * rx).to(torch.float32)
-    first_y = y0 + 0.5 * roi_h / ns_y
-    first_x = x0 + 0.5 * roi_w / ns_x
-    max_y = torch.maximum(first_y, y0 + roi_h - 0.5 * roi_h / ns_y)
-    max_x = torch.maximum(first_x, x0 + roi_w - 0.5 * roi_w / ns_x)
+    adaptive = sampling_ratio <= 0
+    if adaptive:
+        r_max = max(1, -(-(p - _EXTENT_MARGIN) // output_size))
+        ry = torch.clamp(torch.ceil(roi_h / output_size), 1, r_max).to(torch.int32)
+        rx = torch.clamp(torch.ceil(roi_w / output_size), 1, r_max).to(torch.int32)
+        ns_y = (output_size * ry).to(torch.float32)
+        ns_x = (output_size * rx).to(torch.float32)
+        first_y = y0 + 0.5 * roi_h / ns_y
+        first_x = x0 + 0.5 * roi_w / ns_x
+        max_y = torch.maximum(first_y, y0 + roi_h - 0.5 * roi_h / ns_y)
+        max_x = torch.maximum(first_x, x0 + roi_w - 0.5 * roi_w / ns_x)
+    else:  # a fixed ratio: output_size * ratio uniform samples per axis
+        ys = _sample_coords(y0, roi_h, output_size, sampling_ratio)
+        xs = _sample_coords(x0, roi_w, output_size, sampling_ratio)
+        first_y, first_x = ys[..., 0], xs[..., 0]
+        max_y, max_x = ys.amax(dim=-1), xs.amax(dim=-1)
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     ty = torch.minimum(
@@ -217,11 +224,16 @@ def plan_rois(meta: StorageMeta, boxes: torch.Tensor, output_size: int,
     tx = torch.clamp(torch.floor(torch.clamp(first_x, min=0.0)), 0.0, float(w_max - p))
     tx = torch.floor(tx / _ALIGN) * _ALIGN
 
-    wy = _adaptive_weights(y0, roi_h, ry, ty, h_l, p, output_size, r_max)
-    wx = _adaptive_weights(x0, roi_w, rx, tx, w_l, p, output_size, r_max)
-    ok = ((roi_h > 0.0) & (roi_w > 0.0))[..., None, None]
-    wy = wy * ok
-    wx = wx * ok
+    if adaptive:
+        wy = _adaptive_weights(y0, roi_h, ry, ty, h_l, p, output_size, r_max)
+        wx = _adaptive_weights(x0, roi_w, rx, tx, w_l, p, output_size, r_max)
+        # A zero-extent axis has no adaptive samples: the whole bin is 0.
+        ok = ((roi_h > 0.0) & (roi_w > 0.0))[..., None, None]
+        wy = wy * ok
+        wx = wx * ok
+    else:
+        wy = _interp_weights(ys, ty, h_l, p, output_size, sampling_ratio)
+        wx = _interp_weights(xs, tx, w_l, p, output_size, sampling_ratio)
 
     rows = offsets[levels] + ty.to(torch.int32)
 

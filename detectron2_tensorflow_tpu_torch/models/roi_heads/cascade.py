@@ -15,7 +15,7 @@ stage's deltas.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -120,13 +120,13 @@ class CascadeROIHeads(StandardROIHeads):
 
     def box_branch_losses(self, sampled: SampledProposals, storage_pack,
                           gt: Dict[str, torch.Tensor]
-                          ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """Training's box stages on the stage-0 sample: each pools its boxes
         (the pooled features' gradient scaled by 1 / num_stages), takes its
         losses, then refines the boxes and matches them again for the next
-        stage, whose slots keep stage 0's validity. The mask head's input is
-        the stage-0 sample's leading ``mask_slots``, pooled on its own (the
-        JAX cascade fuses no pools)."""
+        stage, whose slots keep stage 0's validity. The mask and keypoint
+        heads' inputs are the stage-0 sample's leading ``mask_slots``, each
+        pooled on its own (the JAX cascade fuses no pools)."""
         boxes, gt_classes, gt_boxes = sampled.boxes, sampled.gt_classes, sampled.gt_boxes
         losses = {}
         for k in range(self.num_stages):
@@ -138,11 +138,14 @@ class CascadeROIHeads(StandardROIHeads):
             if k + 1 < self.num_stages:
                 boxes = self.refine_boxes(k, deltas, boxes, gt["image_size"])
                 gt_classes, gt_boxes, _ = self._rematch(k + 1, boxes, gt)
-        if not self.mask_on:
-            return losses, None
-        m = self.mask_slots
-        return losses, self.pool_mask_features(sampled.boxes[:, :m], storage_pack,
-                                               valid=sampled.valid[:, :m])
+        m, inputs = self.mask_slots, {}
+        if self.mask_on:
+            inputs["mask"] = self.pool_mask_features(sampled.boxes[:, :m], storage_pack,
+                                                     valid=sampled.valid[:, :m])
+        if self.keypoint_on:
+            inputs["keypoint"] = self.pool_keypoint_features(sampled.boxes[:, :m], storage_pack,
+                                                             valid=sampled.valid[:, :m])
+        return losses, inputs
 
     @torch.no_grad()
     def cascade_inference(self, stage_scores: List[torch.Tensor], final_deltas: torch.Tensor,

@@ -1,10 +1,13 @@
-"""Box and mask heads: ``FastRCNNConvFCHead`` (``NUM_CONV`` 3x3 convs,
-then ``NUM_FC`` FCs) and ``MaskRCNNConvUpsampleHead`` (4 convs, or none on
-C4, 2x deconv, 1x1 predictor), their convs with the config's norm or none.
+"""Box, mask and keypoint heads: ``FastRCNNConvFCHead`` (``NUM_CONV`` 3x3
+convs, then ``NUM_FC`` FCs), ``MaskRCNNConvUpsampleHead`` (4 convs, or none
+on C4, 2x deconv, 1x1 predictor), their convs with the config's norm or
+none, and ``KRCNNConvDeconvUpsampleHead`` (``CONV_DIMS`` 3x3 convs, a 4x4
+stride-2 deconv, a bilinear 2x upsample).
 
 Port of the JAX package's ``models/roi_heads/heads.py``. Module
 names follow Detectron2 (``conv1``, ``conv1.norm``, ``fc1``, ``mask_fcn1``,
-``mask_fcn1.norm``, ``deconv``, ``predictor``); a conv with a norm has no
+``mask_fcn1.norm``, ``deconv``, ``predictor``, ``conv_fcn1``,
+``score_lowres``); a conv with a norm has no
 bias. Pooled features arrive NHWC ``[N, S, S, C]``; ``fc1`` flattens them
 (after the convs) in that (h, w, c) order as the JAX package's
 ``_FlattenDense`` does, so its weight is the JAX kernel transposed (a D2
@@ -82,3 +85,38 @@ class MaskRCNNConvUpsampleHead(nn.Module):
             x = conv(x)
         x = F.relu(self.deconv(x))
         return self.predictor(x).permute(0, 2, 3, 1)
+
+
+class KRCNNConvDeconvUpsampleHead(nn.Module):
+    """``conv_dims`` 3x3 conv + relu layers (``conv_fcn{i}``), the
+    ``score_lowres`` deconv (kernel 4, stride 2) to ``num_keypoints``
+    channels, then a bilinear 2x upsample.
+
+    Input NHWC ``[N, S, S, C]`` -> logits NHWC ``[N, 4S, 4S, K]``. The JAX
+    deconv pads ``"SAME"`` (kernel != stride), which for kernel 4 and stride
+    2 is PyTorch's ``padding=1`` on the spatially flipped kernel (the flip is
+    ``convert.py``'s, as for the mask head's deconv). The JAX
+    ``jax.image.resize(..., "bilinear")`` at 2x has half-pixel centres and
+    renormalizes the taps at the border, which is what
+    ``F.interpolate(mode="bilinear", align_corners=False)`` gives.
+    """
+
+    def __init__(self, in_channels: int, num_keypoints: int, conv_dims):
+        super().__init__()
+        self.convs = []
+        ch = in_channels
+        for i, dim in enumerate(conv_dims):
+            conv = Conv2d(ch, dim, 3, activation="relu")
+            self.add_module(f"conv_fcn{i + 1}", conv)
+            self.convs.append(conv)
+            ch = dim
+        self.score_lowres = ConvTranspose2d(ch, num_keypoints, kernel_size=4, stride=2,
+                                            padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)  # NHWC memory seen as NCHW (channels_last)
+        for conv in self.convs:
+            x = conv(x)
+        x = self.score_lowres(x)
+        x = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+        return x.permute(0, 2, 3, 1)

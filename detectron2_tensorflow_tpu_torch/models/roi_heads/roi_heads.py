@@ -1,25 +1,28 @@
-"""ROI heads: proposal sampling for training, shared pooling storage, box
-and mask pooling, losses, box and mask inference.
+"""ROI heads: proposal sampling for training, shared pooling storage, box,
+mask and keypoint pooling, losses, box, mask and keypoint inference.
 
 Port of the JAX package's ``models/roi_heads/roi_heads.py``
 (``StandardROIHeads``: ``label_and_sample_proposals``, ``pooling_storage``,
 ``pool_multi``, ``pool_box_features``, ``pool_mask_features``,
-``box_losses``, ``mask_loss``, ``box_inference``, ``mask_inference``) and
+``pool_keypoint_features``, ``box_losses``, ``mask_loss``,
+``keypoint_loss``, ``box_inference``, ``mask_inference``,
+``keypoint_inference``) and
 of the head modules its ``rcnn.py`` builds around it: the FC box head
 (:class:`StandardROIHeads`, FPN and DC5 models) or the res5 stage shared by
 the box and mask branches (:class:`Res5ROIHeads`, C4 models). The pooling
 storage is one plane for any number of levels: one level (``res4`` or
 ``res5``) with its 2x and 4x extent-tier aliases on the single-level
 models. Every image samples exactly ``BATCH_SIZE_PER_IMAGE`` proposal
-slots, positives compacted to the front, and the mask branch trains on the
-first ``mask_slots = BATCH_SIZE_PER_IMAGE * POSITIVE_FRACTION`` of them, so
-no positive is dropped. Without ``MASK_ON`` there is no mask head.
+slots, positives compacted to the front, and the mask and keypoint
+branches train on the first ``mask_slots = BATCH_SIZE_PER_IMAGE *
+POSITIVE_FRACTION`` of them, so no positive is dropped. Without ``MASK_ON``
+there is no mask head, without ``KEYPOINT_ON`` no keypoint head.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -32,7 +35,7 @@ from ..backbones.resnet import build_res5_head
 from ..poolers import ROIPooler, pool_multi_from_storage
 from ..sampling import subsample_labels
 from .fast_rcnn import FastRCNNOutputLayers, fast_rcnn_inference, fast_rcnn_losses
-from .heads import FastRCNNConvFCHead, MaskRCNNConvUpsampleHead
+from .heads import FastRCNNConvFCHead, KRCNNConvDeconvUpsampleHead, MaskRCNNConvUpsampleHead
 
 
 @dataclasses.dataclass
@@ -48,8 +51,8 @@ class SampledProposals:
 
 
 class StandardROIHeads(nn.Module):
-    """The box head, box predictor and mask head (D2's names), with the
-    pooling and inference around them."""
+    """The box head, box predictor, mask head and keypoint head (D2's
+    names), with the pooling and inference around them."""
 
     def __init__(self, cfg, strides: List[int], in_channels: int):
         super().__init__()
@@ -87,6 +90,16 @@ class StandardROIHeads(nn.Module):
             self.mask_head = MaskRCNNConvUpsampleHead(mask_in, self.num_classes,
                                                       mh.NUM_CONV, mh.CONV_DIM, mh.NORM,
                                                       self.cls_agnostic_mask)
+        self.keypoint_on = cfg.MODEL.KEYPOINT_ON
+        if self.keypoint_on:
+            kh = cfg.MODEL.ROI_KEYPOINT_HEAD
+            self.keypoint_pooler = ROIPooler(kh.POOLER_RESOLUTION, strides,
+                                             kh.POOLER_SAMPLING_RATIO, kh.POOLER_TYPE,
+                                             max_image_size=max_img)
+            self.keypoint_head = KRCNNConvDeconvUpsampleHead(in_channels, kh.NUM_KEYPOINTS,
+                                                             kh.CONV_DIMS)
+            self.kp_normalize = kh.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS
+            self.kp_loss_weight = kh.LOSS_WEIGHT
 
     def _build_box_branch(self, cfg, in_channels: int) -> int:
         """The box head and predictor; returns the mask head's input channels."""
@@ -145,6 +158,11 @@ class StandardROIHeads(nn.Module):
     def pool_mask_features(self, boxes, storage_pack, valid=None) -> torch.Tensor:
         storage, meta = storage_pack
         pooled = self.mask_pooler.pool(storage, meta, boxes, valid)
+        return pooled.reshape((-1,) + pooled.shape[2:])
+
+    def pool_keypoint_features(self, boxes, storage_pack, valid=None) -> torch.Tensor:
+        storage, meta = storage_pack
+        pooled = self.keypoint_pooler.pool(storage, meta, boxes, valid)
         return pooled.reshape((-1,) + pooled.shape[2:])
 
     def pool_multi(self, requests: Sequence[tuple], storage_pack) -> List[torch.Tensor]:
@@ -218,24 +236,57 @@ class StandardROIHeads(nn.Module):
         den = torch.clamp(fg.sum().float() * (out * out), min=1.0)
         return num / den
 
+    def keypoint_loss(self, kp_logits: torch.Tensor, sampled: SampledProposals,
+                      gt: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Softmax cross-entropy over the ``S x S`` heatmap positions of
+        float32 logits ``[B*M, S, S, K]`` at each GT keypoint (``gt_keypoints
+        [B, G, K, 3]``: x, y, visibility) that is labelled (v > 0) and falls
+        in its foreground slot's proposal box; divided by the count of such
+        keypoints (``NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS``) or by the
+        foreground slots times K, at least 1; times ``LOSS_WEIGHT``."""
+        m = self.mask_slots
+        b = sampled.gt_classes.shape[0]
+        s, k = kp_logits.shape[1], kp_logits.shape[-1]
+        logits = kp_logits.reshape(b, m, s * s, k)
+        fg = (sampled.is_fg & sampled.valid)[:, :m]
+        matched = sampled.matched_idx[:, :m]
+        kp = torch.gather(gt["gt_keypoints"], 1, matched[..., None, None].expand(-1, -1, k, 3))
+        boxes = sampled.boxes[:, :m]
+        pw = torch.clamp(boxes[..., 2:3] - boxes[..., 0:1], min=1e-4)
+        ph = torch.clamp(boxes[..., 3:4] - boxes[..., 1:2], min=1e-4)
+        xi = torch.floor((kp[..., 0] - boxes[..., 0:1]) / pw * s).to(torch.int32)
+        yi = torch.floor((kp[..., 1] - boxes[..., 1:2]) / ph * s).to(torch.int32)
+        inside = (xi >= 0) & (xi < s) & (yi >= 0) & (yi < s)
+        visible = (kp[..., 2] > 0) & inside & fg[..., None]  # [B, M, K]
+        target = torch.clamp(yi, 0, s - 1) * s + torch.clamp(xi, 0, s - 1)
+        logp = torch.log_softmax(logits, dim=2)  # over the positions
+        picked = torch.gather(logp, 2, target[:, :, None, :].long())[:, :, 0, :]
+        if self.kp_normalize:
+            denom = torch.clamp(visible.sum().float(), min=1.0)
+        else:
+            denom = torch.clamp(fg.sum().float() * k, min=1.0)
+        return -self.kp_loss_weight * torch.sum(picked * visible) / denom
+
     def box_branch_losses(self, sampled: SampledProposals, storage_pack,
                           gt: Dict[str, torch.Tensor]
-                          ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
-        """Training's box branch: ``(box losses, the mask head's input
-        [B*M, S, S, C] or None without MASK_ON)``. The box and mask ROIs of
-        the sample are pooled by one fused op."""
-        if self.mask_on:
-            m = self.mask_slots
-            box_in, mask_in = self.pool_multi(
-                [(self.box_pooler, sampled.boxes, sampled.valid),
-                 (self.mask_pooler, sampled.boxes[:, :m], sampled.valid[:, :m])],
-                storage_pack,
-            )
-        else:
-            box_in = self.pool_box_features(sampled.boxes, storage_pack, valid=sampled.valid)
-            mask_in = None
-        scores, deltas, _ = self.box_outputs(box_in)
-        return self.box_losses(scores.float(), deltas.float(), sampled), mask_in
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """Training's box branch: ``(box losses, {"mask": the mask head's
+        input, "keypoint": the keypoint head's})``, each ``[B*M, S, S, C]``
+        and present with ``MASK_ON`` / ``KEYPOINT_ON``. The box ROIs of the
+        sample and, for each head on, its leading ``mask_slots`` are pooled by
+        one fused op, box, mask, keypoint in that order."""
+        m = self.mask_slots
+        heads = [(name, pooler) for name, pooler, on in (
+            ("mask", getattr(self, "mask_pooler", None), self.mask_on),
+            ("keypoint", getattr(self, "keypoint_pooler", None), self.keypoint_on)) if on]
+        pooled = self.pool_multi(
+            [(self.box_pooler, sampled.boxes, sampled.valid)]
+            + [(pooler, sampled.boxes[:, :m], sampled.valid[:, :m]) for _, pooler in heads],
+            storage_pack,
+        )
+        scores, deltas, _ = self.box_outputs(pooled[0])
+        return (self.box_losses(scores.float(), deltas.float(), sampled),
+                {name: x for (name, _), x in zip(heads, pooled[1:])})
 
     def box_detections(self, proposals: Instances, storage_pack, image_sizes) -> Instances:
         """Serving's box branch: pool every proposal slot, box head, then
@@ -248,6 +299,13 @@ class StandardROIHeads(nn.Module):
     def detection_mask_features(self, detections: Instances, storage_pack) -> torch.Tensor:
         """The mask head's input for the detections: their mask-pooled ROIs."""
         return self.pool_mask_features(detections.boxes, storage_pack, valid=detections.is_valid)
+
+    def detection_keypoints(self, detections: Instances, storage_pack) -> Instances:
+        """Serving's keypoint branch: the detections' keypoint-pooled ROIs
+        through the keypoint head, then ``keypoint_inference``."""
+        pooled = self.pool_keypoint_features(detections.boxes, storage_pack,
+                                             valid=detections.is_valid)
+        return self.keypoint_inference(self.keypoint_head(pooled).float(), detections)
 
     def box_inference(self, class_logits, deltas, proposals: Instances,
                       image_sizes) -> Instances:
@@ -276,6 +334,30 @@ class StandardROIHeads(nn.Module):
         sel = sel.reshape((b, d) + mask_logits.shape[1:3]).float()
         return detections.replace(pred_masks=torch.sigmoid(sel))
 
+    def keypoint_inference(self, kp_logits: torch.Tensor, detections: Instances) -> Instances:
+        """Float32 logits ``[B*D, S, S, K]`` -> ``pred_keypoints [B, D, K, 3]``:
+        per keypoint the softmax over the heatmap positions, its first
+        maximum's cell centre mapped into the detection's box (x, y) and that
+        maximum as the score, as the JAX package does (no heatmap resize to
+        the box)."""
+        b, d = detections.pred_classes.shape
+        s, k = kp_logits.shape[1], kp_logits.shape[-1]
+        # jax.nn.softmax's formula: PyTorch's CPU softmax takes a faster exp
+        # whose error (~4e-6 relative) would move the scores and the ties.
+        z = kp_logits.reshape(b, d, s * s, k)
+        e = torch.exp(z - z.amax(dim=2, keepdim=True))
+        probs = e / e.sum(dim=2, keepdim=True)
+        score = probs.amax(dim=2)  # [B, D, K]
+        idx = torch.argmax(probs, dim=2)  # the first maximum, as jnp.argmax
+        yi = torch.div(idx, s, rounding_mode="floor").float() + 0.5
+        xi = (idx % s).float() + 0.5
+        boxes = detections.boxes
+        pw = boxes[..., 2:3] - boxes[..., 0:1]
+        ph = boxes[..., 3:4] - boxes[..., 1:2]
+        x = boxes[..., 0:1] + xi / s * pw
+        y = boxes[..., 1:2] + yi / s * ph
+        return detections.replace(pred_keypoints=torch.stack([x, y, score], dim=-1))
+
 
 class Res5ROIHeads(StandardROIHeads):
     """C4's ROI heads: the res5 stage (``roi_heads.res5``) on box-pooled
@@ -301,17 +383,23 @@ class Res5ROIHeads(StandardROIHeads):
 
     def box_branch_losses(self, sampled: SampledProposals, storage_pack,
                           gt: Dict[str, torch.Tensor]
-                          ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """The box ROIs pooled alone; the mask head's input is the res5
-        features of the leading (foreground) ``mask_slots`` of each image."""
+        features of the leading (foreground) ``mask_slots`` of each image,
+        the keypoint head's those slots keypoint-pooled on their own (the
+        JAX package fuses no pools here)."""
         box_in = self.pool_box_features(sampled.boxes, storage_pack, valid=sampled.valid)
         scores, deltas, feats = self.box_outputs(box_in)
         losses = self.box_losses(scores.float(), deltas.float(), sampled)
-        if not self.mask_on:
-            return losses, None
-        b = sampled.boxes.shape[0]
-        rf = feats.reshape((b, -1) + feats.shape[1:])[:, :self.mask_slots]
-        return losses, rf.reshape((-1,) + rf.shape[2:])
+        m, inputs = self.mask_slots, {}
+        if self.mask_on:
+            b = sampled.boxes.shape[0]
+            rf = feats.reshape((b, -1) + feats.shape[1:])[:, :m]
+            inputs["mask"] = rf.reshape((-1,) + rf.shape[2:])
+        if self.keypoint_on:
+            inputs["keypoint"] = self.pool_keypoint_features(sampled.boxes[:, :m], storage_pack,
+                                                             valid=sampled.valid[:, :m])
+        return losses, inputs
 
     def detection_mask_features(self, detections: Instances, storage_pack) -> torch.Tensor:
         """The detections through the box pooler and res5 again."""

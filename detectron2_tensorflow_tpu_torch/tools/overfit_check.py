@@ -1,7 +1,7 @@
 """Learning check: overfit a small detector on 8 synthetic images and report AP.
 
     python -m detectron2_tensorflow_tpu_torch.tools.overfit_check [STEPS]
-        [--arch rcnn|c4|cls_agnostic|retinanet|cascade] [--eval_at N[,N...]]
+        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint] [--eval_at N[,N...]]
         [--device cpu] [KEY VALUE ...]
 
 The port's counterpart of the repo's ``tools/overfit_check.py`` for its
@@ -11,20 +11,24 @@ shared box regressor and a one-channel mask head), ``retinanet``
 (``retinanet_R_50_FPN_1x.yaml``, 3 classes; the JAX recipe also sets
 ``MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST`` 0.3, which its RetinaNet never
 reads: it keeps ``MODEL.RETINANET.SCORE_THRESH_TEST`` 0.05, and so does
-this one) and ``cascade`` (``Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml``)
-families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
+this one), ``cascade`` (``Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml``) and
+``keypoint`` (Mask R-CNN R50-FPN's YAML with ``MASK_ON`` off and
+``KEYPOINT_ON``: 4 keypoints, the box corners of
+``SyntheticDataset(with_keypoints=True)``, a head of four 128-wide convs,
+OKS sigmas 0.05) families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
 ``config.small_cfg()``, anchors scaled to 10-30 px boxes, ResNet-18 with GN trained from the JAX
 package's initializers (``FREEZE_AT 0``), 3 classes, 64 ROIs per image, 8
 images per step, LR 0.01 after 100 warm-up steps. It trains STEPS (default
 600) steps on ``data.SyntheticDataset(n=8, num_classes=3)``, evaluates COCO
-bbox (and segm) AP on the same images and lists on stderr the GT instances
+bbox (and segm, or keypoint) AP on the same images and lists on stderr the GT instances
 no detection finds (IoU >= 0.5, same class, score above the report
 threshold) and the detections above it that find none (the JAX tool's
 threshold: 0.5 for ``rcnn``, 0.25 for the other archs). ``KEY VALUE`` overrides apply last
 (for example narrower widths). It runs on the card unless ``--device cpu``.
 The last line of stdout is one JSON object: ``arch``, ``steps``,
 ``train_seconds``, ``final_loss``, ``bbox_ap``, ``bbox_ap50`` and, with
-masks, ``segm_ap``, ``segm_ap50``. ``--eval_at`` also evaluates after each
+masks, ``segm_ap``, ``segm_ap50``, with keypoints ``keypoints_ap``.
+``--eval_at`` also evaluates after each
 of those earlier step counts and prints the same object for it (``steps`` =
 N) on a line of its own; training goes on from there unchanged. It gates
 nothing itself: a caller reads the APs.
@@ -53,6 +57,7 @@ REPO_CONFIGS = {
     "cls_agnostic": "configs/Misc/mask_rcnn_R_50_FPN_1x_cls_agnostic.yaml",
     "retinanet": "configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml",
     "cascade": "configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml",
+    "keypoint": "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml",
 }
 
 
@@ -73,6 +78,12 @@ def get_cfg_for(arch: str):
     if arch == "retinanet":
         cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES = 3
         cfg.MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST = 0.3  # read by no model (module doc)
+    elif arch == "keypoint":
+        cfg.MODEL.MASK_ON = False
+        cfg.MODEL.KEYPOINT_ON = True
+        cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS = 4
+        cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = (128,) * 4
+        cfg.TEST.KEYPOINT_OKS_SIGMAS = [0.05] * 4
     return cfg
 
 
@@ -197,6 +208,8 @@ def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: 
     if "segm/AP" in results:
         out["segm_ap"] = round(float(results["segm/AP"]), 2)
         out["segm_ap50"] = round(float(results.get("segm/AP50", float("nan"))), 2)
+    if "keypoints/AP" in results:
+        out["keypoints_ap"] = round(float(results["keypoints/AP"]), 2)
     print(json.dumps(out), flush=True)
     return out
 
@@ -207,7 +220,7 @@ def main(argv=None):
     if args.opts:
         cfg.merge_from_list(args.opts)
     device = torch.device(args.device)
-    ds = SyntheticDataset(n=8, num_classes=3)
+    ds = SyntheticDataset(n=8, num_classes=3, with_keypoints=args.arch == "keypoint")
     model = build_model(cfg, device=device, training=True, init="jax",
                         generator=torch.Generator().manual_seed(0))
     state = create_train_state(cfg, model, torch.Generator(device=device).manual_seed(0))

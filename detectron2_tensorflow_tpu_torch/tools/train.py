@@ -9,7 +9,10 @@ The port's counterpart of the repo's ``train.py``. The dataset is
 (``build_train_dataset``); with ``MODEL.LOAD_PROPOSALS`` and
 ``DATASETS.PROPOSAL_FILES_TRAIN``, the COCO JSON whatever the format, with
 the first proposal file (a Detectron2 pickle under ``DATASETS.ROOT_DIR``)
-attached, as the repo's ``train.py`` does. The model starts from the JAX package's
+attached, as the repo's ``train.py`` does; with ``MODEL.KEYPOINT_ON``, the
+COCO JSON too (TFRecords carry no keypoints), without the images that have
+fewer than ``ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE`` labelled keypoints.
+The model starts from the JAX package's
 initializers (seed ``max(SEED, 0)``), or ``PRETRAINS``, or resumes from the
 newest checkpoint in ``<LOGS.ROOT_DIR or OUTPUT_DIR>/<LOGS.TRAIN>``; it
 trains to ``--max_iter`` (else ``SOLVER.MAX_ITER``, scaled with the batch),
@@ -20,8 +23,9 @@ losses and the hand-written kernels' launches during training.
 
 The JAX package's native (C++ JPEG) train loader is not ported: with
 ``DATALOADER.NATIVE_TRAIN_IO`` on, one line says so and ``build_dataloader``
-serves, as in the JAX CLI where the native loader is unusable. Keypoint and
-panoptic training raise: their families are not ported.
+serves, as in the JAX CLI where the native loader is unusable. Panoptic
+training raises: its family is not ported; so does an ``AUGMENT.*``
+augmentation the port does not have, before any data is read.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import time
 import torch
 
 from ..config import finalize, get_cfg
-from ..data import CocoDataset, TFRecordDataset, build_dataloader
+from ..data import CocoDataset, TFRecordDataset, build_dataloader, transforms
 from ..engine import train
 from ..engine.checkpoint import latest_step
 from ..engine.evaluator import run_evaluation
@@ -65,31 +69,38 @@ def parse_args(argv=None):
 
 
 def check_family(cfg) -> None:
-    """Raise for the configs whose data or model families are not ported."""
-    if cfg.MODEL.KEYPOINT_ON:
-        raise NotImplementedError("MODEL.KEYPOINT_ON: the keypoint family is not ported")
+    """Raise for the configs whose data or model families, or augmentations,
+    are not ported."""
+    transforms.check_supported(cfg)
     if cfg.MODEL.META_ARCHITECTURE in _PANOPTIC_ARCHS:
         raise NotImplementedError(
             f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE}: semantic GT "
             "(BUILD_RECORDS.TYPE coco_pano) belongs to the panoptic family, not ported")
 
 
-def load_dataset(cfg, split: str, proposal_files):
+def load_dataset(cfg, split: str, proposal_files, training: bool = False):
     """``<ROOT>/<split>``: its records when ``DATASETS.TRAIN_FORMAT`` is
     ``records``, or ``auto`` and ``<ROOT>/<split>.record-*`` exist, unless
-    proposals are loaded (their ids key to the annotations file); else the
-    COCO JSON, with ``proposal_files[0]`` attached under
-    ``MODEL.LOAD_PROPOSALS``."""
+    proposals are loaded (their ids key to the annotations file) or, in
+    ``training``, a keypoint model reads it (records carry no keypoints);
+    else the COCO JSON, with ``proposal_files[0]`` attached under
+    ``MODEL.LOAD_PROPOSALS`` and, for training a keypoint model, the images
+    with fewer than ``MIN_KEYPOINTS_PER_IMAGE`` labelled keypoints left out."""
     check_family(cfg)
     root = cfg.DATASETS.ROOT_DIR
     pattern = os.path.join(root, split + ".record-*")
     fmt = cfg.DATASETS.TRAIN_FORMAT
     json_only = cfg.MODEL.LOAD_PROPOSALS and len(proposal_files) > 0
-    if fmt == "records" or (fmt == "auto" and glob.glob(pattern) and not json_only):
+    keypoints = training and cfg.MODEL.KEYPOINT_ON
+    if keypoints and fmt == "records":
+        raise ValueError("MODEL.KEYPOINT_ON trains from the COCO JSON (TFRecords carry no "
+                         "keypoints): DATASETS.TRAIN_FORMAT must be auto or json, not records")
+    if fmt == "records" or (fmt == "auto" and glob.glob(pattern) and not (json_only or keypoints)):
         logging.info("reading records: %s", pattern)
         return TFRecordDataset(pattern, load_masks=cfg.MODEL.MASK_ON)
+    min_keypoints = cfg.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE if keypoints else 0
     ds = CocoDataset(os.path.join(root, split + ".json"), os.path.join(root, split),
-                     load_masks=cfg.MODEL.MASK_ON)
+                     load_masks=cfg.MODEL.MASK_ON, min_keypoints=min_keypoints)
     if json_only:
         ds.set_proposals(os.path.join(root, proposal_files[0]))
     return ds
@@ -98,7 +109,8 @@ def load_dataset(cfg, split: str, proposal_files):
 def build_train_dataset(cfg):
     """The ``DATASETS.TRAIN`` split (:func:`load_dataset`, with
     ``PROPOSAL_FILES_TRAIN``)."""
-    return load_dataset(cfg, cfg.DATASETS.TRAIN, cfg.DATASETS.PROPOSAL_FILES_TRAIN)
+    return load_dataset(cfg, cfg.DATASETS.TRAIN, cfg.DATASETS.PROPOSAL_FILES_TRAIN,
+                        training=True)
 
 
 def checkpoint_dir(cfg) -> str:

@@ -139,7 +139,7 @@ def test_eval_restores_a_checkpoint_file_or_warns_of_random_weights(trained, tmp
 
 @pytest.mark.parametrize("tool,opts,match", [
     ("build_records", ["BUILD_RECORDS.TYPE", "coco_pano"], "BUILD_RECORDS.TYPE coco_pano"),
-    ("train", ["MODEL.KEYPOINT_ON", "True"], "MODEL.KEYPOINT_ON"),
+    ("train", ["MODEL.KEYPOINT_ON", "True", "AUGMENT.CROP.ENABLED", "True"], "AUGMENT.CROP.ENABLED"),
     ("eval", ["TEST.AUG.ENABLED", "True"], "TEST.AUG"),
     ("eval", ["EVAL.METRICS", "['panoptic_segmentation_metrics']"], "panoptic"),
 ])

@@ -341,7 +341,7 @@ def test_dataset_format_choice_matches_jax(tmp_path, fmt, shards):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("MODEL.KEYPOINT_ON", True, "KEYPOINT_ON"),
+    ("AUGMENT.CROP.ENABLED", True, "AUGMENT.CROP.ENABLED"),
     ("MODEL.META_ARCHITECTURE", "SemanticSegmentor", "coco_pano"),
     ("MODEL.META_ARCHITECTURE", "PanopticFPN", "coco_pano"),
 ])

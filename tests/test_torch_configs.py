@@ -325,6 +325,12 @@ BUILDS = {
     "configs/quick_schedules/mask_rcnn_R_50_FPN_instant_test.yaml",
     "configs/quick_schedules/mask_rcnn_R_50_FPN_training_acc_test.yaml",
     "configs/synthetic/overfit_mask_rcnn_R_18.yaml",
+    "configs/COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml",
+    "configs/COCO-Keypoints/keypoint_rcnn_R_50_FPN_3x.yaml",
+    "configs/quick_schedules/keypoint_rcnn_R_50_FPN_inference_acc_test.yaml",
+    "configs/quick_schedules/keypoint_rcnn_R_50_FPN_instant_test.yaml",
+    "configs/quick_schedules/keypoint_rcnn_R_50_FPN_normalized_training_acc_test.yaml",
+    "configs/quick_schedules/keypoint_rcnn_R_50_FPN_training_acc_test.yaml",
 }
 
 
@@ -358,6 +364,8 @@ def test_config_builds_or_raises(path):
     (["MODEL.PROPOSAL_GENERATOR.NAME", "'PrecomputedProposals'"], "PROPOSAL_GENERATOR"),
     (["MODEL.ROI_BOX_HEAD.NAME", "'Other'"], "ROI_BOX_HEAD"),
     (["MODEL.ROI_MASK_HEAD.NAME", "'Other'"], "ROI_MASK_HEAD"),
+    (["MODEL.KEYPOINT_ON", "True", "MODEL.ROI_KEYPOINT_HEAD.NAME", "'Other'"],
+     "ROI_KEYPOINT_HEAD"),
 ])
 def test_unported_model_keys_raise(opts, match):
     cfg = get_cfg()

@@ -685,3 +685,87 @@ def test_scale_gradient_and_focal_loss_on_the_card_equal_the_cpu(dev):
         out[str(where)] = (loss.detach().cpu(), z.grad.cpu())
     for g, w in zip(out[str(dev)], out["cpu"]):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+
+
+def test_nms_keep_kernel_keypoint_train_rpn_max_keep_1500(dev):
+    """Keypoint R-CNN's training RPN (``POST_NMS_TOPK_TRAIN`` 1500): 8 images
+    x 4 levels of 2000 and p6's 819 padded, keeping at most 1500 a row;
+    bit-equal to the plain version, as chip_smoke holds it."""
+    rng = np.random.default_rng(14)
+    boxes, valid = chip_smoke.stacked_levels(rng, 8, 2000)
+    boxes, valid = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+    want = greedy_keep_reference(boxes, valid, 0.7, 1500)
+    got = greedy_keep(boxes, valid, 0.7, max_keep=1500)
+    assert torch.equal(got.cpu(), want.cpu()) and int(got.sum(1).max()) <= 1500
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(2, 100), (8, 128)])
+def test_roi_kernels_on_the_fixed_ratio_plan_equal_plain(dev, dtype, b, n):
+    """The keypoint pooler's plan (sampling ratio 2, S = 14) on p2-p5 of
+    800x1344 images: the forward within chip_smoke's ROI tolerances of its
+    plain version (skipped slots exact zeros), the backward within 1e-5 of
+    each cell's sum of term magnitudes. The kernels narrow each slot's
+    window to its hat support; a fixed ratio leaves zero-weight rows
+    between samples inside it, which they must still cover."""
+    rng = np.random.default_rng(b * n)
+    storage, starts, wy, wx, valid = chip_smoke.roi_inputs(rng, dev, dtype, n, 14, b=b, ratio=2)
+    got = poolers.roi_patch_interpolate(storage, starts, wy, wx)
+    want = poolers.roi_patch_interpolate_reference(storage, starts, wy, wx)
+    assert bool((got[~valid] == 0).all())
+    scale = float(want.float().abs().max())
+    tol = (chip_smoke.ROI_TOL_F32 if dtype == torch.float32
+           else chip_smoke.ROI_TOL_BF16_REL * max(1.0, scale))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    shape = tuple(storage.shape)
+    del storage, got, want
+    g = torch.from_numpy(rng.standard_normal((b, n, 14, 14, 256)).astype(np.float32)).to(dev, dtype)
+    got = poolers.roi_patch_backward(g, starts, wy, wx, shape)
+    want = poolers.roi_patch_backward_reference(g, starts, wy, wx, shape)
+    bound = poolers.roi_patch_backward_reference(g.abs(), starts, wy, wx, shape)
+    assert bool(((got - want).abs() <= chip_smoke.ROI_BWD_TOL * bound).all())
+
+
+def test_keypoint_loss_and_inference_on_the_card_equal_the_cpu(dev):
+    """``keypoint_loss`` (with its gradient by the logits) and
+    ``keypoint_inference`` on card tensors against the CPU: the loss within
+    1e-6 relative, its gradient (softmax probabilities, whose exp rounds
+    differently on each side) within 1e-5 of its largest value, the
+    keypoints' x, y to 1e-4 px and scores to 1e-6 relative."""
+    from detectron2_tensorflow_tpu_torch.config import get_cfg
+    from detectron2_tensorflow_tpu_torch.models.meta_arch.rcnn import GeneralizedRCNN
+    from detectron2_tensorflow_tpu_torch.models.roi_heads.roi_heads import SampledProposals
+    from detectron2_tensorflow_tpu_torch.structures import Instances
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(chip_smoke.ROOT / chip_smoke.KEYPOINT_YAML))
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
+    with torch.device("meta"):
+        heads = GeneralizedRCNN(cfg).roi_heads
+    rng = np.random.default_rng(15)
+    b, s, m, g = 2, 64, heads.mask_slots, 5
+    xy = rng.uniform(0, 100, (b, s, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 60, (b, s, 2))], -1).astype(np.float32)
+    fields = dict(boxes=boxes, gt_classes=np.zeros((b, s), np.int64),
+                  gt_boxes=boxes, matched_idx=rng.integers(0, g, (b, s)),
+                  is_fg=np.arange(s)[None].repeat(b, 0) < 10, valid=np.ones((b, s), bool))
+    kp = np.zeros((b, g, 17, 3), np.float32)
+    kp[..., :2] = rng.uniform(0, 160, (b, g, 17, 2))
+    kp[..., 2] = rng.integers(0, 3, (b, g, 17))
+    logits = rng.normal(0, 3, (b * m, 56, 56, 17)).astype(np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        sampled = SampledProposals(**{k: torch.from_numpy(v).to(where) for k, v in fields.items()})
+        z = torch.from_numpy(logits).to(where).requires_grad_(True)
+        loss = heads.keypoint_loss(z, sampled, {"gt_keypoints": torch.from_numpy(kp).to(where)})
+        loss.backward()
+        det = Instances(boxes=sampled.boxes[:, :m], scores=torch.ones((b, m), device=where),
+                        pred_classes=torch.zeros((b, m), dtype=torch.int32, device=where),
+                        is_valid=torch.ones((b, m), dtype=torch.bool, device=where))
+        pk = heads.keypoint_inference(z.detach(), det).pred_keypoints
+        out[str(where)] = (loss.detach().cpu(), z.grad.cpu(), pk.cpu())
+    (gl, gg, gk), (wl, wg, wk) = out[str(dev)], out["cpu"]
+    torch.testing.assert_close(gl, wl, rtol=1e-6, atol=0)
+    assert float((gg - wg).abs().max()) <= 1e-5 * float(wg.abs().max())
+    torch.testing.assert_close(gk[..., :2], wk[..., :2], rtol=0, atol=1e-4)
+    torch.testing.assert_close(gk[..., 2], wk[..., 2], rtol=1e-6, atol=0)

@@ -134,8 +134,17 @@ def test_per_category_off_emits_no_class_rows():
 
 
 def test_keypoint_evaluation_waits_for_its_family():
-    with pytest.raises(NotImplementedError, match="keypoint"):
-        CocoEvaluator(1, "keypoints")
+    """The keypoint family is ported: ``CocoEvaluator(1, "keypoints")`` takes
+    ``tests/test_keypoints.py``'s case (17 labelled keypoints, the detection
+    exact) to AP 100, every metric as the JAX package's."""
+    kp = np.zeros((1, 17, 3))
+    kp[0, :, 0] = np.linspace(10, 90, 17)
+    kp[0, :, 1] = 50
+    kp[0, :, 2] = 2
+    gt = {**_img_gt([[0, 0, 100, 100]], [0]), "keypoints": kp}
+    det = {**_det([[0, 0, 100, 100]], [0.9], [0]), "keypoints": kp.copy()}
+    m = both([(gt, det)], 1, "keypoints")
+    assert abs(m["AP"] - 100.0) < 1e-6
 
 
 def _random_images(rng, n_images, num_classes, size=96, with_masks=False):
