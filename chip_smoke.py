@@ -79,8 +79,9 @@ any failure exits non-zero:
      ``TEST.EXPECTED_RESULTS`` ``[['bbox', 'AP', 88.0, 10.0], ['segm', 'AP',
      84.0, 12.0]]``; it prints the APs, the final loss, the train seconds,
      the seconds per iteration and the loader's host seconds per batch.
-     Beside (b) run the overfit gates of phases 9, 10, 11 and 12, six
-     ``tools.overfit_check`` subprocesses (host-bound, as (b) is);
+     Beside (b) run the overfit gates of phases 9, 10, 11, 12 and 13, seven
+     ``tools.overfit_check`` subprocesses, and phase 13's panoptic workflow
+     (host-bound, as (b) is);
   9. single_level: the C4 (``Res5ROIHeads``) and DC5 (dilated res5)
      families. Each kernel at their shapes against its plain version, timed
      beside its bound: ``nms_keep`` bit-equal on one RPN level of 2 x 6000
@@ -168,7 +169,32 @@ any failure exits non-zero:
      softmax over the positions); device ms per call, idle share, peak
      memory. Its overfit gate, ``tools.overfit_check 600 --arch keypoint``,
      runs in phase 8 beside the others: bbox AP50 >= 90, and a keypoint AP
-     no more than 10 below the JAX package's on the same recipe.
+     no more than 10 below the JAX package's on the same recipe;
+ 13. panoptic: PanopticFPN (``panoptic_fpn_R_50_1x.yaml``) and the
+     SemanticSegmentor (``semantic_R_50_FPN_1x.yaml``). No kernel shape is
+     new (PanopticFPN's instance branch is R50-FPN's). Narrow float32 models
+     and train steps held against the CPU: ``sem_seg`` equal wherever the
+     two largest logits lie more than 1e-5 apart, ``sem_seg_logits`` to
+     1e-4 of their largest magnitude, ``loss_sem_seg`` to 1e-5 relative,
+     every gradient (``sem_seg_head``'s too) to 1e-4 of its largest, and
+     ``panoptic_fusion`` of the CPU's detections and map bit-equal on the
+     card. Each YAML (bf16, ``SCORE_THRESH_TEST`` 0, seeded random weights)
+     serves 2 x 800 x 1344 with the switch off and on (PanopticFPN per
+     ``predict`` 2 ``nms_keep`` and 2 ``roi_patch_fwd``, the
+     SemanticSegmentor none, 16 fused tails on for both; ``sem_seg [2, 800,
+     1344]`` in ``[0, 54)``, padding zeroed by ``sem_seg_postprocess``);
+     ``panoptic_fusion`` runs on PanopticFPN's output at the YAML's
+     thresholds and with confidence 0, its segment table held against its
+     map, with its wall and device ms. Each trains 3 steps at 8 x 800 x 1344
+     with 64 GT and a ``gt_sem_seg`` with ignored pixels (per step 1 / 2 / 2
+     and 0 / 0 / 0; losses finite, ``loss_sem_seg`` among them, the frozen
+     stem and res2 bit-equal, every trainable parameter moved) with device
+     ms, idle share and peak memory. Its gates run in phase 8 beside the
+     others: ``tools.workflow_check_panoptic`` (the synthetic panoptic set,
+     ``coco_pano`` records, PanopticFPN R18-GN 600 iterations, ``tools.eval``
+     with ``TEST.EXPECTED_RESULTS`` bbox AP 88 ± 10, mIoU 92 ± 8, PQ 88 ±
+     12; its exit code decides) and ``tools.overfit_check 600 --arch
+     semantic`` (mIoU no more than 10 below the JAX tool's).
 
 Each phase's seconds are printed on a line of their own. A probe line then
 says whether ``cv2``, ``PIL`` and ``torchvision`` import and whether ``g++``
@@ -213,7 +239,15 @@ from detectron2_tensorflow_tpu_torch.engine.tta import precise_bn
 from detectron2_tensorflow_tpu_torch.engine.checkpoint import all_steps
 from detectron2_tensorflow_tpu_torch.models import ProposalNetwork, build_model
 from detectron2_tensorflow_tpu_torch.models.layers import BatchNorm2d
-from detectron2_tensorflow_tpu_torch.models.meta_arch.postprocess import detector_postprocess
+from detectron2_tensorflow_tpu_torch.models.meta_arch.postprocess import (
+    detector_postprocess,
+    sem_seg_postprocess,
+)
+from detectron2_tensorflow_tpu_torch.models.meta_arch.rcnn import (
+    SemanticSegmentor,
+    panoptic_fusion,
+    semantic_logits,
+)
 from detectron2_tensorflow_tpu_torch.models.poolers import (
     build_storage,
     hat_support,
@@ -237,7 +271,13 @@ from detectron2_tensorflow_tpu_torch.ops.nms import (
     greedy_keep_reference,
 )
 from detectron2_tensorflow_tpu_torch.solver import trainable_parameters
-from detectron2_tensorflow_tpu_torch.tools import exp_roi_variants, profile_predict, workflow_check
+from detectron2_tensorflow_tpu_torch.structures import Instances
+from detectron2_tensorflow_tpu_torch.tools import (
+    exp_roi_variants,
+    profile_predict,
+    workflow_check,
+    workflow_check_panoptic,
+)
 from detectron2_tensorflow_tpu_torch.tools.exp_roi_variants import (
     roi_patch_variant,
     roi_patch_variant_reference,
@@ -897,6 +937,10 @@ def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
     got = {k: v.cpu() for k, v in got.get_fields().items()}
     if not torch.equal(got["is_valid"], want.is_valid):
         raise AssertionError("small input: valid slots differ between the card and the CPU")
+    sem = check_sem_seg_small(cpu_model, batch, got, want.get_fields()) if "sem_seg" in got else ""
+    if isinstance(cpu_model, SemanticSegmentor):
+        log(f"{label} small f32 input, fused tail {'on' if fused else 'off'}, card vs CPU{sem}")
+        return
     if not torch.equal(got["pred_classes"], want.pred_classes):
         raise AssertionError("small input: classes differ between the card and the CPU")
     order = tie_order(got, want.get_fields())
@@ -917,16 +961,73 @@ def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
             if not errs[k] <= tol:
                 raise AssertionError(f"small input: {k} max |err| {errs[k]} > {tol}")
     swapped = int((order != torch.arange(order.shape[1])).sum())
+    if "sem_seg" in got:
+        sem += check_fusion_small(cfg, dev, want)
     log(f"{label} small f32 input, fused tail {'on' if fused else 'off'}, card vs CPU: "
         f"valid={int(want.is_valid.sum())} slots equal, classes equal, {swapped} slots "
         f"matched across a score tie, max|err| "
-        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + sem)
+
+
+def check_sem_seg_small(cpu_model, batch, got, want) -> str:
+    """A narrow model's ``sem_seg``, card against CPU: equal wherever the CPU's
+    two largest logits lie more than SEM_TIE apart; a SemanticSegmentor's
+    ``sem_seg_logits`` within SEM_LOGIT_TOL of their largest magnitude.
+    Returns the log's words."""
+    if "sem_seg_logits" in want:
+        logits = want["sem_seg_logits"].permute(0, 3, 1, 2)
+        err = float((got["sem_seg_logits"] - want["sem_seg_logits"]).abs().max())
+        scale = float(want["sem_seg_logits"].abs().max())
+        if not err <= SEM_LOGIT_TOL * scale:
+            raise AssertionError(f"small input: sem_seg_logits max |err| {err} > "
+                                 f"{SEM_LOGIT_TOL} of {scale}")
+        words = f", sem_seg_logits max|err| {err:.3g} (of {scale:.3g})"
+    else:
+        with torch.inference_mode():
+            logits = semantic_logits(cpu_model, cpu_model.features(batch["image"]))
+        words = ""
+    top2 = torch.topk(logits, 2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > SEM_TIE
+    differ = int(((got["sem_seg"] != want["sem_seg"]) & clear).sum())
+    if differ:
+        raise AssertionError(f"small input: sem_seg differs at {differ} pixels clear of a tie")
+    return (words + f", sem_seg equal at all {int(clear.sum())} pixels clear of a tie "
+            f"({float(clear.float().mean()):.4f} of them)")
+
+
+def check_fusion_small(cfg, dev, want) -> str:
+    """``panoptic_fusion`` of the CPU's detections and map on the card and on
+    the CPU, bit-equal maps and tables; thresholds lowered (confidence 0,
+    stuff area 64) so that segments of both kinds form."""
+    fcfg = cfg.clone()
+    fcfg.MODEL.PANOPTIC_FPN.COMBINE.INSTANCES_CONFIDENCE_THRESH = 0.0
+    fcfg.MODEL.PANOPTIC_FPN.COMBINE.STUFF_AREA_LIMIT = 64
+    fields = want.get_fields()
+    cpu_map, cpu_info = panoptic_fusion(fcfg, Instances(**fields))
+    gpu_map, gpu_info = panoptic_fusion(fcfg, Instances(**{k: v.to(dev) for k, v in
+                                                            fields.items()}))
+    if not torch.equal(gpu_map.cpu(), cpu_map) or not all(
+            torch.equal(gpu_info[k].cpu(), v) for k, v in cpu_info.items()):
+        raise AssertionError("small input: panoptic_fusion differs between the card and the CPU")
+    valid, thing = cpu_info["valid"], cpu_info["is_thing"]
+    if not bool((valid & thing).any()) or not bool((valid & ~thing).any()):
+        raise AssertionError(f"small input: the fusion formed {int((valid & thing).sum())} thing "
+                             f"and {int((valid & ~thing).sum())} stuff segments")
+    return (f"; panoptic_fusion bit-equal ({int((valid & thing).sum())} thing and "
+            f"{int((valid & ~thing).sum())} stuff segments)")
 
 
 # Narrow float32 model, card against CPU: boxes, scores and masks per slot;
 # keypoints' x, y (px) and scores.
 SMALL_TOL = {"boxes": 1e-3, "scores": 1e-5, "pred_masks": 1e-4}
 KEYPOINT_TOL = (1e-3, 1e-5)
+# The semantic head, card against CPU: sem_seg equal where the two largest
+# logits lie further apart than SEM_TIE; a SemanticSegmentor's float32 logits
+# within SEM_LOGIT_TOL of their largest magnitude; loss_sem_seg to
+# SEM_LOSS_RTOL (a mean over every labelled pixel, summed in other orders).
+SEM_TIE = 1e-5
+SEM_LOGIT_TOL = 1e-4
+SEM_LOSS_RTOL = 1e-5
 # Gradients zero by construction, held below TRAIN_GRAD_TOL of the named
 # sibling's largest gradient on both sides (relative to themselves they are
 # float32 noise) and exempt from "every trainable parameter moved": the
@@ -1191,7 +1292,8 @@ def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held
     want_l, want_g = run(cpu_model, batch, noise, proposals)
     got_l, got_g = run(gpu_model, gbatch, gnoise, gprops)
     for k, v in want_l.items():
-        if not abs(got_l[k] - v) <= TRAIN_LOSS_RTOL * abs(v):
+        if not abs(got_l[k] - v) <= (SEM_LOSS_RTOL if k == "loss_sem_seg"
+                                     else TRAIN_LOSS_RTOL) * abs(v):
             raise AssertionError(f"narrow train step: {k} {got_l[k]} on the card, {v} on the CPU")
     if set(got_g) != set(want_g) or set(got_g) != set(trainable_parameters(cpu_model, 2)):
         raise AssertionError("narrow train step: gradients of other parameters on the card")
@@ -1559,8 +1661,9 @@ def run_workflow():
     """The CLIs as subprocesses in a temporary directory: (a) R50-FPN bf16 at
     800x1344 from records (train 4 steps, resume to 6, evaluate with
     ``--dump_results``); (b) the R18-GN overfit workflow, whose AP gate
-    decides the phase, with the overfit gates of phases 9 and 10 running
-    beside it (all four are host-bound). Returns the gates' results."""
+    decides the phase, with the overfit gates of phases 9-13 and the
+    panoptic workflow running beside it (all host-bound). Returns the gates'
+    results."""
     run_step = workflow_check.run_step
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "r50")
@@ -1611,13 +1714,14 @@ def run_workflow():
         shutil.rmtree(root)
 
         root = os.path.join(tmp, "r18")
-        gates = start_overfit_gates()  # host-bound: they share the card with (b)
+        gates = start_overfit_gates(os.path.join(tmp, "pano"))  # host-bound, beside (b)
         with fused_switch(True):  # a GN trunk has no tail to fuse: 0 launches even so
             result = workflow_check.run_workflow(root, echo=False)
         train_s, m = result["train"], result["metrics"]
         if train_s["launches"]["fused_residual"] or train_s["fused_tail_convs"]:
             raise AssertionError(f"workflow (b): fused tails on a GN trunk: {train_s}")
         per_batch, crc, decode, batch, readers = loader_seconds(root)
+        finish_panoptic_workflow(gates.pop("panoptic"))  # before its directory goes
     log(f"workflow   (b) {workflow_check.CFG}: Mask R-CNN R18-FPN GN, from scratch, "
         f"{train_s['steps']} iterations of 8 x 192x256 float32, then tools.eval on the train "
         f"split with TEST.EXPECTED_RESULTS {workflow_check.EXPECTED}: passed")
@@ -1672,6 +1776,9 @@ OVERFIT_JAX_C4_BBOX_AP = 54.58
 # JAX tool's (tools/overfit_check.py 600 --arch keypoint on the CPU: bbox AP
 # 94.32, AP50 100.0, keypoint AP 84.87; PERF.md section 6).
 OVERFIT_JAX_KEYPOINT_AP = 84.87
+# The semantic gate's mIoU the same way (tools/overfit_check.py 600 --arch
+# semantic on the CPU: mIoU 69.24, mACC 76.87; PERF.md section 6).
+OVERFIT_JAX_SEMANTIC_MIOU = 69.24
 OVERFIT_JAX_STEPS = 600
 OVERFIT_AP_BELOW = 10.0
 
@@ -1907,15 +2014,19 @@ def train_single_level(dev, name: str):
 
 
 OVERFIT_STEPS = {"c4": 1200, "rcnn": 600, "cls_agnostic": 600, "retinanet": 600, "cascade": 600,
-                 "keypoint": 600}
+                 "keypoint": 600, "semantic": 600}
 
 
-def start_overfit_gates():
+def start_overfit_gates(pano_root: str):
     """Start ``tools.overfit_check`` on c4 (1200 steps, evaluated at 600 as
     well), rcnn, (phase 10's family) cls_agnostic, (phase 11's) retinanet
-    and cascade and (phase 12's) keypoint (600 each) as subprocesses at once
-    (each is host-bound); :func:`finish_overfit_gates` reads them."""
-    procs = {}
+    and cascade, (phase 12's) keypoint and (phase 13's) semantic (600 each),
+    and ``tools.workflow_check_panoptic`` into ``pano_root``, as
+    subprocesses at once (each is host-bound); :func:`finish_overfit_gates`
+    reads them."""
+    procs = {"panoptic": subprocess.Popen(
+        [sys.executable, "-m", "detectron2_tensorflow_tpu_torch.tools.workflow_check_panoptic",
+         pano_root], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
     for arch, steps in OVERFIT_STEPS.items():
         cmd = [sys.executable, "-m", "detectron2_tensorflow_tpu_torch.tools.overfit_check",
                str(steps), "--arch", arch]
@@ -1929,8 +2040,9 @@ def start_overfit_gates():
 def finish_overfit_gates(procs):
     """Wait for the gates; each JSON line is logged, the last of each gates
     (bbox AP50 >= 90), c4's at step 600 (bbox AP no more than 10 below the
-    JAX package's) and keypoint's keypoint AP (no more than 10 below the JAX
-    package's). Returns each family's last line."""
+    JAX package's), keypoint's keypoint AP and semantic's mIoU (each no more
+    than 10 below the JAX package's). Returns each family's last
+    line. The panoptic workflow is read apart (``finish_panoptic_workflow``)."""
     lines = {}
     for arch, proc in procs.items():
         t0 = time.perf_counter()
@@ -1946,11 +2058,19 @@ def finish_overfit_gates(procs):
             elif ln.startswith("instances found"):
                 found.append((ln, listed))
                 listed = []
+        if arch == "semantic":  # no instances to list
+            log(f"gates      overfit_check {OVERFIT_STEPS[arch]} --arch semantic: "
+                f"{json.dumps(lines[arch][-1])} (waited {time.perf_counter() - t0:.1f} s)")
         for r, (f, listed) in zip(lines[arch], found[-len(lines[arch]):]):
             log(f"gates      overfit_check {r['steps']} --arch {arch}: {json.dumps(r)}; {f} "
                 f"(waited {time.perf_counter() - t0:.1f} s)")
             for ln in listed:
                 log(f"gates        {ln}")
+    sem = lines.pop("semantic")[-1]
+    if not sem["miou"] >= OVERFIT_JAX_SEMANTIC_MIOU - OVERFIT_AP_BELOW:
+        raise AssertionError(f"overfit --arch semantic: mIoU {sem['miou']} more than "
+                             f"{OVERFIT_AP_BELOW} below the JAX package's "
+                             f"{OVERFIT_JAX_SEMANTIC_MIOU}")
     for arch, rs in lines.items():
         if not rs[-1]["bbox_ap50"] >= OVERFIT_AP50:
             raise AssertionError(f"overfit --arch {arch}: bbox AP50 {rs[-1]['bbox_ap50']} < "
@@ -1965,7 +2085,30 @@ def finish_overfit_gates(procs):
         raise AssertionError(f"overfit --arch keypoint: keypoint AP {kp.get('keypoints_ap')} "
                              f"more than {OVERFIT_AP_BELOW} below the JAX package's "
                              f"{OVERFIT_JAX_KEYPOINT_AP}")
-    return {arch: rs[-1] for arch, rs in lines.items()}
+    return {**{arch: rs[-1] for arch, rs in lines.items()}, "semantic": sem}
+
+
+def finish_panoptic_workflow(proc) -> None:
+    """Wait for ``tools.workflow_check_panoptic``: it must exit 0 (its
+    ``tools.eval`` passed ``TEST.EXPECTED_RESULTS``); its metrics, final
+    losses, launches and step seconds are logged."""
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode or "PANOPTIC WORKFLOW CHECK PASSED" not in out:
+        raise AssertionError(f"workflow_check_panoptic exited {proc.returncode}: {out[-3000:]}")
+    summary = workflow_check.train_summary(out)
+    metrics = workflow_check.eval_metrics(out)
+    log(f"gates      workflow_check_panoptic {workflow_check_panoptic.CFG}: PanopticFPN R18-FPN "
+        f"GN, from scratch, {summary['steps']} iterations of 8 x 192x256 float32 from coco_pano "
+        f"records, then tools.eval on the train split with TEST.EXPECTED_RESULTS "
+        f"{workflow_check_panoptic.EXPECTED}: passed (waited {time.perf_counter() - t0:.1f} s)")
+    log("gates      workflow_check_panoptic " + ", ".join(
+        f"{k} {metrics[k]:.3f}" for k in ("bbox/AP", "bbox/AP50", "sem_seg/mIoU", "sem_seg/mACC",
+                                           "panoptic/PQ", "panoptic/PQ_th", "panoptic/PQ_st")))
+    log(f"gates      workflow_check_panoptic train seconds {summary['seconds']:.2f} "
+        f"({summary['seconds_per_iteration']:.4f} s per iteration), final loss " + ", ".join(
+            f"{k} {v:.4f}" for k, v in summary["final_losses"].items())
+        + f"; launches {summary['launches']}")
 
 
 def single_level_lines(single):
@@ -2062,6 +2205,7 @@ def two_stage_cfg(name: str, narrow: bool = False, batch: int = 0):
         cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 64
         cfg.MODEL.ROI_MASK_HEAD.CONV_DIM = 32
         cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = (32,) * 8
+        cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM = 32
         cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
         cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES = 5
         cfg.MODEL.DTYPE = "float32"
@@ -2153,11 +2297,12 @@ def check_proposal_outputs(cfg, out, b: int, label: str) -> str:
     return str(f["is_valid"].sum(1).tolist())
 
 
-def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage "):
+def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check=None):
     """``name``'s YAML (bf16, seeded random weights) serving 2 x 800 x 1344,
     with the fused tail off and on in ``turns``: launches per ``predict``
-    asserted (no fused tail but on FrozenBN trunks), outputs checked, img/s
-    and device ms per call with the idle share. Returns the launches."""
+    asserted (no fused tail but on FrozenBN trunks), outputs checked (by
+    ``check(cfg, out, batch, label)`` when given), img/s and device ms per
+    call with the idle share. Returns the launches."""
     spec = SPECS[name]
     cfg = two_stage_cfg(name)
     models = {}
@@ -2197,6 +2342,8 @@ def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage "):
             valid = check_proposal_outputs(cfg, out, b, label)
             log(f"{tag} {label}: {cfg.MODEL.RPN.POST_NMS_TOPK_TEST} proposal slots per "
                 f"image, finite, clipped, class 0, valid per image {valid}")
+        elif check is not None:
+            check(cfg, out, batch, label)
         else:
             check_outputs(cfg, out, batch, b, 800, 1344, label, phase=tag)
     timing = {f: profile_predict.device_time(lambda: models[f].predict(batch), 3)
@@ -2243,6 +2390,9 @@ def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False):
     values = [{k: float(v) for k, v in m.items()} for m in metrics]
     if not all(np.isfinite(v) for m in values for v in m.values()):
         raise AssertionError(f"{name}: non-finite losses: {values}")
+    if name in PANOPTIC and ("loss_sem_seg" not in values[0]
+                             or not bool((batch["gt_sem_seg"] == -1).any())):
+        raise AssertionError(f"{name}: no loss_sem_seg, or no ignored pixel in the GT")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     trainable = trainable_parameters(model, cfg.MODEL.BACKBONE.FREEZE_AT)
     params = dict(model.named_parameters())
@@ -2422,7 +2572,18 @@ KEYPOINT_YAML = "configs/COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml"
 # the RPN's NMS and one fused pool of the box and keypoint ROIs.
 KEYPOINT = {"keypoint": {"yaml": KEYPOINT_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 2},
                          "step": {"nms_keep": 1, "roi_patch_fwd": 2, "roi_patch_bwd": 2}}}
-SPECS = {**TWO_STAGE, **SINGLE_STAGE_CASCADE, **KEYPOINT}
+PANOPTIC_YAML = "configs/COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml"
+SEMANTIC_YAML = "configs/COCO-SemanticSegmentation/semantic_R_50_FPN_1x.yaml"
+# PanopticFPN: Mask R-CNN R50-FPN's launches (the RPN's and the box head's
+# NMS, the box and mask pools per predict; per step the RPN's NMS and one
+# fused pool of the box and mask ROIs); the SemanticSegmentor launches none.
+PANOPTIC = {
+    "panoptic": {"yaml": PANOPTIC_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 2},
+                 "step": {"nms_keep": 1, "roi_patch_fwd": 2, "roi_patch_bwd": 2}},
+    "semantic": {"yaml": SEMANTIC_YAML, "predict": {"nms_keep": 0, "roi_patch_fwd": 0},
+                 "step": {"nms_keep": 0, "roi_patch_fwd": 0, "roi_patch_bwd": 0}},
+}
+SPECS = {**TWO_STAGE, **SINGLE_STAGE_CASCADE, **KEYPOINT, **PANOPTIC}
 SSC = "ssc       "  # the phase's log tag
 
 
@@ -2532,6 +2693,105 @@ def keypoint_lines(kp):
                         r["err"]) for kernel, src, replaces, n, r in rows]
 
 
+# -- phase 13: panoptic ---------------------------------------------------------------
+
+PAN = "panoptic  "  # the phase's log tag
+FUSION_RUNS = 3
+
+
+def check_semantic_map(cfg, sem, batch) -> str:
+    """A served ``sem_seg``: ``[2, 800, 1344]`` int64 labels in ``[0,
+    NUM_CLASSES)``; ``sem_seg_postprocess`` keeps the image and zeroes the
+    padding right of its 1333 columns. Returns the log's words."""
+    k = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+    if tuple(sem.shape) != (2, 800, 1344) or sem.dtype != torch.int64:
+        raise AssertionError(f"sem_seg {tuple(sem.shape)} {sem.dtype}")
+    lo, hi = int(sem.min()), int(sem.max())
+    if lo < 0 or hi >= k:
+        raise AssertionError(f"sem_seg labels in [{lo}, {hi}], outside [0, {k})")
+    post = sem_seg_postprocess(cfg, sem, batch)
+    if bool(post[:, :, 1333:].any()) or not torch.equal(post[:, :, :1333], sem[:, :, :1333]):
+        raise AssertionError("sem_seg_postprocess did not zero the padding alone")
+    return (f"sem_seg {tuple(sem.shape)} int64 in [{lo}, {hi}] of {k} classes "
+            f"({len(torch.unique(sem))} used), postprocess zeroes the padding")
+
+
+def check_fusion_table(pan, info) -> None:
+    """The segment table matches the map: each image's nonzero ids are its
+    valid segments, numbered from 1 without a gap."""
+    for i in range(pan.shape[0]):
+        ids = set(torch.unique(pan[i]).tolist()) - {0}
+        valid = set(torch.nonzero(info["valid"][i]).flatten().tolist())
+        if ids != valid or valid != set(range(1, len(valid) + 1)):
+            raise AssertionError(f"fusion image {i}: map ids {sorted(ids)[:8]}..., valid segments "
+                                 f"{sorted(valid)[:8]}...")
+
+
+def check_panoptic_serving(cfg, out, batch, label) -> None:
+    """``serve_two_stage``'s check of a PanopticFPN output: ``check_outputs``,
+    the semantic map, then ``panoptic_fusion`` on it at the YAML's thresholds
+    and with confidence 0 (every detection a candidate), each with its
+    segment table held against its map and timed: wall ms per call around
+    synchronized runs, device ms and idle share under the profiler."""
+    check_outputs(cfg, out, batch, 2, 800, 1344, label, phase=PAN)
+    words = check_semantic_map(cfg, out.sem_seg, batch)
+    for conf in (cfg.MODEL.PANOPTIC_FPN.COMBINE.INSTANCES_CONFIDENCE_THRESH, 0.0):
+        fcfg = cfg.clone()
+        fcfg.MODEL.PANOPTIC_FPN.COMBINE.INSTANCES_CONFIDENCE_THRESH = conf
+        pan, info = panoptic_fusion(fcfg, out)
+        check_fusion_table(pan, info)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FUSION_RUNS):
+            panoptic_fusion(fcfg, out)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / FUSION_RUNS * 1e3
+        device_ms, _, idle, _ = profile_predict.device_time(lambda: panoptic_fusion(fcfg, out),
+                                                            FUSION_RUNS)
+        valid, thing = info["valid"], info["is_thing"]
+        words += (f"; panoptic_fusion at confidence {conf}: {int((valid & thing).sum())} thing "
+                  f"and {int((valid & ~thing).sum())} stuff segments, table matches the map, "
+                  f"wall {wall:.2f} ms per call, device {device_ms:.3f} ms (idle share "
+                  f"{idle:.3f})")
+    log(f"{PAN} {label}: {words}")
+
+
+def check_semantic_serving(cfg, out, batch, label) -> None:
+    """A served SemanticSegmentor: the semantic map, finite float32
+    ``sem_seg_logits [2, 800, 1344, K]`` whose first maximum it is, and
+    ``is_valid [2, 1]``."""
+    words = check_semantic_map(cfg, out.sem_seg, batch)
+    logits = out.sem_seg_logits
+    k = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+    if (tuple(logits.shape) != (2, 800, 1344, k) or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"sem_seg_logits {tuple(logits.shape)} {logits.dtype}")
+    if not torch.equal(logits.argmax(-1), out.sem_seg) or tuple(out.is_valid.shape) != (2, 1):
+        raise AssertionError("sem_seg is not the logits' argmax, or is_valid is not [2, 1]")
+    log(f"{PAN} {label}: {words}; sem_seg_logits {tuple(logits.shape)} float32 finite, "
+        f"sem_seg their argmax, is_valid {tuple(out.is_valid.shape)}")
+
+
+def run_panoptic(rng, dev):
+    """Phase 13: PanopticFPN and the SemanticSegmentor. Narrow float32 models
+    and train steps card against CPU (the semantic outputs, the fusion of the
+    same detections and map bit-equal); each YAML served 2 x 800 x 1344 bf16
+    (switch off and on; PanopticFPN's output fused and timed) and trained 3
+    steps at 8 x 800 x 1344 with ignored pixels in ``gt_sem_seg``, launches
+    asserted."""
+    for name in PANOPTIC:
+        check_small_against_cpu(rng, dev, False, two_stage_cfg(name, narrow=True),
+                                label=f"{PAN} {name}")
+        check_train_against_cpu(dev, False, two_stage_cfg(name, narrow=True, batch=2),
+                                label=f"{PAN} {name}")
+    serve_two_stage(rng, dev, "panoptic", turns=(False, True), tag=PAN,
+                    check=check_panoptic_serving)
+    serve_two_stage(rng, dev, "semantic", turns=(False, True), tag=PAN,
+                    check=check_semantic_serving)
+    for name in PANOPTIC:
+        train_two_stage(rng, dev, name, tag=PAN, profile=True)
+
+
 def probe():
     """What the card's machine offers a JPEG route (decides nothing here).
     Each module is imported in a child interpreter, so this one imports none."""
@@ -2610,6 +2870,8 @@ def main() -> None:
         ssc = run_single_stage_cascade(rng, dev)
     with phase_seconds("keypoint"), fused_switch(False):
         kp = run_keypoint(rng, dev)
+    with phase_seconds("panoptic"), fused_switch(False):
+        run_panoptic(rng, dev)
     probe()
     log(f"seconds    total {time.perf_counter() - START:.1f}")
 

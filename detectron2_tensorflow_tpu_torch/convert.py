@@ -20,8 +20,12 @@ and ``backbone`` without a neck (C4, DC5); the C4 ROI head's module-level
 ``backbone.top_block.p{6,7}`` and its ``head/{cls,bbox}_subnet_{i}`` the
 towers' ``head.{cls,bbox}_subnet.{2i}``; a cascade's ``box_heads_{k}`` and
 ``box_predictors_{k}`` are ``roi_heads.box_head.{k}`` and
-``roi_heads.box_predictor.{k}``. A single-stage model's ``loss_normalizer``
-is the JAX ``initial_state``'s 100, as for a Detectron2 checkpoint.
+``roi_heads.box_predictor.{k}``; the semantic head's ``sem_seg_head/p{l}_{i}``
+(conv ``i`` of level ``p{l}``, with its GN wrapper) is
+``sem_seg_head.p{l}.{2i}`` (Detectron2's ``nn.Sequential`` holds an
+upsample after each conv) and its ``predictor`` ``sem_seg_head.predictor``.
+A single-stage model's ``loss_normalizer`` is the JAX ``initial_state``'s
+100, as for a Detectron2 checkpoint.
 
 Layout changes:
   * conv kernels HWIO -> OIHW;
@@ -64,6 +68,7 @@ _PREFIX = {
     "box_predictors_0": "roi_heads.box_predictor",
     "mask_head": "roi_heads.mask_head",
     "keypoint_head": "roi_heads.keypoint_head",
+    "sem_seg_head": "sem_seg_head",
 }
 _FROZEN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _AFFINE = {"scale": "weight", "bias": "bias"}
@@ -83,6 +88,7 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()):
 
 
 _TOWER = re.compile(r"^(cls|bbox)_subnet_(\d+)$")
+_SEM_SEG_CONV = re.compile(r"^(p\d+)_(\d+)$")
 
 
 def _module_name(path: Tuple[str, ...], prefix: Dict[str, str]) -> str:
@@ -94,6 +100,9 @@ def _module_name(path: Tuple[str, ...], prefix: Dict[str, str]) -> str:
     tower = _TOWER.match(rest[0]) if top == "head" and rest else None
     if tower:  # a Sequential of (conv, ReLU) pairs
         rest = [f"{tower.group(1)}_subnet", str(2 * int(tower.group(2)))] + rest[1:]
+    level = _SEM_SEG_CONV.match(rest[0]) if top == "sem_seg_head" and rest else None
+    if level:  # a Sequential of (conv, 2x upsample) pairs
+        rest = [level.group(1), str(2 * int(level.group(2)))] + rest[1:]
     return ".".join([prefix[top]] + rest)
 
 

@@ -16,9 +16,11 @@ goes through PIL, imported here and nowhere else (a soft dependency, as
   and upsampling; ``tests/test_torch_coco.py`` holds them equal).
 * :func:`decode_gray`: ``[H, W]`` uint8, as ``IMREAD_GRAYSCALE`` reads the
   8-bit (or 1-bit) PNG masks of the records.
-* :func:`encode_jpeg` writes at ``cv2``'s default quality 95 and
-  :func:`encode_png` lossless PNG; the bytes differ from ``cv2``'s, what
-  they decode to does not (PNG) or by the encoder's rounding (JPEG).
+* :func:`encode_jpeg` writes at ``cv2``'s default quality 95,
+  :func:`encode_png` a lossless grayscale PNG and :func:`encode_png_rgb` a
+  lossless RGB one (the panoptic id maps, which :func:`decode_image` reads
+  back); the bytes differ from ``cv2``'s, what they decode to does not
+  (PNG) or by the encoder's rounding (JPEG).
 
 A missing PIL raises ``ImportError`` at the first call.
 """
@@ -106,4 +108,13 @@ def encode_png(gray: np.ndarray) -> bytes:
     Image, _ = _pil()
     buf = io.BytesIO()
     Image.fromarray(np.ascontiguousarray(gray, np.uint8), "L").save(buf, "PNG")
+    return buf.getvalue()
+
+
+def encode_png_rgb(rgb: np.ndarray) -> bytes:
+    """``[H, W, 3]`` uint8 RGB -> 8-bit RGB PNG bytes (``cv2.imencode`` of the
+    BGR image writes the same pixels)."""
+    Image, _ = _pil()
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(rgb, np.uint8), "RGB").save(buf, "PNG")
     return buf.getvalue()

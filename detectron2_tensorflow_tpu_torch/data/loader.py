@@ -7,7 +7,8 @@ Port of ``pick_bucket``, ``pad_sample_to_batch_arrays`` and
   so the model sees a small static set of shapes, and samples are batched
   per bucket;
 * GT is padded to ``cfg.INPUT.MAX_GT_INSTANCES`` with validity masks
-  (keypoints too: ``gt_keypoints [G, K, 3]``, zero in the padded slots);
+  (keypoints too: ``gt_keypoints [G, K, 3]``, zero in the padded slots); a
+  semantic map becomes ``gt_sem_seg [bh, bw]`` int32, -1 in the padding;
 * precomputed proposals (``MODEL.LOAD_PROPOSALS``) fill fixed top-k slots
   ``proposal_boxes [K, 4]``, ``proposal_scores [K]`` and
   ``proposal_valid [K]``, best score first (a stable sort), empty slots
@@ -86,6 +87,10 @@ def pad_sample_to_batch_arrays(sample: Dict, bucket, max_gt: int, mini_mask: int
         gt_kp = np.zeros((max_gt, sample["keypoints"].shape[1], 3), np.float32)
         gt_kp[:keep] = sample["keypoints"][:keep]
         out["gt_keypoints"] = gt_kp
+    if sample.get("sem_seg") is not None:
+        sem = np.full((bh, bw), -1, np.int32)
+        sem[:h, :w] = sample["sem_seg"]
+        out["gt_sem_seg"] = sem
     if sample.get("proposals") is not None:
         out.update(proposal_slots(sample["proposals"], sample.get("proposal_scores"),
                                   int(sample.get("proposal_topk", 1000))))

@@ -17,14 +17,26 @@ algorithm in numpy and Python integers, step for step (``drawing.cpp``):
 
 Self-intersecting and concave polygons take the same pairing (even-odd), so
 they match too; ``tests/test_torch_coco.py`` holds it against ``cv2``.
+
+:func:`fill_ellipse` is ``cv2.ellipse(img, center, axes, 0, 0, 360, value,
+-1)``, OpenCV's ``EllipseEx`` step for step: ``ellipse2Poly``'s vertices
+every ``delta`` degrees (5 for axes of 15 px and more) from OpenCV's
+float sine table (its values to 7 decimals), rounded to 16.16 fixed point,
+then ``FillConvexPoly``: each edge drawn by ``Line2`` (the fixed-point
+line walk), then the two-edge scanline fill. ``tests/test_torch_panoptic_data.py``
+holds it against ``cv2`` over every axis pair the synthetic tool draws.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
 XY_SHIFT = 16
 XY_ONE = 1 << XY_SHIFT
+# OpenCV's SinTable: sin of 0 .. 450 degrees as float literals of 7 decimals.
+SIN_TABLE = [float(np.float32(round(math.sin(math.radians(i)), 7))) for i in range(451)]
 
 
 def _tdiv(a: int, b: int) -> int:
@@ -172,3 +184,119 @@ def fill_poly(img: np.ndarray, pts, value) -> None:
                     swapped = True
             if not swapped:
                 break
+
+
+def _put(img: np.ndarray, x: int, y: int, value) -> None:
+    if 0 <= x < img.shape[1] and 0 <= y < img.shape[0]:
+        img[y, x] = value
+
+
+def _line2(img: np.ndarray, p1, p2, value) -> None:
+    """OpenCV's ``Line2``: a line between 16.16 fixed-point ends, clipped to
+    the image, stepping one pixel along its longer axis (the ends swapped to
+    walk forward), both end pixels drawn."""
+    h, w = img.shape[:2]
+    inside, x1, y1, x2, y2 = _clip_line(w << XY_SHIFT, h << XY_SHIFT, *p1, *p2)
+    if not inside:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    if abs(dx) > abs(dy):
+        if dx < 0:
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        ax = abs(dx)
+        step = _tdiv((y2 - y1) << XY_SHIFT, ax | 1)
+        count = (x2 - x1) >> XY_SHIFT
+    else:
+        if dy < 0:
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        ay = abs(dy)
+        step = _tdiv((x2 - x1) << XY_SHIFT, ay | 1)
+        count = (y2 - y1) >> XY_SHIFT
+    half = XY_ONE >> 1
+    _put(img, (x2 + half) >> XY_SHIFT, (y2 + half) >> XY_SHIFT, value)
+    x1 += half
+    y1 += half
+    if abs(dx) > abs(dy):
+        x1 >>= XY_SHIFT
+        for _ in range(count + 1):
+            _put(img, x1, y1 >> XY_SHIFT, value)
+            x1 += 1
+            y1 += step
+    else:
+        y1 >>= XY_SHIFT
+        for _ in range(count + 1):
+            _put(img, x1 >> XY_SHIFT, y1, value)
+            x1 += step
+            y1 += 1
+
+
+def _fill_convex_poly(img: np.ndarray, v, value) -> None:
+    """OpenCV's ``FillConvexPoly`` (``LINE_8``, shift 16) of the 16.16 vertices ``v``."""
+    h, w = img.shape[:2]
+    n = len(v)
+    half = XY_ONE >> 1
+    p0 = v[-1]
+    for p in v:
+        _line2(img, p0, p, value)
+        p0 = p
+    imin = min(range(n), key=lambda i: (v[i][1], i))
+    xmin = (min(p[0] for p in v) + half) >> XY_SHIFT
+    xmax = (max(p[0] for p in v) + half) >> XY_SHIFT
+    ymin = (v[imin][1] + half) >> XY_SHIFT
+    ymax = (max(p[1] for p in v) + half) >> XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    # Two edge walkers from the top vertex, one each way round: [idx, di, x, dx, ye].
+    edge = [[imin, 1, -XY_ONE, 0, ymin], [imin, n - 1, -XY_ONE, 0, ymin]]
+    edges = n  # OpenCV's budget of edge steps; spent, the fill stops
+    y = ymin
+    while True:
+        for e in edge:
+            if y < e[4]:
+                continue
+            idx0, idx = e[0], (e[0] + e[1]) % n
+            while True:
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = (v[idx][1] + half) >> XY_SHIFT
+                if ty > y:
+                    xs, xe = v[idx0][0], v[idx][0]
+                    e[0], e[2], e[4] = idx, xs, ty
+                    e[3] = _tdiv((xe - xs) * 2 + (ty - y), 2 * (ty - y))
+                    break
+                idx0, idx = idx, (idx + e[1]) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = (edge[1], edge[0]) if edge[0][2] > edge[1][2] else (edge[0], edge[1])
+            xx1, xx2 = (left[2] + half) >> XY_SHIFT, (right[2] + half) >> XY_SHIFT
+            if xx2 >= 0 and xx1 < w:
+                img[y, max(xx1, 0):min(xx2, w - 1) + 1] = value
+        edge[0][2] += edge[0][3]
+        edge[1][2] += edge[1][3]
+        y += 1
+        if y > ymax:
+            break
+
+
+def fill_ellipse(img: np.ndarray, center, axes, value) -> None:
+    """``cv2.ellipse(img, center, axes, 0, 0, 360, value, -1)`` (integer
+    centre and half axes, no rotation, ``LINE_8``), in place."""
+    (cx, cy), (ax, ay) = center, (abs(axes[0]), abs(axes[1]))
+    big = max(ax, ay)
+    delta = 90 if big < 3 else 30 if big < 10 else 18 if big < 15 else 5
+    v = []
+    for i in range(0, 360 + delta, delta):
+        a = min(i, 360)
+        px = float(cx << XY_SHIFT) + float(ax << XY_SHIFT) * SIN_TABLE[450 - a]
+        py = float(cy << XY_SHIFT) + float(ay << XY_SHIFT) * SIN_TABLE[a]
+        qx = int(np.rint(px / XY_ONE)) << XY_SHIFT
+        qy = int(np.rint(py / XY_ONE)) << XY_SHIFT
+        q = (qx + int(np.rint(px - qx)), qy + int(np.rint(py - qy)))
+        if not v or q != v[-1]:
+            v.append(q)
+    if len(v) == 1:
+        v.append(v[0])
+    _fill_convex_poly(img, v, value)

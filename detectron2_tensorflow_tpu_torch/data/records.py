@@ -1,17 +1,16 @@
 """Sharded TFRecords of ``tf.train.Example``: building them from a COCO
 dataset and reading them back.
 
-Port of the JAX package's ``data/records.py`` (detection and instance
-fields) over the port's own codec (``tfrecord_codec``) and PIL
-(``image_io``): the same field names, the same sharding
-(``<pattern>-00000-of-00016``, example ``i`` in shard ``i % n``), the source
-JPEG bytes copied verbatim, masks as 8-bit PNGs. Either package reads the
-shards the other writes. Reading is lazy: each shard is indexed once, and a
-sample's record is read, its CRC checked and decoded on demand.
-
-The semantic and panoptic fields (``image/sem_seg``) belong to the
-panoptic family, not ported yet: writing or reading them raises, naming
-``BUILD_RECORDS.TYPE coco_pano``.
+Port of the JAX package's ``data/records.py`` over the port's own codec
+(``tfrecord_codec``) and PIL (``image_io``): the same field names, the same
+sharding (``<pattern>-00000-of-00016``, example ``i`` in shard ``i % n``),
+the source JPEG bytes copied verbatim, masks as 8-bit PNGs, and a semantic
+label map (``BUILD_RECORDS.TYPE coco_pano``) as ``image/sem_seg``, the RGB
+id-map PNG of ``data.panoptic.id_to_rgb`` with the ignore label -1 stored
+as 256^3 - 1. Either package reads the shards the other writes: the PNG
+bytes differ from ``cv2``'s, the maps they decode to do not. Reading is
+lazy: each shard is indexed once, and a sample's record is read, its CRC
+checked and decoded on demand.
 """
 
 from __future__ import annotations
@@ -25,16 +24,12 @@ import numpy as np
 
 from . import image_io
 from . import tfrecord_codec as codec
-
-_PANOPTIC = ("semantic maps (image/sem_seg, from BUILD_RECORDS.TYPE coco_pano) belong "
-             "to the panoptic family, which is not ported")
+from .panoptic import decode_label_map, encode_label_map
 
 
 def create_example(sample: Dict, image_bytes: bytes) -> bytes:
     """Sample dict (+ its encoded image) -> a serialized ``tf.train.Example``
     with the reference's ``TfExampleFields`` names."""
-    if sample.get("sem_seg") is not None:
-        raise NotImplementedError(_PANOPTIC)
     boxes = np.asarray(sample["boxes"], np.float32).reshape(-1, 4)
     h, w = sample["height"], sample["width"]
     feature = {
@@ -55,6 +50,8 @@ def create_example(sample: Dict, image_bytes: bytes) -> bytes:
     if sample.get("masks") is not None and len(sample["masks"]):
         feature["image/object/mask"] = codec.bytes_feature(
             [image_io.encode_png(np.asarray(m).astype(np.uint8)) for m in sample["masks"]])
+    if sample.get("sem_seg") is not None:
+        feature["image/sem_seg"] = codec.bytes_feature([encode_label_map(sample["sem_seg"])])
     return codec.encode_example(feature)
 
 
@@ -143,8 +140,6 @@ class TFRecordDataset:
 
     def __getitem__(self, idx: int) -> Dict:
         f = self._example(idx)
-        if "image/sem_seg" in f:
-            raise NotImplementedError(_PANOPTIC)
         img = image_io.decode_image(self._feature(f, "image/encoded", "bytes", [b""])[0])
         h, w = img.shape[:2]
         empty_f = np.zeros(0, np.float32)
@@ -172,6 +167,9 @@ class TFRecordDataset:
                      for m in self._feature(f, "image/object/mask", "bytes", [])]
             sample["masks"] = (np.stack(masks).astype(np.float32) if masks
                                else np.zeros((0, h, w), np.float32))
+        sem = self._feature(f, "image/sem_seg", "bytes", [])
+        if len(sem):
+            sample["sem_seg"] = decode_label_map(sem[0])
         return sample
 
     def image_id(self, idx: int) -> int:

@@ -5,9 +5,11 @@ The recipe and constructor of ``SyntheticDataset`` in the JAX package's
 rectangles of ``box_range`` pixels a side, paints each with its class's grey
 level (``(class + 1) * 60``, modulo 256 here, so that more than four classes
 fit in uint8) and gives each a full-image mask and, ``with_keypoints``, four
-keypoints at its box's corners, all labelled visible. ``first_id`` (0 there) offsets the
-image ids, and with them the draws, so that a second set (a validation
-split) holds other images. Besides indexing it has the surface the
+keypoints at its box's corners, all labelled visible; ``with_sem_seg`` adds a
+label map ``sem_seg [H, W]`` int32: 0 for the background, each box's class
++ 1 inside it, later boxes over earlier ones as they are painted.
+``first_id`` (0 there) offsets the image ids, and with them the draws, so
+that a second set (a validation split) holds other images. Besides indexing it has the surface the
 evaluator reads from a COCO dataset: ``images`` (``(info, annotations)``
 pairs whose ``info["id"]`` is the image id) and ``image_id(i)``.
 
@@ -30,12 +32,14 @@ class SyntheticDataset:
     """Deterministic little detection dataset (drawn rectangles)."""
 
     def __init__(self, n=8, h=97, w=153, num_classes=3, with_masks=True,
-                 seed=0, box_range=(10, 30), first_id=0, with_keypoints=False):
+                 seed=0, box_range=(10, 30), first_id=0, with_keypoints=False,
+                 with_sem_seg=False):
         self.n, self.h, self.w = n, h, w
         self.box_range = box_range
         self.num_classes = num_classes
         self.with_masks = with_masks
         self.with_keypoints = with_keypoints
+        self.with_sem_seg = with_sem_seg
         self.rng = np.random.default_rng(seed)
         self.samples = [self._make(first_id + i) for i in range(n)]
         self.images = [({"id": first_id + i, "file_name": f"{first_id + i}.jpg"}, [])
@@ -67,6 +71,11 @@ class SyntheticDataset:
         }
         if self.with_masks:
             s["masks"] = np.stack(masks)
+        if self.with_sem_seg:
+            sem = np.zeros((self.h, self.w), np.int32)
+            for b, c in zip(boxes, classes):
+                sem[int(b[1]): int(b[3]), int(b[0]): int(b[2])] = c + 1
+            s["sem_seg"] = sem
         if self.with_keypoints:  # (x0, y0), (x1, y0), (x0, y1), (x1, y1), visible
             b = s["boxes"]
             s["keypoints"] = np.stack([

@@ -16,12 +16,14 @@ xyxy, with ``proposal_scores [P]``, ``MODEL.LOAD_PROPOSALS``) and keypoints
 (``keypoints [N, K, 3]``: x, y, visibility) are flipped and scaled with the
 boxes, as the JAX ``flip_horizontal`` and ``resize_shortest_edge`` do: a
 flip mirrors the labelled keypoints' x and, for COCO's 17 person
-keypoints, swaps left and right (``COCO_KP_FLIP``). Samples that carry
-semantic maps belong to a family the port does not have yet and raise.
+keypoints, swaps left and right (``COCO_KP_FLIP``). A semantic label map
+(``sem_seg``) is flipped with the image and resized by
+:func:`resize_nearest`, ``cv2.INTER_NEAREST``'s rule.
 
 Samples are dicts: image uint8 [H, W, 3] RGB, boxes float32 [N, 4] xyxy
 absolute, classes int [N], is_crowd bool [N], masks float [N, H, W]
-(optional), keypoints float32 [N, K, 3] (optional).
+(optional), keypoints float32 [N, K, 3] (optional), sem_seg int [H, W]
+(optional).
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-_UNPORTED_FIELDS = ("sem_seg",)
 # COCO person-keypoint left/right swap under a horizontal flip.
 COCO_KP_FLIP = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
 _OFF_AUGMENTATIONS = (
@@ -48,15 +49,11 @@ _OFF_AUGMENTATIONS = (
 )
 
 
-def check_supported(cfg, sample: Optional[Dict] = None) -> None:
-    """Raise ``NotImplementedError`` for an augmentation or a sample field
-    the port does not have yet."""
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for an augmentation the port does not have yet."""
     for key, enabled in _OFF_AUGMENTATIONS:
         if enabled(cfg.AUGMENT):
             raise NotImplementedError(f"AUGMENT.{key} is not ported")
-    for field in _UNPORTED_FIELDS:
-        if sample is not None and sample.get(field) is not None:
-            raise NotImplementedError(f"samples with '{field}' are not ported")
 
 
 # -- bilinear resize ----------------------------------------------------------
@@ -84,6 +81,16 @@ def resize_bilinear(arr: np.ndarray, height: int, width: int) -> np.ndarray:
     extra = (1,) * (a.ndim - 2)
     rows = a[:, x0] * wx0.reshape(1, -1, *extra) + a[:, x1] * wx1.reshape(1, -1, *extra)
     return rows[y0] * wy0.reshape(-1, 1, *extra) + rows[y1] * wy1.reshape(-1, 1, *extra)
+
+
+def resize_nearest(arr: np.ndarray, height: int, width: int) -> np.ndarray:
+    """``arr [H, W]`` -> ``[height, width]`` by ``cv2.INTER_NEAREST``'s rule:
+    output ``d`` takes source ``min(floor(d * (1 / (out / in))), in - 1)``,
+    the scale inverted in float64 as OpenCV inverts it."""
+    h, w = arr.shape[:2]
+    iy = np.floor(np.arange(height, dtype=np.float64) * (1.0 / (height / h))).astype(np.int64)
+    ix = np.floor(np.arange(width, dtype=np.float64) * (1.0 / (width / w))).astype(np.int64)
+    return arr[np.minimum(iy, h - 1)][:, np.minimum(ix, w - 1)]
 
 
 def resize_image(image: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -114,6 +121,8 @@ def flip_horizontal(sample: Dict) -> Dict:
         out["keypoints"] = kp
     if sample.get("masks") is not None:
         out["masks"] = sample["masks"][:, :, ::-1]
+    if sample.get("sem_seg") is not None:
+        out["sem_seg"] = sample["sem_seg"][:, ::-1]
     return out
 
 
@@ -141,6 +150,8 @@ def resize_shortest_edge(sample: Dict, min_size: int, max_size: int) -> Tuple[Di
         out["keypoints"] = kp
     if sample.get("masks") is not None and len(sample["masks"]):
         out["masks"] = np.stack([resize_bilinear(m, nh, nw) for m in sample["masks"]])
+    if sample.get("sem_seg") is not None:
+        out["sem_seg"] = resize_nearest(np.asarray(sample["sem_seg"], np.int32), nh, nw)
     return out, scale
 
 
@@ -171,7 +182,7 @@ def run(cfg, sample: Dict, training: bool, rng: Optional[np.random.Generator] = 
     frame. Draws from ``rng`` as the JAX package's ``run`` does with the
     default augmentations, so one seed gives both the same flips and sizes.
     """
-    check_supported(cfg, sample)
+    check_supported(cfg)
     rng = rng if rng is not None else np.random.default_rng()
     if training and cfg.AUGMENT.HORIZONTAL_FLIP and rng.uniform() < 0.5:
         sample = flip_horizontal(sample)

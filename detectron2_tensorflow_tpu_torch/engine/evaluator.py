@@ -1,9 +1,9 @@
 """Evaluation loop: predict on padded batches, un-resize, feed evaluators.
 
-Port of the detection family of the JAX package's ``engine/evaluator.py``
-(``build_predict``, ``build_detection_evaluators``, ``evaluate``,
-``run_evaluation``, ``check_expected_results``; ``num_classes_of`` is in
-``config``).
+Port of the JAX package's ``engine/evaluator.py`` (``build_predict``,
+``build_detection_evaluators``, ``evaluate``, ``evaluate_sem_seg``,
+``evaluate_panoptic``, ``run_evaluation``, ``check_expected_results``;
+``num_classes_of`` is in ``config``).
 ``model.predict`` runs on the model's device (the card, unless the model was
 built on the CPU) and gives fixed-shape detections in network-input
 coordinates; the host scales the boxes and keypoints to the original
@@ -13,9 +13,20 @@ evaluator (``box_proposals/AR@100``, ``box_proposals/AR@1000``) instead.
 A RetinaNet (``SingleStageDetector``) predicts no masks, so it gets the bbox
 evaluator alone. ``EVAL.CLASS_AGNOSTIC`` zeroes the GT and predicted classes before the
 evaluators see them. ``TEST.KEYPOINT_OKS_SIGMAS`` replaces COCO's person
-sigmas of the keypoint evaluator. Test-time augmentation, the VOC, semantic
-and panoptic evaluators and the drawn examples raise
-``NotImplementedError``: they wait for their families.
+sigmas of the keypoint evaluator.
+
+``evaluate_sem_seg`` takes each prediction's ``sem_seg`` over the image's
+content, resizes it to the original resolution by ``cv2.INTER_NEAREST``'s
+rule (``data.transforms.resize_nearest``) and feeds the confusion-matrix
+evaluator (``sem_seg/mIoU``, ``mACC``, ``pACC``, ``fwIoU``) against the
+dataset's ``sem_seg``. ``evaluate_panoptic`` runs ``panoptic_fusion`` on
+the model's device after ``predict``, un-resizes the panoptic map the same
+way and feeds the PQ evaluator (``panoptic/PQ`` ...) against the dataset's
+``get_panoptic_gt``, thing categories by their contiguous class and stuff
+categories by 1000 + their stuff label. ``run_evaluation`` runs each family
+that ``EVAL.METRICS`` names. Test-time augmentation, the VOC evaluators and
+the drawn examples raise ``NotImplementedError``: they wait for their
+families.
 """
 
 from __future__ import annotations
@@ -27,8 +38,11 @@ import numpy as np
 import torch
 
 from ..config import num_classes_of
+from ..data.transforms import resize_nearest
 from ..evaluation.coco_eval import CocoEvaluator, ProposalEvaluator
 from ..evaluation.np_masks import paste_masks
+from ..evaluation.panoptic_eval import PanopticEvaluator
+from ..evaluation.sem_seg_eval import SemSegEvaluator
 from .train import to_device
 
 logger = logging.getLogger(__name__)
@@ -42,9 +56,10 @@ _DETECTION_METRICS = {
 _NOT_PORTED_METRICS = (
     "pascal_voc_detection_metrics",
     "weighted_pascal_voc_detection_metrics", "pascal_voc_instance_segmentation_metrics",
-    "weighted_pascal_voc_instance_segmentation_metrics", "semantic_segmentation_metrics",
-    "panoptic_segmentation_metrics",
+    "weighted_pascal_voc_instance_segmentation_metrics",
 )
+# The segmentation families, which run_evaluation routes past the detection loop.
+SEGMENTATION_METRICS = ("semantic_segmentation_metrics", "panoptic_segmentation_metrics")
 
 
 # What ``predict`` reads of a batch: the images, and a Fast R-CNN's proposal slots.
@@ -56,7 +71,7 @@ def build_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
     model's device, ``model.predict`` runs there, and the outputs come back
     as numpy arrays (``boxes``, ``scores``, ``pred_classes``, ``is_valid``
     and, from a model with a mask or keypoint head, ``pred_masks`` or
-    ``pred_keypoints``)."""
+    ``pred_keypoints``, and from one with a semantic head ``sem_seg``)."""
     del cfg  # one device: no mesh to build
     device = next(model.parameters()).device
 
@@ -66,7 +81,7 @@ def build_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
         return {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
                 for k, v in out.items()
                 if k in ("boxes", "scores", "pred_classes", "is_valid", "pred_masks",
-                         "pred_keypoints")}
+                         "pred_keypoints", "sem_seg")}
 
     return predict
 
@@ -77,11 +92,13 @@ def build_detection_evaluators(cfg) -> Dict[str, tuple]:
     num_classes = num_classes_of(cfg)
     out = {}
     for name in cfg.EVAL.METRICS:
+        if name in SEGMENTATION_METRICS:
+            continue
         if name in _NOT_PORTED_METRICS:
             raise NotImplementedError(f"EVAL.METRICS entry '{name}' is not ported")
         if name not in _DETECTION_METRICS:
             raise ValueError(f"unknown EVAL.METRICS entry '{name}' "
-                             f"(known: {sorted(_DETECTION_METRICS) + list(_NOT_PORTED_METRICS)})")
+                             f"(known: {sorted(_DETECTION_METRICS) + list(SEGMENTATION_METRICS)})")
         prefix, factory = _DETECTION_METRICS[name]
         out[prefix] = (factory(num_classes), prefix)
     return out
@@ -97,7 +114,7 @@ def keypoint_evaluator(cfg, num_classes: int) -> CocoEvaluator:
 
 def _check_supported(cfg) -> None:
     if cfg.MODEL.META_ARCHITECTURE not in ("GeneralizedRCNN", "ProposalNetwork",
-                                           "SingleStageDetector"):
+                                           "SingleStageDetector", "PanopticFPN"):
         raise NotImplementedError(
             f"evaluating {cfg.MODEL.META_ARCHITECTURE} is not ported")
     if cfg.TEST.AUG.ENABLED:
@@ -203,15 +220,105 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
     return metrics
 
 
+def _original_map(pred: np.ndarray, size, shape) -> np.ndarray:
+    """A ``[H, W]`` map over the network input, its ``size`` (h, w) content
+    resized to the original ``shape`` by the nearest rule."""
+    rh, rw = (int(v) for v in size)
+    return resize_nearest(pred[:rh, :rw].astype(np.int32), *shape)
+
+
+def evaluate_sem_seg(cfg, model, dataset, data_iter: Iterable[Dict],
+                     max_images: Optional[int] = None) -> Dict[str, float]:
+    """The semantic evaluation loop: ``{"sem_seg/mIoU": ...}`` (module
+    docstring). ``dataset``'s samples carry their original-resolution
+    ``sem_seg``."""
+    if cfg.TEST.AUG.ENABLED:
+        raise NotImplementedError("TEST.AUG (test-time augmentation) is not ported")
+    ev = SemSegEvaluator(cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
+                         ignore_label=cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE)
+    predict = build_predict(cfg, model)
+    seen = set()
+    n_done = 0
+    for batch in data_iter:
+        sem = predict(batch)["sem_seg"]
+        for i in range(batch["image"].shape[0]):
+            image_id = int(batch["image_id"][i])
+            if image_id < 0 or image_id in seen:
+                continue
+            seen.add(image_id)
+            gt_map = dataset[_index_of(dataset, image_id)]["sem_seg"]
+            ev.add_image(gt_map, _original_map(sem[i], batch["image_size"][i], gt_map.shape))
+            n_done += 1
+        if max_images is not None and n_done >= max_images:
+            break
+    return {f"sem_seg/{k}": v for k, v in ev.evaluate().items()}
+
+
+def evaluate_panoptic(cfg, model, dataset, data_iter: Iterable[Dict],
+                      max_images: Optional[int] = None) -> Dict[str, float]:
+    """The panoptic evaluation loop: ``{"panoptic/PQ": ...}`` (module
+    docstring). ``dataset`` is a ``CocoPanopticDataset``: its
+    ``get_panoptic_gt`` and its thing and stuff category tables."""
+    from ..models.meta_arch.rcnn import panoptic_fusion
+
+    if cfg.TEST.AUG.ENABLED:
+        raise NotImplementedError("TEST.AUG (test-time augmentation) is not ported")
+    cat_table = {cid: True for cid in dataset.thing_contiguous.values()}
+    cat_table.update({1000 + cid: False for cid in dataset.stuff_contiguous.values()})
+    pq = PanopticEvaluator(cat_table)
+    device = next(model.parameters()).device
+    seen = set()
+    n_done = 0
+    for batch in data_iter:
+        inputs = to_device({k: v for k, v in batch.items() if k in _PREDICT_INPUTS}, device)
+        pan_maps, infos = panoptic_fusion(cfg, model.predict(inputs))
+        pan_maps = pan_maps.cpu().numpy()
+        infos = {k: v.cpu().numpy() for k, v in infos.items()}
+        for i in range(batch["image"].shape[0]):
+            image_id = int(batch["image_id"][i])
+            if image_id < 0 or image_id in seen:
+                continue
+            seen.add(image_id)
+            gt_map, gt_segments = dataset.get_panoptic_gt(_index_of(dataset, image_id))
+            pred_map = _original_map(pan_maps[i], batch["image_size"][i], gt_map.shape)
+            segments = [{"id": sid, "category_id": int(infos["category_id"][i, sid])
+                         + (0 if infos["is_thing"][i, sid] else 1000)}
+                        for sid in range(infos["valid"].shape[1]) if infos["valid"][i, sid]]
+            gt_segs = [{"id": seg["id"],
+                        "category_id": (dataset.thing_contiguous[seg["category_id"]]
+                                        if seg["category_id"] in dataset.thing_contiguous
+                                        else 1000 + dataset.stuff_contiguous[seg["category_id"]]),
+                        "iscrowd": seg.get("iscrowd", 0)} for seg in gt_segments]
+            pq.add_image(gt_map, gt_segs, pred_map, segments)
+            n_done += 1
+        if max_images is not None and n_done >= max_images:
+            break
+    return {f"panoptic/{k}": v for k, v in pq.evaluate().items()}
+
+
 def run_evaluation(cfg, model, dataset, data_iter, max_images: Optional[int] = None,
                    results_writer=None) -> Dict[str, float]:
-    """Dispatch on ``EVAL.METRICS``: the detection family, the one ported.
-    ``data_iter`` is an iterable of batches or a callable that makes one."""
+    """Dispatch on ``EVAL.METRICS`` across the three families: detection
+    (``evaluate``), semantic (``evaluate_sem_seg``) and panoptic
+    (``evaluate_panoptic``), in that order. ``data_iter`` is an iterable of
+    batches or a callable that makes one (a callable when more than one
+    family runs: each takes a fresh pass)."""
     names = tuple(cfg.EVAL.METRICS)
-    if not names:
+    families = []
+    if any(n not in SEGMENTATION_METRICS for n in names):
+        families.append(evaluate)
+    if "semantic_segmentation_metrics" in names:
+        families.append(evaluate_sem_seg)
+    if "panoptic_segmentation_metrics" in names:
+        families.append(evaluate_panoptic)
+    if not families:
         raise ValueError(f"EVAL.METRICS selects no evaluator: {names}")
-    batches = data_iter() if callable(data_iter) else iter(data_iter)
-    return evaluate(cfg, model, dataset, batches, max_images, results_writer)
+    metrics = {}
+    for family in families:
+        batches = data_iter() if callable(data_iter) else iter(data_iter)
+        kwargs = {"results_writer": results_writer} if family is evaluate else {}
+        metrics.update(family(cfg, model, dataset, batches, max_images, **kwargs))
+    return metrics
 
 
 def _index_of(dataset, image_id: int) -> int:

@@ -26,6 +26,8 @@ from ..solver import Optimizer, build_optimizer, scaled_max_iter
 from .checkpoint import CheckpointManager, load_pretrained
 
 logger = logging.getLogger(__name__)
+# The meta-architectures with a semantic head, whose batches carry ``gt_sem_seg``.
+SEMANTIC_ARCHITECTURES = ("PanopticFPN", "SemanticSegmentor")
 
 
 @dataclasses.dataclass
@@ -74,9 +76,13 @@ def make_train_batch(cfg, height: int = 800, width: int = 1344) -> Dict[str, np.
     ``(height, min(width, 1333))``, ``MAX_GT_INSTANCES`` random GT boxes per
     image (scaled by ``height / 800``), classes (of the model's class count:
     ``ROI_HEADS`` or, for a single-stage model, ``SINGLE_STAGE_HEAD``),
-    56x56 mini-masks and, with ``KEYPOINT_ON``, ``NUM_KEYPOINTS`` keypoints
-    per GT box, uniform in the box, visibility 0, 1 or 2 (drawn last, so
-    the other fields do not depend on it)."""
+    56x56 mini-masks, with ``KEYPOINT_ON`` ``NUM_KEYPOINTS`` keypoints
+    per GT box, uniform in the box, visibility 0, 1 or 2, and for a model
+    with a semantic head (``PanopticFPN``, ``SemanticSegmentor``)
+    ``gt_sem_seg [B, height, width]``: one label of ``SEM_SEG_HEAD.NUM_CLASSES``
+    or ``IGNORE_VALUE`` (one draw in ``NUM_CLASSES + 1``) per 16 x 16 block,
+    ``IGNORE_VALUE`` in the padding right of the image size. The optional
+    fields are drawn last, so the others do not depend on them."""
     b = cfg.SOLVER.IMS_PER_BATCH
     g = cfg.INPUT.MAX_GT_INSTANCES
     rng = np.random.default_rng(0)
@@ -103,6 +109,13 @@ def make_train_batch(cfg, height: int = 800, width: int = 1344) -> Dict[str, np.
         kp[..., :2] = boxes[:, :, None, :2] + at * (boxes[:, :, None, 2:] - boxes[:, :, None, :2])
         kp[..., 2] = rng.integers(0, 3, (b, g, k))
         batch["gt_keypoints"] = kp
+    if cfg.MODEL.META_ARCHITECTURE in SEMANTIC_ARCHITECTURES:
+        sh = cfg.MODEL.SEM_SEG_HEAD
+        cells = rng.integers(0, sh.NUM_CLASSES + 1, (b, -(-height // 16), -(-width // 16)))
+        sem = cells.repeat(16, 1).repeat(16, 2)[:, :height, :width]
+        sem = np.where(sem == sh.NUM_CLASSES, sh.IGNORE_VALUE, sem).astype(np.int32)
+        sem[:, :, min(width, 1333):] = sh.IGNORE_VALUE
+        batch["gt_sem_seg"] = sem
     return batch
 
 

@@ -15,8 +15,9 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
                 init: str = "serving") -> nn.Module:
     """Build the model on ``device`` (the card unless the caller passes
     ``device="cpu"``; without a card that raises), computing in
-    ``cfg.MODEL.DTYPE``: the ``GeneralizedRCNN``, ``ProposalNetwork`` or
-    ``SingleStageDetector`` that ``MODEL.META_ARCHITECTURE`` names.
+    ``cfg.MODEL.DTYPE``: the ``GeneralizedRCNN``, ``ProposalNetwork``,
+    ``SingleStageDetector``, ``PanopticFPN`` or ``SemanticSegmentor`` that
+    ``MODEL.META_ARCHITECTURE`` names.
 
     Weights come from ``state_dict`` (for example ``convert.py``'s output)
     or, without one, from :func:`init_weights` drawn from ``generator``

@@ -45,6 +45,7 @@ class Detector(nn.Module):
         self.pixel_std = list(m.PIXEL_STD)
         self.input_format = m.INPUT_FORMAT
         self.backbone, shapes = build_neck(cfg, build_resnet_backbone(cfg), output_shapes(cfg))
+        self.feature_shapes = shapes
         return shapes
 
     @property

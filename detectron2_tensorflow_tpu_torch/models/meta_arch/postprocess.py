@@ -1,8 +1,10 @@
-"""Serving output format: the ``conventional`` mode of ``detector_postprocess``.
+"""Serving output format: the ``conventional`` mode of ``detector_postprocess``,
+and ``sem_seg_postprocess``'s ``conventional`` and ``raw`` modes.
 
-Port of that mode of the JAX package's ``models/meta_arch/postprocess.py``:
+Port of those modes of the JAX package's ``models/meta_arch/postprocess.py``:
 soft ``[B, D, m, m]`` masks are pasted at their boxes into the
-network-input-shaped canvas and binarized to uint8.
+network-input-shaped canvas and binarized to uint8; a semantic map keeps the
+network-input canvas with its padding zeroed. The ``fixed`` format raises.
 """
 
 from __future__ import annotations
@@ -28,3 +30,19 @@ def detector_postprocess(cfg, detections: Instances, batch,
         for m, bx in zip(masks, detections.boxes)
     ]
     return detections.replace(pred_masks=torch.stack(pasted).to(torch.uint8))
+
+
+def sem_seg_postprocess(cfg, sem_seg: torch.Tensor, batch) -> torch.Tensor:
+    """``sem_seg [B, H, W]`` (the network-input canvas) with every pixel
+    outside the image's ``image_size`` set to 0, for the ``conventional``
+    and ``raw`` formats."""
+    fmt = cfg.MODEL.SEGMENTATION_OUTPUT.FORMAT
+    if fmt not in ("conventional", "raw"):
+        raise NotImplementedError(f"SEGMENTATION_OUTPUT.FORMAT '{fmt}' is not ported for "
+                                  "semantic maps")
+    h, w = sem_seg.shape[1:3]
+    sizes = batch["image_size"].to(sem_seg.device)
+    ys = torch.arange(h, device=sem_seg.device)[None, :, None]
+    xs = torch.arange(w, device=sem_seg.device)[None, None, :]
+    content = (ys < sizes[:, 0, None, None]) & (xs < sizes[:, 1, None, None])
+    return torch.where(content, sem_seg, torch.zeros_like(sem_seg))

@@ -1,6 +1,7 @@
 """GeneralizedRCNN: Faster, Mask, Keypoint and Cascade Mask R-CNN, with an FPN
 (R50-FPN) or on one feature level (C4, DC5), Fast R-CNN over loaded
-proposals, and the RPN-only ProposalNetwork; serving and training losses.
+proposals, the RPN-only ProposalNetwork, PanopticFPN and the
+SemanticSegmentor; serving and training losses.
 
 Port of ``predict_fn`` and ``loss_fn`` in the JAX package's
 ``models/meta_arch/rcnn.py`` (the families above). Serving: trunk and neck (FPN or
@@ -44,6 +45,12 @@ running statistics) in ``losses`` when it was built for training, and
 always with its running statistics in ``predict``, as the JAX package
 applies ``train=True`` and ``train=False``.
 
+:class:`PanopticFPN` is this R50-FPN Mask R-CNN with the semantic FPN head
+(``models/sem_seg.py``) beside it, and :class:`SemanticSegmentor` the trunk,
+the neck and that head alone (the JAX ``build_panoptic_fpn`` and
+``build_semantic_segmentor``); :func:`panoptic_fusion` fuses a PanopticFPN's
+detections and semantic map.
+
 Parameters follow Detectron2's names (``backbone.bottom_up.*`` with an FPN,
 ``backbone.*`` without one, ``proposal_generator.rpn_head.*``,
 ``roi_heads.box_head.*``, ``roi_heads.box_head.{k}.*`` for a cascade,
@@ -67,6 +74,7 @@ from ..roi_heads.cascade import CascadeROIHeads
 from ..roi_heads.roi_heads import Res5ROIHeads, StandardROIHeads
 from ..rpn import RPN, add_ground_truth_to_proposals
 from ..sampling import draw_noise
+from ..sem_seg import build_sem_seg_head, combine_semantic_and_instance_outputs, sem_seg_loss
 from .common import Detector
 from .single_stage import SingleStageDetector
 
@@ -86,12 +94,14 @@ class GeneralizedRCNN(Detector):
     """Faster, Mask, Cascade Mask or Fast R-CNN; ``predict(batch)`` is the
     serving entry point."""
 
+    meta_architecture = "GeneralizedRCNN"
+
     def __init__(self, cfg):
         super().__init__()
         m = cfg.MODEL
-        if m.META_ARCHITECTURE != "GeneralizedRCNN":
+        if m.META_ARCHITECTURE != self.meta_architecture:
             raise NotImplementedError(f"meta-architecture '{m.META_ARCHITECTURE}' is not ported "
-                                      "by GeneralizedRCNN")
+                                      f"by {type(self).__name__}")
         if m.ROI_HEADS.NAME not in ROI_HEADS:
             raise NotImplementedError(
                 f"ROI heads '{m.ROI_HEADS.NAME}': only Faster, Mask, Keypoint and Fast R-CNN "
@@ -126,8 +136,11 @@ class GeneralizedRCNN(Detector):
         with ``MASK_ON`` ``pred_masks [B, D, 2S, 2S]`` (probabilities; 28 x
         28 at the configs' resolutions) and with ``KEYPOINT_ON``
         ``pred_keypoints [B, D, K, 3]`` (x, y, score)."""
+        return self._detect(batch, self.features(batch["image"]))
+
+    def _detect(self, batch: Dict[str, torch.Tensor],
+                features: Dict[str, torch.Tensor]) -> Instances:
         image_sizes = batch["image_size"]
-        features = self.features(batch["image"])
         if self.load_proposals:
             proposals = batch_proposals(batch)
         else:
@@ -165,8 +178,10 @@ class GeneralizedRCNN(Detector):
         ``LOAD_PROPOSALS`` the batch holds the ``proposal_*`` slots and the
         RPN draw is neither made nor read.
         """
+        return self._losses(batch, self.features(batch["image"]), generator, noise)
+
+    def _losses(self, batch, features, generator, noise) -> Dict[str, torch.Tensor]:
         image_sizes = batch["image_size"]
-        features = self.features(batch["image"])
         b, dev = image_sizes.shape[0], image_sizes.device
         noise = dict(noise or {})
         if self.load_proposals:
@@ -251,8 +266,99 @@ class ProposalNetwork(Detector):
                                               rpn_noise)
 
 
+def semantic_logits(model: Detector, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The sem-seg head's logits at the input's resolution, float32 ``[B, K, H, W]``."""
+    return model.sem_seg_head(features).float()
+
+
+class PanopticFPN(GeneralizedRCNN):
+    """Mask R-CNN R50-FPN plus the semantic FPN head (``sem_seg_head``): the
+    JAX ``build_panoptic_fpn``. ``losses`` add ``loss_sem_seg`` (after the
+    RPN's, before the ROI heads') and scale the ROI heads' losses, not the
+    RPN's, by ``PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT``; ``predict`` adds
+    ``sem_seg [B, H, W]`` (int64), the first maximum of the float32 logits
+    per pixel. :func:`panoptic_fusion` fuses the two outputs."""
+
+    meta_architecture = "PanopticFPN"
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.sem_seg_head = build_sem_seg_head(cfg, self.feature_shapes)
+        h = cfg.MODEL.SEM_SEG_HEAD
+        self.sem_seg_ignore = h.IGNORE_VALUE
+        self.sem_seg_loss_weight = h.LOSS_WEIGHT
+        self.instance_loss_weight = cfg.MODEL.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT
+
+    def _predict(self, batch: Dict[str, torch.Tensor]) -> Instances:
+        features = self.features(batch["image"])
+        detections = self._detect(batch, features)
+        return detections.replace(sem_seg=torch.argmax(semantic_logits(self, features), dim=1))
+
+    def losses(self, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """:meth:`GeneralizedRCNN.losses` plus ``loss_sem_seg`` against the
+        batch's ``gt_sem_seg [B, H, W]`` (``SEM_SEG_HEAD.IGNORE_VALUE`` where
+        unlabelled, and in the padding)."""
+        features = self.features(batch["image"])
+        found = self._losses(batch, features, generator, noise)
+        losses = {k: v for k, v in found.items() if k.startswith("loss_rpn_")}
+        losses["loss_sem_seg"] = sem_seg_loss(semantic_logits(self, features), batch["gt_sem_seg"],
+                                              self.sem_seg_ignore, self.sem_seg_loss_weight)
+        losses.update({k: v * self.instance_loss_weight for k, v in found.items()
+                       if k not in losses})
+        return losses
+
+
+class SemanticSegmentor(Detector):
+    """Trunk, neck and the semantic FPN head alone (the JAX
+    ``build_semantic_segmentor``). ``losses`` give ``loss_sem_seg``;
+    ``predict`` gives ``sem_seg [B, H, W]`` (int64, the first maximum),
+    ``sem_seg_logits [B, H, W, K]`` (float32) and ``is_valid [B, 1]``
+    (torch's argmax takes the first of equal maxima, as JAX's does)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        m = cfg.MODEL
+        if m.META_ARCHITECTURE != "SemanticSegmentor":
+            raise NotImplementedError(f"meta-architecture '{m.META_ARCHITECTURE}' is not "
+                                      "SemanticSegmentor")
+        self.sem_seg_head = build_sem_seg_head(cfg, self._build_backbone(cfg))
+        self.sem_seg_ignore = m.SEM_SEG_HEAD.IGNORE_VALUE
+        self.sem_seg_loss_weight = m.SEM_SEG_HEAD.LOSS_WEIGHT
+
+    def _predict(self, batch: Dict[str, torch.Tensor]) -> Instances:
+        logits = semantic_logits(self, self.features(batch["image"]))
+        return Instances(sem_seg=torch.argmax(logits, dim=1),
+                         sem_seg_logits=logits.permute(0, 2, 3, 1),
+                         is_valid=torch.ones((logits.shape[0], 1), dtype=torch.bool,
+                                             device=logits.device))
+
+    def losses(self, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        """``loss_sem_seg`` of one batch (``image``, ``gt_sem_seg``); nothing is drawn."""
+        del generator, noise
+        logits = semantic_logits(self, self.features(batch["image"]))
+        return {"loss_sem_seg": sem_seg_loss(logits, batch["gt_sem_seg"], self.sem_seg_ignore,
+                                             self.sem_seg_loss_weight)}
+
+
+def panoptic_fusion(cfg, detections: Instances):
+    """The panoptic fusion of a PanopticFPN's ``predict`` output (its
+    ``pred_masks`` and ``sem_seg``) with ``PANOPTIC_FPN.COMBINE``'s
+    thresholds: ``(panoptic_map [B, H, W], segment tables)``, see
+    :func:`..sem_seg.combine_semantic_and_instance_outputs`."""
+    comb = cfg.MODEL.PANOPTIC_FPN.COMBINE
+    return combine_semantic_and_instance_outputs(
+        detections, detections.sem_seg, comb.OVERLAP_THRESH, comb.STUFF_AREA_LIMIT,
+        comb.INSTANCES_CONFIDENCE_THRESH, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+
+
 META_ARCHITECTURES = {"GeneralizedRCNN": GeneralizedRCNN, "ProposalNetwork": ProposalNetwork,
-                      "SingleStageDetector": SingleStageDetector}
+                      "SingleStageDetector": SingleStageDetector, "PanopticFPN": PanopticFPN,
+                      "SemanticSegmentor": SemanticSegmentor}
 
 
 def meta_architecture(cfg):
@@ -274,6 +380,7 @@ _SMALL_INIT = {
     "roi_heads.box_predictor.cls_score": 0.01,
     "roi_heads.box_predictor.bbox_pred": 0.001,
     "roi_heads.mask_head.predictor": 0.001,
+    "sem_seg_head.predictor": 0.001,
     "head.cls_score": 0.01,
     "head.bbox_pred": 0.01,
 }

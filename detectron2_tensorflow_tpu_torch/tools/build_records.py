@@ -8,9 +8,12 @@ The port's counterpart of the repo's ``build_records.py``: for the splits
 ``<DATASETS.ROOT_DIR>/<split>.record-*`` (``BUILD_RECORDS.TRAIN_NUM_SHARDS``
 and ``VAL_NUM_SHARDS`` shards), and ``category_map.json`` records the class
 names and the dataset's category ids. ``BUILD_RECORDS.TYPE`` ``coco_det``
-(masks only with ``INCLUDE_MASKS``) and ``coco_inst`` are ported;
-``coco_pano`` waits for the panoptic family. A split without its JSON is
-skipped with a warning.
+(masks only with ``INCLUDE_MASKS``), ``coco_inst`` and ``coco_pano``: the
+COCO-panoptic layout ``<split>_panoptic.json`` + ``<split>_panoptic/`` id
+maps + ``<split>/`` images (``data.CocoPanopticDataset``), whose records
+carry the thing instances with masks and the semantic map
+(``image/sem_seg``), and whose ``category_map.json`` names the thing and
+stuff classes. A split without its JSON is skipped with a warning.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import logging
 import os
 
 from ..config import get_cfg
-from ..data import CocoDataset, build_records
+from ..data import CocoDataset, CocoPanopticDataset, build_records
 
 
 def parse_args(argv=None):
@@ -40,26 +43,28 @@ def main(argv=None):
     if args.opts:
         cfg.merge_from_list(args.opts)
     kind = cfg.BUILD_RECORDS.TYPE
-    if kind == "coco_pano":
-        raise NotImplementedError(
-            "BUILD_RECORDS.TYPE coco_pano (panoptic records) waits for the panoptic family; "
-            "coco_det and coco_inst are ported")
-    if kind not in ("coco_det", "coco_inst"):
+    if kind not in ("coco_det", "coco_inst", "coco_pano"):
         raise ValueError(f"unknown BUILD_RECORDS.TYPE '{kind}'")
 
     root = cfg.BUILD_RECORDS.ROOT_DIR or cfg.DATASETS.ROOT_DIR
     load_masks = kind != "coco_det" or cfg.BUILD_RECORDS.INCLUDE_MASKS
+    panoptic = kind == "coco_pano"
     for split, shards in ((cfg.DATASETS.TRAIN, cfg.BUILD_RECORDS.TRAIN_NUM_SHARDS),
                           (cfg.DATASETS.VAL, cfg.BUILD_RECORDS.VAL_NUM_SHARDS)):
-        ann = os.path.join(root, split + ".json")
+        ann = os.path.join(root, split + ("_panoptic.json" if panoptic else ".json"))
         if not os.path.isfile(ann):
             logging.warning("skipping %s (no %s)", split, ann)
             continue
-        ds = CocoDataset(ann, os.path.join(root, split), load_masks=load_masks)
+        if panoptic:
+            ds = CocoPanopticDataset(ann, os.path.join(root, split + "_panoptic"),
+                                     os.path.join(root, split))
+            cat_map = {"thing_classes": ds.thing_classes, "stuff_classes": ds.stuff_classes}
+        else:
+            ds = CocoDataset(ann, os.path.join(root, split), load_masks=load_masks)
+            cat_map = {"thing_classes": ds.class_names,
+                       "contiguous_to_coco_id": ds.contiguous_to_cat_id}
         paths = build_records(ds, os.path.join(cfg.DATASETS.ROOT_DIR, f"{split}.record"), shards)
         logging.info("wrote %d shards for %s", len(paths), split)
-        cat_map = {"thing_classes": ds.class_names,
-                   "contiguous_to_coco_id": ds.contiguous_to_cat_id}
         with open(os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.CATEGORY_MAP_NAME), "w") as fp:
             json.dump(cat_map, fp)
 

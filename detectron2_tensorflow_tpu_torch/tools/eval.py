@@ -9,11 +9,14 @@ one checkpoint file), by default the training directory
 ``<LOGS.ROOT_DIR or OUTPUT_DIR>/<LOGS.TRAIN>``; without one, from
 ``PRETRAINS``; else the model's random weights, with a warning. The
 ``DATASETS.VAL`` split is read by ``DATASETS.TRAIN_FORMAT``
-(``build_eval_dataset``; the COCO JSON with ``PROPOSAL_FILES_TEST[0]``
-attached under ``MODEL.LOAD_PROPOSALS``) and evaluated by the evaluators
-``EVAL.METRICS`` selects (COCO bbox and segm; proposal recall
-``box_proposals/AR@100`` and ``AR@1000`` for a ``ProposalNetwork``); each
-metric is printed as ``name: value``. With ``TEST.PRECISE_BN.ENABLED`` the
+(``tools.train.build_eval_dataset``; the COCO JSON with
+``PROPOSAL_FILES_TEST[0]`` attached under ``MODEL.LOAD_PROPOSALS``; the
+COCO-panoptic layout when ``EVAL.METRICS`` names the semantic or panoptic
+metrics) and evaluated by the evaluators ``EVAL.METRICS`` selects (COCO
+bbox, segm and keypoints; proposal recall ``box_proposals/AR@100`` and
+``AR@1000`` for a ``ProposalNetwork``; ``sem_seg/mIoU``, ``mACC``,
+``pACC``, ``fwIoU``; ``panoptic/PQ``, ``SQ``, ``RQ`` and their thing and
+stuff parts); each metric is printed as ``name: value``. With ``TEST.PRECISE_BN.ENABLED`` the
 BN statistics are first re-estimated over ``TEST.PRECISE_BN.NUM_ITER``
 evaluation batches (``engine.tta.precise_bn``; a model without BN is left
 as it is).
@@ -25,8 +28,7 @@ after ``--watch_timeout`` idle seconds. It runs on the card unless
 ``--device cpu``.
 
 Not ported: the native eval loader (``DATALOADER.NATIVE_EVAL_IO``: one line
-says so and ``build_dataloader`` serves) and the panoptic and semantic
-metrics (raise).
+says so and ``build_dataloader`` serves).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from ..engine.checkpoint import latest_checkpoint, latest_step, load_pretrained,
 from ..engine.tta import precise_bn
 from ..evaluation.coco_results import CocoResultsWriter
 from ..models import build_model
-from .train import checkpoint_dir, load_dataset
+from .train import build_eval_dataset, checkpoint_dir
 
 
 def parse_args(argv=None):
@@ -77,16 +79,6 @@ def load_variables(cfg, model, checkpoint) -> str:
         return "PRETRAINS"
     logging.warning("no checkpoint found — evaluating random weights")
     return "random weights"
-
-
-def build_eval_dataset(cfg):
-    """The ``DATASETS.VAL`` split (``tools.train.load_dataset``, with
-    ``PROPOSAL_FILES_TEST``)."""
-    names = tuple(cfg.EVAL.METRICS)
-    for name in ("panoptic_segmentation_metrics", "semantic_segmentation_metrics"):
-        if name in names:
-            raise NotImplementedError(f"EVAL.METRICS {name}: the panoptic family is not ported")
-    return load_dataset(cfg, cfg.DATASETS.VAL, cfg.DATASETS.PROPOSAL_FILES_TEST)
 
 
 def main(argv=None):

@@ -1,7 +1,7 @@
 """Learning check: overfit a small detector on 8 synthetic images and report AP.
 
     python -m detectron2_tensorflow_tpu_torch.tools.overfit_check [STEPS]
-        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint] [--eval_at N[,N...]]
+        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint|semantic] [--eval_at N[,N...]]
         [--device cpu] [KEY VALUE ...]
 
 The port's counterpart of the repo's ``tools/overfit_check.py`` for its
@@ -15,7 +15,11 @@ this one), ``cascade`` (``Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml``) and
 ``keypoint`` (Mask R-CNN R50-FPN's YAML with ``MASK_ON`` off and
 ``KEYPOINT_ON``: 4 keypoints, the box corners of
 ``SyntheticDataset(with_keypoints=True)``, a head of four 128-wide convs,
-OKS sigmas 0.05) families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
+OKS sigmas 0.05) and ``semantic`` (``semantic_R_50_FPN_1x.yaml``'s
+SemanticSegmentor, 4 classes: the background and the 3 box classes of
+``SyntheticDataset(with_sem_seg=True)``, on 194x306 images of 30-70 px
+boxes resized to the 128x256 / 256x128 buckets, as the JAX tool has it)
+families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
 ``config.small_cfg()``, anchors scaled to 10-30 px boxes, ResNet-18 with GN trained from the JAX
 package's initializers (``FREEZE_AT 0``), 3 classes, 64 ROIs per image, 8
 images per step, LR 0.01 after 100 warm-up steps. It trains STEPS (default
@@ -27,7 +31,9 @@ threshold: 0.5 for ``rcnn``, 0.25 for the other archs). ``KEY VALUE`` overrides 
 (for example narrower widths). It runs on the card unless ``--device cpu``.
 The last line of stdout is one JSON object: ``arch``, ``steps``,
 ``train_seconds``, ``final_loss``, ``bbox_ap``, ``bbox_ap50`` and, with
-masks, ``segm_ap``, ``segm_ap50``, with keypoints ``keypoints_ap``.
+masks, ``segm_ap``, ``segm_ap50``, with keypoints ``keypoints_ap``; for
+``semantic`` ``miou`` and ``macc`` (``evaluate_sem_seg`` on the same
+images) in place of the APs.
 ``--eval_at`` also evaluates after each
 of those earlier step counts and prints the same object for it (``steps`` =
 N) on a line of its own; training goes on from there unchanged. It gates
@@ -48,7 +54,7 @@ from ..config import get_cfg, small_cfg
 from ..data import SyntheticDataset, build_dataloader
 from ..data.transforms import resize_image
 from ..engine import build_train_step, create_train_state, to_device
-from ..engine.evaluator import evaluate
+from ..engine.evaluator import evaluate, evaluate_sem_seg
 from ..models import build_model
 
 REPO_CONFIGS = {
@@ -58,6 +64,7 @@ REPO_CONFIGS = {
     "retinanet": "configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml",
     "cascade": "configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml",
     "keypoint": "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml",
+    "semantic": "configs/COCO-SemanticSegmentation/semantic_R_50_FPN_1x.yaml",
 }
 
 
@@ -84,6 +91,8 @@ def get_cfg_for(arch: str):
         cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS = 4
         cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = (128,) * 4
         cfg.TEST.KEYPOINT_OKS_SIGMAS = [0.05] * 4
+    elif arch == "semantic":
+        cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES = 4  # the background and the 3 box classes
     return cfg
 
 
@@ -94,10 +103,10 @@ def overfit_cfg(arch: str):
     cfg.TRANSFORM = tiny.TRANSFORM
     cfg.INPUT = tiny.INPUT
     cfg.TRANSFORM.RESIZE.MINI_MASK_SIZE = 28
-    if arch != "c4":  # anchors for 10-30 px boxes, one size per FPN level
-        cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8], [16], [32], [64], [128]]
-    else:  # one feature level: one set of sizes
+    if arch == "c4":  # one feature level: one set of sizes
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8, 16, 32, 64, 128]]
+    elif arch != "semantic":  # anchors for 10-30 px boxes, one size per FPN level
+        cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8], [16], [32], [64], [128]]
     cfg.MODEL.RESNETS.DEPTH = 18
     cfg.MODEL.RESNETS.NORM = "GN"
     cfg.MODEL.BACKBONE.FREEZE_AT = 0
@@ -114,6 +123,21 @@ def overfit_cfg(arch: str):
     cfg.SOLVER.STEPS = (100000,)  # constant LR after warmup
     cfg.SOLVER.AUTO_SCALE_LR_SCHEDULE = False
     return cfg
+
+
+def overfit_inputs(cfg, arch: str) -> SyntheticDataset:
+    """The 8 training (and evaluation) images of ``arch``'s recipe; for
+    ``semantic`` (a stride-4 head needs targets of more than a few cells)
+    larger images and boxes, resized to the 128x256 / 256x128 buckets,
+    which ``cfg`` is set to, as the JAX tool's ``main`` does."""
+    if arch != "semantic":
+        return SyntheticDataset(n=8, num_classes=3, with_keypoints=arch == "keypoint")
+    r = cfg.TRANSFORM.RESIZE
+    r.MIN_SIZE_TRAIN, r.MAX_SIZE_TRAIN = (128,), 256
+    r.MIN_SIZE_TEST, r.MAX_SIZE_TEST = 128, 256
+    cfg.INPUT.PAD_BUCKETS = ((128, 256), (256, 128))
+    return SyntheticDataset(n=8, h=194, w=306, num_classes=3, box_range=(30, 70),
+                            with_sem_seg=True)
 
 
 def parse_args(argv=None):
@@ -193,6 +217,14 @@ def box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: float):
     """Evaluate ``model`` on ``ds`` and print the JSON line of ``steps``."""
     model.eval()
+    if arch == "semantic":
+        results = evaluate_sem_seg(cfg, model, ds, build_dataloader(cfg, ds, training=False,
+                                                                     seed=0))
+        out = {"arch": arch, "steps": steps, "train_seconds": round(train_s, 1),
+               "final_loss": loss, "miou": round(float(results["sem_seg/mIoU"]), 2),
+               "macc": round(float(results["sem_seg/mACC"]), 2)}
+        print(json.dumps(out), flush=True)
+        return out
     results = evaluate(cfg, model, ds, build_dataloader(cfg, ds, training=False, seed=0))
     found, missed, false = find_instances(cfg, model, ds, device, arch)
     print(f"instances found {found} / {found + missed}, {false} false detections above "
@@ -217,10 +249,10 @@ def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: 
 def main(argv=None):
     args = parse_args(argv)
     cfg = overfit_cfg(args.arch)
+    ds = overfit_inputs(cfg, args.arch)
     if args.opts:
         cfg.merge_from_list(args.opts)
     device = torch.device(args.device)
-    ds = SyntheticDataset(n=8, num_classes=3, with_keypoints=args.arch == "keypoint")
     model = build_model(cfg, device=device, training=True, init="jax",
                         generator=torch.Generator().manual_seed(0))
     state = create_train_state(cfg, model, torch.Generator(device=device).manual_seed(0))

@@ -13,7 +13,11 @@ synchronized runs; from ``torch.profiler``, the device time per batch, the
 device's idle share (1 - device time / wall time), the device time by
 category (convs, GEMMs, the hand-written kernels, sorts, the rest), each
 hand-written kernel's own device time (``nms_keep``'s mask pass and sweep
-apart) and the top kernels by device time. The full profiler table goes to
+apart) and the top kernels by device time; for a model with a semantic
+head (``PanopticFPN``, ``SemanticSegmentor``) the head's own device time
+(its convs, GN, upsamples and the float32 logits) and the argmax's, on the
+served features, and for a ``PanopticFPN`` the device and wall time of
+``panoptic_fusion`` on the served output. The full profiler table goes to
 ``profile_predict[_<config>]_b<batch>[_fused].txt`` in ``main``'s output
 directory. Set ``D2TPU_ENABLE_FUSED_EPILOGUE=1`` to profile the model with
 the fused bottleneck tail (``_fused`` in the file name).
@@ -104,6 +108,32 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
 
     profile(lambda: model.predict(inputs), 3, f"batch {batch}",
             out_dir / f"profile_predict{name_of(config_file)}_b{batch}{suffix()}.txt")
+    if hasattr(model, "sem_seg_head"):
+        profile_semantic(cfg, model, inputs)
+
+
+def profile_semantic(cfg, model, inputs) -> None:
+    """The semantic head's and the argmax's device ms on the served features,
+    and a PanopticFPN's ``panoptic_fusion`` of its served output."""
+    from detectron2_tensorflow_tpu_torch.models.meta_arch.rcnn import (
+        panoptic_fusion,
+        semantic_logits,
+    )
+
+    with torch.inference_mode():
+        feats = model.features(inputs["image"])
+        logits = semantic_logits(model, feats)
+        head = device_time(lambda: semantic_logits(model, feats), 3)
+        arg = device_time(lambda: torch.argmax(logits, dim=1), 3)
+    print(f"  sem_seg head (convs, GN, upsamples, float32 logits {tuple(logits.shape)}): "
+          f"device {head[0]:.3f} ms/call, wall {head[1]:.3f} ms; argmax: device "
+          f"{arg[0]:.3f} ms/call")
+    if cfg.MODEL.META_ARCHITECTURE == "PanopticFPN":
+        out = model.predict(inputs)
+        fusion = device_time(lambda: panoptic_fusion(cfg, out), 3)
+        print(f"  panoptic_fusion ({out.boxes.shape[1]} detection slots, "
+              f"{cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES} stuff labels): device {fusion[0]:.3f} "
+              f"ms/call, wall {fusion[1]:.3f} ms/call, idle share {fusion[2]:.3f}")
 
 
 def name_of(config_file: Optional[str]) -> str:

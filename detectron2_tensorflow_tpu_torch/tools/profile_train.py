@@ -10,7 +10,9 @@ instances per image, as ``train_cfg``), steps on a seeded
 images/s on the host clock around synchronized steps, the peak device
 memory, and from ``torch.profiler`` the device time per step, the device's
 idle share, the device time by category (as ``profile_predict``) and the top
-kernels. The full profiler table goes to
+kernels; for a model with a semantic head, the device ms of that head's
+forward, ``sem_seg_loss`` and backward on the step's features. The full
+profiler table goes to
 ``profile_train[_<config>]_b<batch>[_fused].txt`` beside
 ``profile_predict``'s (``D2TPU_ENABLE_FUSED_EPILOGUE=1``: the fused
 bottleneck tail).
@@ -74,6 +76,23 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
     profile_predict.profile(lambda: step(data), 3, f"batch {batch}",
                             out_dir / f"profile_train{profile_predict.name_of(config_file)}"
                                       f"_b{batch}{profile_predict.suffix()}.txt")
+    if hasattr(model, "sem_seg_head"):
+        from detectron2_tensorflow_tpu_torch.models.meta_arch.rcnn import semantic_logits
+        from detectron2_tensorflow_tpu_torch.models.sem_seg import sem_seg_loss
+
+        with torch.no_grad():
+            feats = model.features(data["image"])
+        feats = {k: v.detach().requires_grad_(True) for k, v in feats.items()}
+
+        def head_step():
+            loss = sem_seg_loss(semantic_logits(model, feats), data["gt_sem_seg"],
+                                model.sem_seg_ignore, model.sem_seg_loss_weight)
+            loss.backward()
+
+        ms = profile_predict.device_time(head_step, 3)
+        model.zero_grad(set_to_none=True)
+        print(f"  sem_seg head forward + loss + backward: device {ms[0]:.3f} ms/step, wall "
+              f"{ms[1]:.3f} ms")
 
 
 def main(argv) -> None:

@@ -12,6 +12,12 @@ the first proposal file (a Detectron2 pickle under ``DATASETS.ROOT_DIR``)
 attached, as the repo's ``train.py`` does; with ``MODEL.KEYPOINT_ON``, the
 COCO JSON too (TFRecords carry no keypoints), without the images that have
 fewer than ``ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE`` labelled keypoints.
+A ``PanopticFPN`` or ``SemanticSegmentor`` reads records built with
+``BUILD_RECORDS.TYPE coco_pano`` (records without ``image/sem_seg`` raise,
+naming it) or, without records, the COCO-panoptic layout
+``<TRAIN>_panoptic.json`` + ``<TRAIN>_panoptic/`` + ``<TRAIN>/``
+(``data.CocoPanopticDataset``, unlabelled pixels at
+``SEM_SEG_HEAD.IGNORE_VALUE``), as the repo's ``train.py`` does.
 The model starts from the JAX package's
 initializers (seed ``max(SEED, 0)``), or ``PRETRAINS``, or resumes from the
 newest checkpoint in ``<LOGS.ROOT_DIR or OUTPUT_DIR>/<LOGS.TRAIN>``; it
@@ -23,9 +29,9 @@ losses and the hand-written kernels' launches during training.
 
 The JAX package's native (C++ JPEG) train loader is not ported: with
 ``DATALOADER.NATIVE_TRAIN_IO`` on, one line says so and ``build_dataloader``
-serves, as in the JAX CLI where the native loader is unusable. Panoptic
-training raises: its family is not ported; so does an ``AUGMENT.*``
-augmentation the port does not have, before any data is read.
+serves, as in the JAX CLI where the native loader is unusable. An
+``AUGMENT.*`` augmentation the port does not have raises before any data
+is read.
 """
 
 from __future__ import annotations
@@ -40,10 +46,17 @@ import time
 import torch
 
 from ..config import finalize, get_cfg
-from ..data import CocoDataset, TFRecordDataset, build_dataloader, transforms
+from ..data import (
+    CocoDataset,
+    CocoPanopticDataset,
+    TFRecordDataset,
+    build_dataloader,
+    transforms,
+)
 from ..engine import train
+from ..engine.train import SEMANTIC_ARCHITECTURES
 from ..engine.checkpoint import latest_step
-from ..engine.evaluator import run_evaluation
+from ..engine.evaluator import SEGMENTATION_METRICS, run_evaluation
 from ..models import build_model
 from ..models.poolers import roi_patch_backward, roi_patch_interpolate
 from ..ops.fused_residual import fused_conv1x1_bn_add_relu
@@ -54,8 +67,6 @@ LOG_EVERY = 20  # steps between the metric reads (and log lines) of train()
 # The hand-written kernels' wrappers; each counts its launches in ``launches``.
 KERNELS = {"nms_keep": greedy_keep, "roi_patch_fwd": roi_patch_interpolate,
            "roi_patch_bwd": roi_patch_backward, "fused_residual": fused_conv1x1_bn_add_relu}
-
-_PANOPTIC_ARCHS = ("PanopticFPN", "SemanticSegmentor")
 
 
 def parse_args(argv=None):
@@ -68,14 +79,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_family(cfg) -> None:
-    """Raise for the configs whose data or model families, or augmentations,
-    are not ported."""
-    transforms.check_supported(cfg)
-    if cfg.MODEL.META_ARCHITECTURE in _PANOPTIC_ARCHS:
-        raise NotImplementedError(
-            f"MODEL.META_ARCHITECTURE {cfg.MODEL.META_ARCHITECTURE}: semantic GT "
-            "(BUILD_RECORDS.TYPE coco_pano) belongs to the panoptic family, not ported")
+def panoptic_dataset(cfg, split: str, ignore_label: int = -1) -> CocoPanopticDataset:
+    """``<ROOT>/<split>_panoptic.json`` with its id maps and images."""
+    root = cfg.DATASETS.ROOT_DIR
+    return CocoPanopticDataset(os.path.join(root, split + "_panoptic.json"),
+                               os.path.join(root, split + "_panoptic"),
+                               os.path.join(root, split), ignore_label=ignore_label)
 
 
 def load_dataset(cfg, split: str, proposal_files, training: bool = False):
@@ -83,21 +92,31 @@ def load_dataset(cfg, split: str, proposal_files, training: bool = False):
     ``records``, or ``auto`` and ``<ROOT>/<split>.record-*`` exist, unless
     proposals are loaded (their ids key to the annotations file) or, in
     ``training``, a keypoint model reads it (records carry no keypoints);
-    else the COCO JSON, with ``proposal_files[0]`` attached under
+    else, for a model with a semantic head, the COCO-panoptic layout, and
+    otherwise the COCO JSON, with ``proposal_files[0]`` attached under
     ``MODEL.LOAD_PROPOSALS`` and, for training a keypoint model, the images
-    with fewer than ``MIN_KEYPOINTS_PER_IMAGE`` labelled keypoints left out."""
-    check_family(cfg)
+    with fewer than ``MIN_KEYPOINTS_PER_IMAGE`` labelled keypoints left out.
+    Records read for a model with a semantic head must carry its map."""
+    transforms.check_supported(cfg)
     root = cfg.DATASETS.ROOT_DIR
     pattern = os.path.join(root, split + ".record-*")
     fmt = cfg.DATASETS.TRAIN_FORMAT
     json_only = cfg.MODEL.LOAD_PROPOSALS and len(proposal_files) > 0
     keypoints = training and cfg.MODEL.KEYPOINT_ON
+    semantic = cfg.MODEL.META_ARCHITECTURE in SEMANTIC_ARCHITECTURES
     if keypoints and fmt == "records":
         raise ValueError("MODEL.KEYPOINT_ON trains from the COCO JSON (TFRecords carry no "
                          "keypoints): DATASETS.TRAIN_FORMAT must be auto or json, not records")
     if fmt == "records" or (fmt == "auto" and glob.glob(pattern) and not (json_only or keypoints)):
         logging.info("reading records: %s", pattern)
-        return TFRecordDataset(pattern, load_masks=cfg.MODEL.MASK_ON)
+        ds = TFRecordDataset(pattern, load_masks=cfg.MODEL.MASK_ON)
+        if semantic and training and ds[0].get("sem_seg") is None:
+            raise ValueError(f"{cfg.MODEL.META_ARCHITECTURE} needs semantic GT but the records at "
+                             f"{pattern} carry none: rebuild them with BUILD_RECORDS.TYPE "
+                             "coco_pano (tools.build_records)")
+        return ds
+    if semantic:
+        return panoptic_dataset(cfg, split, cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE)
     min_keypoints = cfg.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE if keypoints else 0
     ds = CocoDataset(os.path.join(root, split + ".json"), os.path.join(root, split),
                      load_masks=cfg.MODEL.MASK_ON, min_keypoints=min_keypoints)
@@ -111,6 +130,17 @@ def build_train_dataset(cfg):
     ``PROPOSAL_FILES_TRAIN``)."""
     return load_dataset(cfg, cfg.DATASETS.TRAIN, cfg.DATASETS.PROPOSAL_FILES_TRAIN,
                         training=True)
+
+
+def build_eval_dataset(cfg):
+    """The ``DATASETS.VAL`` split: the COCO-panoptic layout when
+    ``EVAL.METRICS`` names the semantic or panoptic metrics (their GT lives
+    there), else :func:`load_dataset` with ``PROPOSAL_FILES_TEST``, as the
+    repo's ``eval.py`` chooses."""
+    if any(name in SEGMENTATION_METRICS for name in cfg.EVAL.METRICS):
+        transforms.check_supported(cfg)
+        return panoptic_dataset(cfg, cfg.DATASETS.VAL)
+    return load_dataset(cfg, cfg.DATASETS.VAL, cfg.DATASETS.PROPOSAL_FILES_TEST)
 
 
 def checkpoint_dir(cfg) -> str:
@@ -138,12 +168,15 @@ def main(argv=None):
 
     eval_fn = None
     if cfg.TEST.EVAL_PERIOD > 0:
-        val_ds = CocoDataset(os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.VAL + ".json"),
-                             os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.VAL),
-                             load_masks=cfg.MODEL.MASK_ON)
-        if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
-            val_ds.set_proposals(os.path.join(cfg.DATASETS.ROOT_DIR,
-                                              cfg.DATASETS.PROPOSAL_FILES_TEST[0]))
+        if any(name in SEGMENTATION_METRICS for name in cfg.EVAL.METRICS):
+            val_ds = panoptic_dataset(cfg, cfg.DATASETS.VAL)
+        else:
+            val_ds = CocoDataset(os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.VAL + ".json"),
+                                 os.path.join(cfg.DATASETS.ROOT_DIR, cfg.DATASETS.VAL),
+                                 load_masks=cfg.MODEL.MASK_ON)
+            if cfg.MODEL.LOAD_PROPOSALS and cfg.DATASETS.PROPOSAL_FILES_TEST:
+                val_ds.set_proposals(os.path.join(cfg.DATASETS.ROOT_DIR,
+                                                  cfg.DATASETS.PROPOSAL_FILES_TEST[0]))
 
         def eval_fn(state, step):
             return run_evaluation(cfg, state.model, val_ds,

@@ -138,10 +138,10 @@ def test_eval_restores_a_checkpoint_file_or_warns_of_random_weights(trained, tmp
 
 
 @pytest.mark.parametrize("tool,opts,match", [
-    ("build_records", ["BUILD_RECORDS.TYPE", "coco_pano"], "BUILD_RECORDS.TYPE coco_pano"),
+    ("train", ["AUGMENT.ROTATE", "True"], "AUGMENT.ROTATE"),
     ("train", ["MODEL.KEYPOINT_ON", "True", "AUGMENT.CROP.ENABLED", "True"], "AUGMENT.CROP.ENABLED"),
     ("eval", ["TEST.AUG.ENABLED", "True"], "TEST.AUG"),
-    ("eval", ["EVAL.METRICS", "['panoptic_segmentation_metrics']"], "panoptic"),
+    ("eval", ["EVAL.METRICS", "['pascal_voc_detection_metrics']"], "pascal_voc"),
 ])
 def test_unported_options_raise_naming_the_key(trained, tool, opts, match):
     main = {"build_records": tools_build_records.main, "train": tools_train.main,

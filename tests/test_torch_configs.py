@@ -270,7 +270,8 @@ def test_jax_cfgnode_and_port_cfgnode_agree_on_construction():
 # The files whose model the port has (Faster, Mask, Cascade Mask and Fast
 # R-CNN on FPN, C4 and DC5 trunks: R50, R101, X101, the class-agnostic heads,
 # GN and SyncBN, the R18-GN overfit config; the RPN-only ProposalNetwork;
-# RetinaNet); every other file must
+# RetinaNet; Keypoint R-CNN; PanopticFPN and the SemanticSegmentor, the R18-GN
+# panoptic overfit config); every other file must
 # raise NotImplementedError on a key the port does not read yet, never build
 # while ignoring one.
 BUILDS = {
@@ -331,6 +332,18 @@ BUILDS = {
     "configs/quick_schedules/keypoint_rcnn_R_50_FPN_instant_test.yaml",
     "configs/quick_schedules/keypoint_rcnn_R_50_FPN_normalized_training_acc_test.yaml",
     "configs/quick_schedules/keypoint_rcnn_R_50_FPN_training_acc_test.yaml",
+    "configs/COCO-PanopticSegmentation/Base-Panoptic-FPN.yaml",
+    "configs/COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml",
+    "configs/COCO-PanopticSegmentation/panoptic_fpn_R_50_3x.yaml",
+    "configs/COCO-PanopticSegmentation/panoptic_fpn_R_101_3x.yaml",
+    "configs/COCO-SemanticSegmentation/semantic_R_50_FPN_1x.yaml",
+    "configs/quick_schedules/panoptic_fpn_R_50_inference_acc_test.yaml",
+    "configs/quick_schedules/panoptic_fpn_R_50_instant_test.yaml",
+    "configs/quick_schedules/panoptic_fpn_R_50_training_acc_test.yaml",
+    "configs/quick_schedules/semantic_R_50_FPN_inference_acc_test.yaml",
+    "configs/quick_schedules/semantic_R_50_FPN_instant_test.yaml",
+    "configs/quick_schedules/semantic_R_50_FPN_training_acc_test.yaml",
+    "configs/synthetic/overfit_panoptic_R_18.yaml",
 }
 
 

@@ -769,3 +769,49 @@ def test_keypoint_loss_and_inference_on_the_card_equal_the_cpu(dev):
     assert float((gg - wg).abs().max()) <= 1e-5 * float(wg.abs().max())
     torch.testing.assert_close(gk[..., :2], wk[..., :2], rtol=0, atol=1e-4)
     torch.testing.assert_close(gk[..., 2], wk[..., 2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("overlap,limit,conf", [(0.5, 80, 0.5), (0.3, 200, 0.0), (0.8, 1, 0.6)])
+def test_panoptic_fusion_on_the_card_equals_the_cpu(dev, overlap, limit, conf):
+    """``combine_semantic_and_instance_outputs`` on card tensors against the
+    CPU: the panoptic map and the four segment tables bit-equal, over random
+    detections (score ties, invalid slots, carved mask probabilities) and a
+    blocky stuff map, with segments of both kinds formed."""
+    from detectron2_tensorflow_tpu_torch.models.sem_seg import (
+        combine_semantic_and_instance_outputs,
+    )
+    from detectron2_tensorflow_tpu_torch.structures import Instances
+
+    rng = np.random.default_rng(int(overlap * 10) + limit)
+    b, d, h, w = 2, 20, 120, 168
+    xy = rng.uniform(0, [w - 20, h - 20], (b, d, 2))
+    fields = dict(
+        boxes=np.concatenate([xy, xy + rng.uniform(8, 60, (b, d, 2))], -1).astype(np.float32),
+        scores=rng.choice([0.3, 0.5, 0.6, 0.7, 0.7, 0.9], (b, d)).astype(np.float32),
+        pred_classes=rng.integers(0, 5, (b, d)).astype(np.int64),
+        is_valid=rng.uniform(0, 1, (b, d)) > 0.2,
+        pred_masks=rng.uniform(0.2, 1.0, (b, d, 28, 28)).astype(np.float32))
+    fields["pred_masks"][:, ::3, :6] = 0.0
+    sem = np.kron(rng.integers(0, 7, (b, 6, 7)), np.ones((20, 24), np.int64))
+    out = {}
+    for where in ("cpu", dev):
+        det = Instances(**{k: torch.from_numpy(v).to(where) for k, v in fields.items()})
+        pan, info = combine_semantic_and_instance_outputs(
+            det, torch.from_numpy(sem).to(where), overlap, limit, conf, 7)
+        out[str(where)] = (pan.cpu(), {k: v.cpu() for k, v in info.items()})
+    (gm, gi), (wm, wi) = out[str(dev)], out["cpu"]
+    assert torch.equal(gm, wm)
+    for k, v in wi.items():
+        assert torch.equal(gi[k], v), k
+    assert bool((wi["valid"] & wi["is_thing"]).any()) and bool((wi["valid"] & ~wi["is_thing"]).any())
+
+
+def test_panoptic_predict_on_the_card_equals_the_cpu(dev):
+    """PanopticFPN's narrow float32 ``predict`` on the card against the CPU
+    (``chip_smoke.check_small_against_cpu``): the detections and masks at
+    the standing tolerances, ``sem_seg`` equal outside logit ties of 1e-5,
+    and ``panoptic_fusion`` of the CPU's output bit-equal on both."""
+    rng = np.random.default_rng(0)
+    chip_smoke.check_small_against_cpu(rng, dev, False,
+                                       chip_smoke.two_stage_cfg("panoptic", narrow=True),
+                                       label="panoptic")

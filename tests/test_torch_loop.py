@@ -350,7 +350,7 @@ def test_evaluate_on_the_trained_model(runs):
     (("TEST.AUG.ENABLED", "True"), "TEST.AUG"),
     (("EVAL.METRICS", "('coco_detection_metrics', 'pascal_voc_detection_metrics')"),
      "pascal_voc"),
-    (("EVAL.METRICS", "('panoptic_segmentation_metrics',)"), "panoptic"),
+    (("MODEL.META_ARCHITECTURE", "SemanticSegmentor"), "SemanticSegmentor"),
 ])
 def test_unported_evaluation_raises(opts, match):
     _, cfg = loop_cfgs(*opts)

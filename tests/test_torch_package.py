@@ -50,7 +50,8 @@ for m in ("config.yaml_subset", "data.loader", "engine.checkpoint", "engine.eval
           "evaluation.coco_eval", "data.tfrecord_codec", "data.image_io", "data.polygon",
           "data.coco", "data.records", "evaluation.coco_results", "tools.make_synthetic_coco",
           "tools.build_records", "tools.train", "tools.eval", "tools.workflow_check",
-          "tools.overfit_check"):
+          "tools.overfit_check", "tools.workflow_check_panoptic", "data.panoptic",
+          "models.sem_seg", "evaluation.panoptic_eval", "evaluation.sem_seg_eval"):
     assert pkg.__name__ + "." + m in sys.modules, m
 assert "PIL" not in sys.modules  # imported at the first decode or encode only
 print("ok")
@@ -74,7 +75,7 @@ def test_sources_name_nothing_of_jax():
 
 
 @pytest.mark.parametrize("tool", ["make_synthetic_coco", "build_records", "train", "eval",
-                                  "workflow_check", "overfit_check"])
+                                  "workflow_check", "overfit_check", "workflow_check_panoptic"])
 def test_clis_run_as_modules_without_jax_flax_yaml(tool):
     """``python -m detectron2_tensorflow_tpu_torch.tools.<tool>`` starts (its
     ``--help``) with JAX, Flax, PyYAML and ``cv2`` blocked."""

@@ -201,15 +201,21 @@ def test_category_map_gives_class_names_and_category_ids(jax_coco, tmp_path):
 
 
 def test_semantic_records_raise_naming_coco_pano(tmp_path):
-    sample = {"image_id": 1, "height": 4, "width": 4, "boxes": np.zeros((0, 4)),
-              "classes": [], "is_crowd": [], "sem_seg": np.zeros((4, 4), np.int32)}
-    with pytest.raises(NotImplementedError, match="coco_pano"):
-        trecords.create_example(sample, b"")
-    image = np.zeros((4, 4, 3), np.uint8)
+    """``image/sem_seg`` (``BUILD_RECORDS.TYPE coco_pano``) crosses the
+    packages both ways: a label map with ignored pixels (-1, stored as
+    256^3 - 1) and labels above 255 written by either is read back equal by
+    both."""
     import cv2
 
-    payload = jrecords.create_example(sample, cv2.imencode(".jpg", image)[1].tobytes())
-    with open(tmp_path / "p.record-00000-of-00001", "wb") as fh:
-        jcodec.write_record(fh, payload)
-    with pytest.raises(NotImplementedError, match="coco_pano"):
-        TFRecordDataset(str(tmp_path / "p.record-*"))[0]
+    sem = np.random.default_rng(2).integers(-1, 300, (6, 7)).astype(np.int32)
+    sample = {"image_id": 1, "height": 6, "width": 7, "boxes": np.zeros((0, 4)),
+              "classes": [], "is_crowd": [], "sem_seg": sem}
+    jpeg = cv2.imencode(".jpg", np.zeros((6, 7, 3), np.uint8))[1].tobytes()
+    for writer in (trecords, jrecords):
+        path = tmp_path / f"{writer.__name__.split('.')[0]}.record-00000-of-00001"
+        with open(path, "wb") as fh:
+            jcodec.write_record(fh, writer.create_example(sample, jpeg))
+        for reader in (TFRecordDataset, jrecords.TFRecordDataset):
+            got = reader(str(path))[0]["sem_seg"]
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(got, sem)
