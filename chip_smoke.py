@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order,
-any failure exits non-zero:
+Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
+(but 10 runs after 13), any failure exits non-zero:
 
   1. device: a CUDA card is required;
   2. build: the hand-written kernels (``csrc/*.cu``: ``nms_keep``;
@@ -21,6 +21,9 @@ any failure exits non-zero:
      are bit-equal at serving's RPN (10 x 1000, and stacked with p6's 819
      rows padded to 1000), the box head (2 x 2000, ``max_keep`` 100) and
      training's stacked RPN (40 x 2000, ``max_keep`` 1000);
+     The kernel checks of phases 9-14 at their shapes run next, in a phase
+     of their own (``later_kernels``): from phase 8 on, the gates' processes
+     share the card, which would distort the timings;
   4. variants: the ROI forward's seven ablations at the ROI tool's shapes
      with 2 images, each held against its plain version (``full`` bit-equal
      to ``roi_patch_interpolate``), then timed through the tool's own
@@ -79,9 +82,12 @@ any failure exits non-zero:
      ``TEST.EXPECTED_RESULTS`` ``[['bbox', 'AP', 88.0, 10.0], ['segm', 'AP',
      84.0, 12.0]]``; it prints the APs, the final loss, the train seconds,
      the seconds per iteration and the loader's host seconds per batch.
-     Beside (b) run the overfit gates of phases 9, 10, 11, 12 and 13, seven
+     Beside (b) run the overfit gates of phases 9 to 14, eight
      ``tools.overfit_check`` subprocesses, and phase 13's panoptic workflow
-     (host-bound, as (b) is);
+     (host-bound, as (b) is). (a) runs in the phase; (b) (on a thread), the
+     gates and the panoptic workflow start at its end and run on beside
+     phases 9-14, and the last phase, ``gates``, waits for them and checks
+     them (this keeps the script inside its time limit);
   9. single_level: the C4 (``Res5ROIHeads``) and DC5 (dilated res5)
      families. Each kernel at their shapes against its plain version, timed
      beside its bound: ``nms_keep`` bit-equal on one RPN level of 2 x 6000
@@ -194,9 +200,36 @@ any failure exits non-zero:
      ``coco_pano`` records, PanopticFPN R18-GN 600 iterations, ``tools.eval``
      with ``TEST.EXPECTED_RESULTS`` bbox AP 88 ± 10, mIoU 92 ± 8, PQ 88 ±
      12; its exit code decides) and ``tools.overfit_check 600 --arch
-     semantic`` (mIoU no more than 10 below the JAX tool's).
+     semantic`` (mIoU no more than 10 below the JAX tool's);
+ 14. dconv: deformable convolution, REMAT and TTA. ``DeformConv2d`` float32
+     on the card against the CPU at R50's res3-res5 3x3 shapes (batch 2,
+     800 x 1344) and a stride-2 v2 case with 2 deformable groups, real
+     offsets (samples between pixels and off the map), 1e-4 of the largest
+     output; the kernels at the slice's new shapes against their plain
+     versions (``fused_residual`` at X152-32x8d's four K = N tails at batch
+     2, ``nms_keep`` bit-equal at the TTA merge of 18 x 100 class-offset
+     candidates, ``roi_patch_fwd`` on the 1280 x 2048 TTA plane and at
+     ``predict_with_boxes``'s 800 x 1344); a narrow float32 R50-dconv
+     model, train step and ``tta_predict`` on the card against the CPU;
+     ``mask_rcnn_R_50_FPN_1x_dconv_c3-c5`` served 2 x 800 x 1344 (switch off
+     and on; 2 / 2 launches per ``predict``, 16 tails on) and trained 3
+     steps at 8 x 800 x 1344 (1 / 2 / 2; every ``conv_offset`` gradient
+     finite and nonzero); ``cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv``
+     served at batch 2 (switch on, 50 tails) and trained 2 steps at batch 2
+     with REMAT off and then on (REMAT's peak lower, the first step's
+     losses equal) and at batch 8 with REMAT on; the panoptic
+     ``panoptic_fpn_R_101_dconv_cascade_gn_3x`` served at batch 2 (the
+     fusion timed) and trained 3 steps at batch 8; TTA of one 800 x 1333
+     image under the default ``TEST.AUG`` (9 scales and flips: 37
+     ``nms_keep`` and 37 ``roi_patch_fwd`` launches, 100 valid detections
+     with masks), host and device ms. Its gate, ``tools.overfit_check 600
+     --arch dconv`` (R50-GN, deformable c3-c5: bbox AP50 >= 90, every offset
+     conv moved from zero), runs with the others;
+ 15. gates: waits for workflow (b), the panoptic workflow and the overfit
+     gates started in phase 8, and checks them.
 
-Each phase's seconds are printed on a line of their own. A probe line then
+Each phase's seconds are printed on a line of their own; phase 14's parts
+too (``dconv.narrow`` ...). A probe line then
 says whether ``cv2``, ``PIL`` and ``torchvision`` import and whether ``g++``
 finds ``jpeglib.h`` and links ``-ljpeg``. The last lines are the card's name
 and power limit, a ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
@@ -213,6 +246,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -235,9 +269,11 @@ from detectron2_tensorflow_tpu_torch.engine import (
     run_evaluation,
     train,
 )
-from detectron2_tensorflow_tpu_torch.engine.tta import precise_bn
+from detectron2_tensorflow_tpu_torch.engine.tta import precise_bn, tta_predict
 from detectron2_tensorflow_tpu_torch.engine.checkpoint import all_steps
 from detectron2_tensorflow_tpu_torch.models import ProposalNetwork, build_model
+from detectron2_tensorflow_tpu_torch.models.backbones.resnet import BLOCKS_PER_STAGE
+from detectron2_tensorflow_tpu_torch.models.deform_conv import DeformConv2d
 from detectron2_tensorflow_tpu_torch.models.layers import BatchNorm2d
 from detectron2_tensorflow_tpu_torch.models.meta_arch.postprocess import (
     detector_postprocess,
@@ -369,6 +405,15 @@ def fused_switch(on: bool):
             os.environ[fused_residual.ENV_SWITCH] = old
 
 
+def bottleneck_tails(cfg) -> int:
+    """Fused tails per trunk forward with the switch on: one per bottleneck
+    block of a FrozenBN trunk (16 on R50, 50 on X152), none otherwise."""
+    r = cfg.MODEL.RESNETS
+    if r.NORM != "FrozenBN" or r.DEPTH < 50:
+        return 0
+    return sum(BLOCKS_PER_STAGE[r.DEPTH])
+
+
 def fused_tails(model) -> int:
     """Convs of ``model`` built to take the fused tail."""
     return sum(bool(getattr(m, "fuse_residual", False)) for m in model.modules())
@@ -444,6 +489,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 # -- inputs -----------------------------------------------------------------
+
+def card_normal(rng, shape, dev, dtype=torch.float32):
+    """Standard normals of ``shape`` in ``dtype``, drawn on the card by a torch
+    generator that ``rng`` seeds: numpy's host draw of the larger planes and
+    cotangents (up to 8e8 values) took most of a minute."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
 
 def clustered_boxes(rng, b, n, h=800.0, w=1333.0, objects=150):
     """Score-sorted candidate boxes as a detector emits them: jittered copies
@@ -538,16 +591,17 @@ def nms_case(dev, name, boxes, valid, thr, mk, plain=greedy_keep_reference, reps
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def roi_inputs(rng, dev, dtype, n, s, valid_frac=0.9, objects=None, b=2, ratio=0):
-    """A real storage plane (p2-p5 of ``b`` 800x1344 images, C=256, with the
-    extent-tier aliases) and a plan for ``n`` random boxes per image,
-    jittered copies of ``objects`` objects (default ``n // 4``), at
-    sampling ratio ``ratio`` (0: D2's adaptive rule)."""
-    c = 256
-    feats = [torch.from_numpy(rng.standard_normal((b, 800 // st, 1344 // st, c)).astype(np.float32))
-             .to(dev, dtype) for st in (4, 8, 16, 32)]
+def roi_inputs(rng, dev, dtype, n, s, valid_frac=0.9, objects=None, b=2, ratio=0,
+               size=(800, 1344)):
+    """A real storage plane (p2-p5 of ``b`` images of ``size``, 800x1344 by
+    default, C=256, with the extent-tier aliases, the patch of the models'
+    1333-px images) and a plan for ``n`` random boxes per image spread over
+    the image, jittered copies of ``objects`` objects (default ``n // 4``),
+    at sampling ratio ``ratio`` (0: D2's adaptive rule)."""
+    c, (h, w) = 256, size
+    feats = [card_normal(rng, (b, h // st, w // st, c), dev, dtype) for st in (4, 8, 16, 32)]
     storage, meta = build_storage(feats, [4, 8, 16, 32], plan_patch(1333, 32))
-    boxes, _ = clustered_boxes(rng, b, n, objects=objects or max(n // 4, 8))
+    boxes, _ = clustered_boxes(rng, b, n, h=h, w=w - 11, objects=objects or max(n // 4, 8))
     valid = torch.from_numpy(rng.uniform(0, 1, (b, n)) < valid_frac).to(dev)
     starts, wy, wx = plan_rois(meta, torch.from_numpy(boxes).to(dev), s, ratio, 224, 4,
                                valid=valid)
@@ -672,7 +726,7 @@ def check_roi_bwd(rng, dev):
         storage, starts, wy, wx, valid = roi_inputs(rng, dev, torch.bfloat16, n, s, objects=12)
         shape = tuple(storage.shape)
         for dtype in (torch.bfloat16, torch.float32):
-            g = torch.from_numpy(rng.standard_normal((2, n, s, s, 256)).astype(np.float32)).to(dev, dtype)
+            g = card_normal(rng, (2, n, s, s, 256), dev, dtype)
             results.append(roi_bwd_case(label, g, starts, wy, wx, valid, shape))
             only_skipped = torch.where((~valid)[..., None, None, None], g, torch.zeros_like(g))
             if bool(roi_patch_backward(only_skipped, starts, wy, wx, shape).any()):
@@ -735,13 +789,13 @@ def tail_inputs(rng, dev, dtype, b, h, w, k, n):
     """A bottleneck tail's operands in the port's layouts: ``x`` ``[B, K, H,
     W]`` and ``shortcut`` channels_last, the weight ``[N, K, 1, 1]``, the
     folded FrozenBN affine float32 ``[N]``."""
-    x = torch.from_numpy(np.maximum(rng.standard_normal((b, h, w, k)), 0).astype(np.float32))
+    x = torch.relu(card_normal(rng, (b, h, w, k), dev)).to(dtype)
     weight = torch.from_numpy((rng.standard_normal((n, k, 1, 1)) / np.sqrt(k)).astype(np.float32))
     scale = torch.from_numpy(rng.uniform(0.1, 0.5, n).astype(np.float32))
     shift = torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32))
-    sc = torch.from_numpy(rng.standard_normal((b, h, w, n)).astype(np.float32))
-    return (x.to(dev, dtype).permute(0, 3, 1, 2), weight.to(dev, dtype), scale.to(dev),
-            shift.to(dev), sc.to(dev, dtype).permute(0, 3, 1, 2))
+    sc = card_normal(rng, (b, h, w, n), dev, dtype)
+    return (x.permute(0, 3, 1, 2), weight.to(dev, dtype), scale.to(dev), shift.to(dev),
+            sc.permute(0, 3, 1, 2))
 
 
 def tail_bytes(m: int, k: int, n: int, esize: int) -> int:
@@ -941,32 +995,46 @@ def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
     if isinstance(cpu_model, SemanticSegmentor):
         log(f"{label} small f32 input, fused tail {'on' if fused else 'off'}, card vs CPU{sem}")
         return
-    if not torch.equal(got["pred_classes"], want.pred_classes):
-        raise AssertionError("small input: classes differ between the card and the CPU")
-    order = tie_order(got, want.get_fields())
-    errs = {}
-    for k, tol in SMALL_TOL.items():
-        if k not in got:
-            continue
-        slots = order.reshape(order.shape + (1,) * (got[k].dim() - 2)).expand_as(got[k])
-        errs[k] = float((torch.gather(got[k], 1, slots) - want.get_fields()[k]).abs().max())
-        if not errs[k] <= tol:
-            raise AssertionError(f"small input: {k} max |err| {errs[k]} > {tol}")
-    if "pred_keypoints" in got:  # x, y and score held apart
-        slots = order[..., None, None].expand_as(got["pred_keypoints"])
-        diff = (torch.gather(got["pred_keypoints"], 1, slots) - want.pred_keypoints).abs()
-        errs["keypoints xy"] = float(diff[..., :2].max())
-        errs["keypoint scores"] = float(diff[..., 2].max())
-        for k, tol in zip(("keypoints xy", "keypoint scores"), KEYPOINT_TOL):
-            if not errs[k] <= tol:
-                raise AssertionError(f"small input: {k} max |err| {errs[k]} > {tol}")
-    swapped = int((order != torch.arange(order.shape[1])).sum())
+    errs, swapped = hold_detections(got, want.get_fields())
     if "sem_seg" in got:
         sem += check_fusion_small(cfg, dev, want)
     log(f"{label} small f32 input, fused tail {'on' if fused else 'off'}, card vs CPU: "
         f"valid={int(want.is_valid.sum())} slots equal, classes equal, {swapped} slots "
         f"matched across a score tie, max|err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + sem)
+
+
+def hold_detections(got, want):
+    """The card's detections ``got`` against the CPU's ``want`` (field dicts on
+    the CPU): classes equal, each slot (or its partner across a score tie,
+    :func:`tie_order`) within ``SMALL_TOL``, keypoints within
+    ``KEYPOINT_TOL``. Returns the largest errors and the swapped slots."""
+    order = tie_order(got, want)
+    classes = torch.gather(got["pred_classes"], 1, order)
+    if not torch.equal(classes, want["pred_classes"]):
+        i, j = (int(v) for v in torch.nonzero(classes != want["pred_classes"])[0])
+        raise AssertionError(f"small input: classes differ between the card and the CPU, first "
+                             f"at image {i} slot {j}: {int(classes[i, j])} (score "
+                             f"{float(got['scores'][i, order[i, j]]):.9g}) against "
+                             f"{int(want['pred_classes'][i, j])} "
+                             f"({float(want['scores'][i, j]):.9g})")
+    errs = {}
+    for k, tol in SMALL_TOL.items():
+        if k not in got:
+            continue
+        slots = order.reshape(order.shape + (1,) * (got[k].dim() - 2)).expand_as(got[k])
+        errs[k] = float((torch.gather(got[k], 1, slots) - want[k]).abs().max())
+        if not errs[k] <= tol:
+            raise AssertionError(f"small input: {k} max |err| {errs[k]} > {tol}")
+    if "pred_keypoints" in got:  # x, y and score held apart
+        slots = order[..., None, None].expand_as(got["pred_keypoints"])
+        diff = (torch.gather(got["pred_keypoints"], 1, slots) - want["pred_keypoints"]).abs()
+        errs["keypoints xy"] = float(diff[..., :2].max())
+        errs["keypoint scores"] = float(diff[..., 2].max())
+        for k, tol in zip(("keypoints xy", "keypoint scores"), KEYPOINT_TOL):
+            if not errs[k] <= tol:
+                raise AssertionError(f"small input: {k} max |err| {errs[k]} > {tol}")
+    return errs, int((order != torch.arange(order.shape[1])).sum())
 
 
 def check_sem_seg_small(cpu_model, batch, got, want) -> str:
@@ -1050,23 +1118,28 @@ def small_proposals(cfg, sizes, seed=SEED):
 
 def tie_order(got, want):
     """``[B, D]``: the card's slot that holds each CPU slot's detection: the
-    same slot, or, where the boxes differ, another slot of the same class
-    whose CPU score lies within ``SMALL_TOL["scores"]`` of this one's and
-    whose card box matches. At random weights the scores of one class's
-    detections sit ~1e-7 apart, as close as the card and the CPU round them,
-    so two such detections may take their slots in the other order; every
-    slot is still held to the tolerances, and the order stays a permutation."""
+    same slot, or, where the boxes or classes differ, another slot whose CPU
+    score lies within ``SMALL_TOL["scores"]`` of this one's and whose card
+    box and class match. At random weights the scores of the detections
+    sit ~1e-7 apart, as close as the card and the CPU round them, so two
+    such detections (of one class or of two) may take their slots in the
+    other order; every slot is still held to the tolerances, and the order
+    stays a permutation."""
     b, n = want["scores"].shape
     order = torch.arange(n).repeat(b, 1)
     tol, stol = SMALL_TOL["boxes"], SMALL_TOL["scores"]
+
+    def holds(i, k, j):  # the card's slot k holds the CPU's detection j
+        return (got["pred_classes"][i, k] == want["pred_classes"][i, j]
+                and float((got["boxes"][i, k] - want["boxes"][i, j]).abs().max()) <= tol)
+
     for i in range(b):
         for j in range(n):
-            if float((got["boxes"][i, j] - want["boxes"][i, j]).abs().max()) <= tol:
+            if holds(i, j, j):
                 continue
             for k in range(n):
-                if (want["pred_classes"][i, k] == want["pred_classes"][i, j]
-                        and abs(float(want["scores"][i, k] - want["scores"][i, j])) <= stol
-                        and float((got["boxes"][i, k] - want["boxes"][i, j]).abs().max()) <= tol):
+                close = abs(float(want["scores"][i, k] - want["scores"][i, j])) <= stol
+                if close and holds(i, k, j):
                     order[i, j] = k
                     break
         if order[i].unique().numel() != n:
@@ -1660,68 +1733,93 @@ def loader_seconds(root: str, batches: int = 12):
 def run_workflow():
     """The CLIs as subprocesses in a temporary directory: (a) R50-FPN bf16 at
     800x1344 from records (train 4 steps, resume to 6, evaluate with
-    ``--dump_results``); (b) the R18-GN overfit workflow, whose AP gate
-    decides the phase, with the overfit gates of phases 9-13 and the
-    panoptic workflow running beside it (all host-bound). Returns the gates'
-    results."""
+    ``--dump_results``), run here; then (b) the R18-GN overfit workflow (on
+    a thread: its CLIs are subprocesses) with the overfit gates of phases
+    9-14 and the panoptic workflow beside it, all host-bound, started and
+    left running while the later phases use the card; :func:`finish_workflow`
+    waits for them. Returns what it needs."""
     run_step = workflow_check.run_step
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "r50")
-        common = ["--config_file", LOOP_YAML, "DATASETS.ROOT_DIR", root,
-                  "LOGS.ROOT_DIR", os.path.join(root, "logs"), *WORKFLOW_OPTS]
-        t0 = time.perf_counter()
-        run_step("make_synthetic_coco", [root, "16", "8"], echo=False)
-        run_step("build_records", [*common, "BUILD_RECORDS.TYPE", "coco_inst",
-                                   "BUILD_RECORDS.TRAIN_NUM_SHARDS", "2",
-                                   "BUILD_RECORDS.VAL_NUM_SHARDS", "1"], echo=False)
-        log(f"workflow   (a) {LOOP_YAML} + {WORKFLOW_OPTS}: 16 train + 8 val synthetic images "
-            f"as records (2 + 1 shards) in {time.perf_counter() - t0:.2f} s")
-        out = run_step("train", ["--max_iter", str(WORKFLOW_STEPS), *common], echo=False)
-        first = workflow_check.train_summary(out)
-        check_cli_train(first, 0, WORKFLOW_STEPS, "(a) train")
-        ckpt = first["checkpoint_dir"]
-        if all_steps(ckpt) != [2, 4]:
-            raise AssertionError(f"workflow (a): checkpoints {all_steps(ckpt)}")
-        out = run_step("train", ["--max_iter", str(WORKFLOW_RESUMED_STEPS), *common], echo=False)
-        resumed = workflow_check.train_summary(out)
-        resume_lines = [ln for ln in out.splitlines() if "resumed from checkpoint step" in ln]
-        check_cli_train(resumed, WORKFLOW_STEPS, WORKFLOW_RESUMED_STEPS, "(a) resume")
-        if not resume_lines or all_steps(ckpt) != [4, 6]:
-            raise AssertionError(f"workflow (a) resume: {resume_lines}, checkpoints "
-                                 f"{all_steps(ckpt)}")
-        for name, s in (("train", first), ("resume", resumed)):
-            log(f"workflow   (a) tools.train {name}: steps {s['start_step']}-{s['step']} in "
-                f"{s['seconds']:.2f} s ({s['seconds_per_iteration']:.3f} s per iteration, "
-                f"checkpoint writes and the first step's set-up included), losses "
-                + ", ".join(f"{k} {v:.4f}" for k, v in s["final_losses"].items())
-                + f"; launches {s['launches']}")
-        log(f"workflow   (a) {resume_lines[0].split(':')[-1].strip()}; checkpoints on disk "
-            f"{all_steps(ckpt)}")
-        results = os.path.join(root, "results.json")
-        t0 = time.perf_counter()
-        out = run_step("eval", ["--dump_results", results, *common], echo=False)
-        metrics = workflow_check.eval_metrics(out)
-        from detectron2_tensorflow_tpu_torch.data import TFRecordDataset
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workflow_")
+    root = os.path.join(tmp, "r50")
+    common = ["--config_file", LOOP_YAML, "DATASETS.ROOT_DIR", root,
+              "LOGS.ROOT_DIR", os.path.join(root, "logs"), *WORKFLOW_OPTS]
+    t0 = time.perf_counter()
+    run_step("make_synthetic_coco", [root, "16", "8"], echo=False)
+    run_step("build_records", [*common, "BUILD_RECORDS.TYPE", "coco_inst",
+                               "BUILD_RECORDS.TRAIN_NUM_SHARDS", "2",
+                               "BUILD_RECORDS.VAL_NUM_SHARDS", "1"], echo=False)
+    log(f"workflow   (a) {LOOP_YAML} + {WORKFLOW_OPTS}: 16 train + 8 val synthetic images "
+        f"as records (2 + 1 shards) in {time.perf_counter() - t0:.2f} s")
+    out = run_step("train", ["--max_iter", str(WORKFLOW_STEPS), *common], echo=False)
+    first = workflow_check.train_summary(out)
+    check_cli_train(first, 0, WORKFLOW_STEPS, "(a) train")
+    ckpt = first["checkpoint_dir"]
+    if all_steps(ckpt) != [2, 4]:
+        raise AssertionError(f"workflow (a): checkpoints {all_steps(ckpt)}")
+    out = run_step("train", ["--max_iter", str(WORKFLOW_RESUMED_STEPS), *common], echo=False)
+    resumed = workflow_check.train_summary(out)
+    resume_lines = [ln for ln in out.splitlines() if "resumed from checkpoint step" in ln]
+    check_cli_train(resumed, WORKFLOW_STEPS, WORKFLOW_RESUMED_STEPS, "(a) resume")
+    if not resume_lines or all_steps(ckpt) != [4, 6]:
+        raise AssertionError(f"workflow (a) resume: {resume_lines}, checkpoints "
+                             f"{all_steps(ckpt)}")
+    for name, s in (("train", first), ("resume", resumed)):
+        log(f"workflow   (a) tools.train {name}: steps {s['start_step']}-{s['step']} in "
+            f"{s['seconds']:.2f} s ({s['seconds_per_iteration']:.3f} s per iteration, "
+            f"checkpoint writes and the first step's set-up included), losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in s["final_losses"].items())
+            + f"; launches {s['launches']}")
+    log(f"workflow   (a) {resume_lines[0].split(':')[-1].strip()}; checkpoints on disk "
+        f"{all_steps(ckpt)}")
+    results = os.path.join(root, "results.json")
+    t0 = time.perf_counter()
+    out = run_step("eval", ["--dump_results", results, *common], echo=False)
+    metrics = workflow_check.eval_metrics(out)
+    from detectron2_tensorflow_tpu_torch.data import TFRecordDataset
 
-        n = check_results_file(results, TFRecordDataset(os.path.join(root, "val.record-*")))
-        if len(metrics) < 24 or not all(math.isfinite(v) or math.isnan(v)
-                                        for v in metrics.values()):
-            raise AssertionError(f"workflow (a) eval: {metrics}")
-        log(f"workflow   (a) tools.eval from the val records in {time.perf_counter() - t0:.2f} s "
-            f"(process included): {n} results with the dataset's category ids; bbox AP "
-            f"{metrics['bbox/AP']:.3f}, segm AP {metrics['segm/AP']:.3f} (random weights, "
-            f"6 steps)")
-        shutil.rmtree(root)
+    n = check_results_file(results, TFRecordDataset(os.path.join(root, "val.record-*")))
+    if len(metrics) < 24 or not all(math.isfinite(v) or math.isnan(v)
+                                    for v in metrics.values()):
+        raise AssertionError(f"workflow (a) eval: {metrics}")
+    log(f"workflow   (a) tools.eval from the val records in {time.perf_counter() - t0:.2f} s "
+        f"(process included): {n} results with the dataset's category ids; bbox AP "
+        f"{metrics['bbox/AP']:.3f}, segm AP {metrics['segm/AP']:.3f} (random weights, "
+        f"6 steps)")
+    shutil.rmtree(root)
 
-        root = os.path.join(tmp, "r18")
-        gates = start_overfit_gates(os.path.join(tmp, "pano"))  # host-bound, beside (b)
-        with fused_switch(True):  # a GN trunk has no tail to fuse: 0 launches even so
-            result = workflow_check.run_workflow(root, echo=False)
-        train_s, m = result["train"], result["metrics"]
-        if train_s["launches"]["fused_residual"] or train_s["fused_tail_convs"]:
-            raise AssertionError(f"workflow (b): fused tails on a GN trunk: {train_s}")
-        per_batch, crc, decode, batch, readers = loader_seconds(root)
-        finish_panoptic_workflow(gates.pop("panoptic"))  # before its directory goes
+    gates = start_overfit_gates(os.path.join(tmp, "pano"))  # host-bound, beside (b)
+    r18 = {"root": os.path.join(tmp, "r18")}
+
+    def workflow_b():
+        try:  # the switch set for (b)'s CLIs whatever the card's phases set meanwhile
+            r18["result"] = workflow_check.run_workflow(
+                r18["root"], env={fused_residual.ENV_SWITCH: "1"}, echo=False)
+        except BaseException as e:  # noqa: BLE001 - re-raised by finish_workflow
+            r18["error"] = e
+
+    thread = threading.Thread(target=workflow_b, daemon=True)
+    thread.start()
+    return {"tmp": tmp, "gates": gates, "thread": thread, "r18": r18}
+
+
+def finish_workflow(pending):
+    """Wait for workflow (b) (a GN trunk: no tail fused with the switch set;
+    its AP gate decides), the panoptic workflow and the overfit gates that
+    :func:`run_workflow` left running; log them. Returns the gates' results."""
+    pending["thread"].join(timeout=1200)
+    r18 = pending["r18"]
+    if "error" in r18:
+        raise r18["error"]
+    if "result" not in r18:
+        raise AssertionError("workflow (b) did not finish")
+    result = r18["result"]
+    train_s, m = result["train"], result["metrics"]
+    if train_s["launches"]["fused_residual"] or train_s["fused_tail_convs"]:
+        raise AssertionError(f"workflow (b): fused tails on a GN trunk: {train_s}")
+    per_batch, crc, decode, batch, readers = loader_seconds(r18["root"])
+    gates = pending["gates"]
+    finish_panoptic_workflow(gates.pop("panoptic"))
+    shutil.rmtree(pending["tmp"], ignore_errors=True)
     log(f"workflow   (b) {workflow_check.CFG}: Mask R-CNN R18-FPN GN, from scratch, "
         f"{train_s['steps']} iterations of 8 x 192x256 float32, then tools.eval on the train "
         f"split with TEST.EXPECTED_RESULTS {workflow_check.EXPECTED}: passed")
@@ -1830,8 +1928,7 @@ def single_level_plane(rng, dev, b: int, c: int):
     """The C4/DC5 storage: one level at stride 16 of an 800x1344 image (50 x
     84, ``c`` channels: res4's 1024 or dilated res5's 2048) with its 2x and
     4x extent-tier aliases."""
-    feat = torch.from_numpy(rng.standard_normal((b, 50, 84, c)).astype(np.float32)).to(
-        dev, torch.bfloat16)
+    feat = card_normal(rng, (b, 50, 84, c), dev, torch.bfloat16)
     return build_storage([feat], [16], plan_patch(1333, 16))
 
 
@@ -1872,8 +1969,7 @@ def check_single_level_roi_bwd(rng, dev):
         shape = tuple(storage.shape)
         del storage
         starts, wy, wx, valid = single_level_plan(rng, dev, meta, 8, n, s, 12)
-        g = torch.from_numpy(rng.standard_normal((8, n, s, s, c)).astype(np.float32)).to(
-            dev, torch.bfloat16)
+        g = card_normal(rng, (8, n, s, s, c), dev, torch.bfloat16)
         results.append(roi_bwd_case(label, g, starts, wy, wx, valid, shape,
                                     tag="single     roi_bwd"))
         del g
@@ -1939,7 +2035,7 @@ def serve_single_level(rng, dev, name: str):
     timing = {}
     for fused in (False, True):
         device_ms, wall_ms, idle, _ = profile_predict.device_time(
-            lambda: models[fused].predict(batch), 3)
+            lambda: models[fused].predict(batch), 3, host_ops=False)
         timing[fused] = (device_ms, idle)
     log(f"single     {name} predict {''.join('N' if f else 'F' for f in SINGLE_TURNS)}, "
         f"{iters} runs each, batch {b} at {h}x{w} bf16: off {np.median(rates[False]):.2f} img/s "
@@ -1986,7 +2082,7 @@ def train_single_level(dev, name: str):
                                  f"steps, expected {per} per step")
     if launches["fused_residual"]:
         raise AssertionError(f"{name}: fused tails with the switch off")
-    device_ms, _, idle, _ = profile_predict.device_time(lambda: step(batch), 2)
+    device_ms, _, idle, _ = profile_predict.device_time(lambda: step(batch), 2, host_ops=False)
     values = [{k: float(v) for k, v in m.items()} for m in metrics]
     if not all(np.isfinite(v) for m in values for v in m.values()):
         raise AssertionError(f"{name}: non-finite losses: {values}")
@@ -2014,26 +2110,34 @@ def train_single_level(dev, name: str):
 
 
 OVERFIT_STEPS = {"c4": 1200, "rcnn": 600, "cls_agnostic": 600, "retinanet": 600, "cascade": 600,
-                 "keypoint": 600, "semantic": 600}
+                 "keypoint": 600, "semantic": 600, "dconv": 600}
+
+
+def yield_cpu() -> None:
+    """In a gate's child process: a lower CPU priority (nice 10, this
+    script's own processes only), so that the phases running meanwhile keep
+    their core."""
+    os.nice(10)
 
 
 def start_overfit_gates(pano_root: str):
     """Start ``tools.overfit_check`` on c4 (1200 steps, evaluated at 600 as
     well), rcnn, (phase 10's family) cls_agnostic, (phase 11's) retinanet
-    and cascade, (phase 12's) keypoint and (phase 13's) semantic (600 each),
-    and ``tools.workflow_check_panoptic`` into ``pano_root``, as
-    subprocesses at once (each is host-bound); :func:`finish_overfit_gates`
-    reads them."""
+    and cascade, (phase 12's) keypoint, (phase 13's) semantic and (phase
+    14's) dconv (600 each), and ``tools.workflow_check_panoptic`` into
+    ``pano_root``, as subprocesses at once (each is host-bound, and yields
+    its CPU to this process); :func:`finish_overfit_gates` reads them."""
     procs = {"panoptic": subprocess.Popen(
         [sys.executable, "-m", "detectron2_tensorflow_tpu_torch.tools.workflow_check_panoptic",
-         pano_root], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
+         pano_root], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=yield_cpu)}
     for arch, steps in OVERFIT_STEPS.items():
         cmd = [sys.executable, "-m", "detectron2_tensorflow_tpu_torch.tools.overfit_check",
                str(steps), "--arch", arch]
         if steps > OVERFIT_JAX_STEPS:
             cmd += ["--eval_at", str(OVERFIT_JAX_STEPS)]
         procs[arch] = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
-                                       stderr=subprocess.PIPE, text=True)
+                                       stderr=subprocess.PIPE, text=True, preexec_fn=yield_cpu)
     return procs
 
 
@@ -2085,6 +2189,10 @@ def finish_overfit_gates(procs):
         raise AssertionError(f"overfit --arch keypoint: keypoint AP {kp.get('keypoints_ap')} "
                              f"more than {OVERFIT_AP_BELOW} below the JAX package's "
                              f"{OVERFIT_JAX_KEYPOINT_AP}")
+    dc = lines["dconv"][-1]  # the deformable convs learned: every offset conv left its zero
+    if not 0 < dc.get("conv_offsets_moved", 0) == dc.get("conv_offsets"):
+        raise AssertionError(f"overfit --arch dconv: {dc.get('conv_offsets_moved')} of "
+                             f"{dc.get('conv_offsets')} offset convs moved from zero")
     return {**{arch: rs[-1] for arch, rs in lines.items()}, "semantic": sem}
 
 
@@ -2134,16 +2242,21 @@ def single_level_lines(single):
             for kernel, src, replaces, n, r in rows]
 
 
-def run_single_level(rng, dev):
-    """Phase 9: the C4 and DC5 families on the single-level kernels' shapes,
-    served and trained at full width, held against the CPU at narrow width
-    (their overfit gates run in phase 8). Returns the kernel results and
-    launch counts."""
-    nms = check_single_level_nms(rng, dev)
-    roi = check_single_level_roi(rng, dev)
-    bwd = check_single_level_roi_bwd(rng, dev)
-    fused = check_single_level_fused(rng, dev)
+def check_single_level_kernels(rng, dev):
+    """Phase 9's kernel shapes (run with the other later phases' kernel
+    checks, :func:`check_later_kernels`)."""
+    out = {"nms": check_single_level_nms(rng, dev), "roi": check_single_level_roi(rng, dev),
+           "bwd": check_single_level_roi_bwd(rng, dev),
+           "fused": check_single_level_fused(rng, dev)}
     torch.cuda.empty_cache()
+    return out
+
+
+def run_single_level(rng, dev, kernels_):
+    """Phase 9: the C4 and DC5 families on the single-level kernels' shapes
+    (``kernels_``, checked earlier), served and trained at full width, held
+    against the CPU at narrow width (their overfit gates run beside it).
+    Returns the kernel results and launch counts."""
     for name in SINGLE_LEVEL:
         for on in (False, True):
             check_small_against_cpu(rng, dev, on, single_level_cfg(name, narrow=True),
@@ -2152,8 +2265,7 @@ def run_single_level(rng, dev):
                                 label=f"single     {name}")
     serving = {name: serve_single_level(rng, dev, name) for name in SINGLE_LEVEL}
     training = {name: train_single_level(dev, name) for name in SINGLE_LEVEL}
-    return {"nms": nms, "roi": roi, "bwd": bwd, "fused": fused, "serving": serving,
-            "training": training}
+    return {**kernels_, "serving": serving, "training": training}
 
 # -- phase 10: two_stage --------------------------------------------------------
 
@@ -2297,18 +2409,21 @@ def check_proposal_outputs(cfg, out, b: int, label: str) -> str:
     return str(f["is_valid"].sum(1).tolist())
 
 
-def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check=None):
+def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check=None,
+                    weights=None):
     """``name``'s YAML (bf16, seeded random weights) serving 2 x 800 x 1344,
     with the fused tail off and on in ``turns``: launches per ``predict``
     asserted (no fused tail but on FrozenBN trunks), outputs checked (by
     ``check(cfg, out, batch, label)`` when given), img/s and device ms per
-    call with the idle share. Returns the launches."""
+    call with the idle share. ``weights``: a state dict in place of the
+    seeded draw. Returns the launches."""
     spec = SPECS[name]
     cfg = two_stage_cfg(name)
     models = {}
     for fused in set(turns):
         with fused_switch(fused):
-            models[fused] = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+            models[fused] = build_model(cfg, generator=torch.Generator().manual_seed(SEED),
+                                        state_dict=weights)
     b = 2
     batch = serving_batch(rng, dev, b)
     for model in models.values():
@@ -2326,7 +2441,7 @@ def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check
         torch.cuda.synchronize()
         rates[fused].append(b * iters / (time.perf_counter() - t0))
         tails = fused_conv1x1_bn_add_relu.launches - tails_before
-        want_tails = FUSED_TAILS * iters if fused and cfg.MODEL.RESNETS.NORM == "FrozenBN" else 0
+        want_tails = bottleneck_tails(cfg) * iters if fused else 0
         if tails != want_tails:
             raise AssertionError(f"{name}: {tails} fused tails in {iters} predicts with the "
                                  f"switch {'on' if fused else 'off'}, expected {want_tails}")
@@ -2346,8 +2461,8 @@ def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check
             check(cfg, out, batch, label)
         else:
             check_outputs(cfg, out, batch, b, 800, 1344, label, phase=tag)
-    timing = {f: profile_predict.device_time(lambda: models[f].predict(batch), 3)
-              for f in models}
+    timing = {f: profile_predict.device_time(lambda: models[f].predict(batch), 3,
+                                             host_ops=False) for f in models}
     log(f"{tag} {name} predict, {iters} runs a turn ({''.join('N' if f else 'F' for f in turns)}), "
         f"batch {b} at 800x1344 bf16: " + "; ".join(
             f"switch {'on' if f else 'off'} {np.median(rates[f]):.2f} img/s, device ms per "
@@ -2358,7 +2473,8 @@ def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check
     return launches
 
 
-def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False):
+def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False,
+                    check_model=None):
     """``name``'s YAML (bf16, float32 parameters, seeded random weights) on a
     seeded 8 x 800 x 1344 batch: TWO_STAGE_STEPS steps, launches per step
     asserted, losses finite, the frozen stem and res2 parameters bit-equal,
@@ -2366,7 +2482,8 @@ def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False):
     (the frozen stem's too), then ``precise_bn`` over PRECISE_BN_BATCHES
     batches and a served ``predict``; a RetinaNet's ``loss_normalizer``
     moved; with ``profile``, one more step under the profiler (device ms,
-    idle share). Returns the steps' launches and the model's peak memory."""
+    idle share); ``check_model(model)`` checks the trained model last. Returns the
+    steps' launches and the model's peak memory."""
     spec = SPECS[name]
     cfg = two_stage_cfg(name, batch=8)
     b = 8
@@ -2390,8 +2507,8 @@ def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False):
     values = [{k: float(v) for k, v in m.items()} for m in metrics]
     if not all(np.isfinite(v) for m in values for v in m.values()):
         raise AssertionError(f"{name}: non-finite losses: {values}")
-    if name in PANOPTIC and ("loss_sem_seg" not in values[0]
-                             or not bool((batch["gt_sem_seg"] == -1).any())):
+    if cfg.MODEL.META_ARCHITECTURE in PANOPTIC_ARCHS and (
+            "loss_sem_seg" not in values[0] or not bool((batch["gt_sem_seg"] == -1).any())):
         raise AssertionError(f"{name}: no loss_sem_seg, or no ignored pixel in the GT")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     trainable = trainable_parameters(model, cfg.MODEL.BACKBONE.FREEZE_AT)
@@ -2406,7 +2523,7 @@ def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False):
     buffers = state.optimizer.sgd.state
     rounded = [n for n in unchanged if float(buffers[trainable[n]]["momentum_buffer"].abs().max()) > 0
                and lr * float(buffers[trainable[n]]["momentum_buffer"].abs().max())
-               < 0.5 * torch.finfo(torch.float32).eps * float(trainable[n].abs().max())]
+               < 0.5 * torch.finfo(torch.float32).eps * float(trainable[n].detach().abs().max())]
     unchanged = [n for n in unchanged if n not in rounded and n not in ZERO_GRADS]
     if changed_frozen or unchanged or not frozen:
         raise AssertionError(f"{name}: frozen parameters changed: {changed_frozen}; trainable "
@@ -2425,7 +2542,8 @@ def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False):
                       f"{float(norm):.1f}")
     profiled = ""
     if profile:
-        device_ms, _, idle, _ = profile_predict.device_time(lambda: step(batch), 1)
+        device_ms, _, idle, _ = profile_predict.device_time(lambda: step(batch), 1,
+                                                            host_ops=False)
         profiled = f"; then device ms per step under the profiler {device_ms:.2f}, idle {idle:.3f}"
     log(f"{tag} {name} train {TWO_STAGE_STEPS} steps of batch {b} at 800x1344 bf16 in "
         f"{wall:.2f} s (the first step's set-up included{profiled}), peak memory {peak:.1f} GiB; "
@@ -2457,6 +2575,8 @@ def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False):
             f"{time.perf_counter() - t0:.2f} s: {len(moved)} trunk and FPN statistics "
             f"re-estimated, the ROI heads' kept; then a served predict (training model, "
             f"norms on their statistics)")
+    if check_model is not None:
+        check_model(model)
     del model, state, step
     torch.cuda.empty_cache()
     return launches, peak
@@ -2532,10 +2652,10 @@ def run_fast_rcnn_clis():
     return summary
 
 
-def run_two_stage(rng, dev):
+def run_two_stage(rng, dev, nms):
     """Phase 10: the RPN-only, Fast R-CNN, GN and SyncBN models at full
-    width. Returns the new NMS shape's result and the launches that read it."""
-    nms = check_new_nms_shape(rng, dev)
+    width (``nms``: the new NMS shape's result, checked earlier). Returns it
+    and the launches that read it."""
     check_two_stage_small(rng, dev)
     serving, training, peaks = {}, {}, {}
     for name in ("rpn_fpn", "rpn_c4"):
@@ -2584,6 +2704,7 @@ PANOPTIC = {
                  "step": {"nms_keep": 0, "roi_patch_fwd": 0, "roi_patch_bwd": 0}},
 }
 SPECS = {**TWO_STAGE, **SINGLE_STAGE_CASCADE, **KEYPOINT, **PANOPTIC}
+PANOPTIC_ARCHS = ("PanopticFPN", "SemanticSegmentor")
 SSC = "ssc       "  # the phase's log tag
 
 
@@ -2605,13 +2726,12 @@ def spread_scores(model) -> None:
         model.head.cls_score.weight.mul_(100.0)
 
 
-def run_single_stage_cascade(rng, dev):
-    """Phase 11: RetinaNet and Cascade Mask R-CNN. The new ``nms_keep`` shape;
-    narrow float32 models and train steps card against CPU; each YAML
-    served 2 x 800 x 1344 bf16 (switch off and on) and trained 3 steps at 8
-    x 800 x 1344, launches asserted. Returns the NMS result and the runs'
-    launches."""
-    nms = check_retinanet_nms(rng, dev)
+def run_single_stage_cascade(rng, dev, nms):
+    """Phase 11: RetinaNet and Cascade Mask R-CNN. The new ``nms_keep`` shape
+    (``nms``, checked earlier); narrow float32 models and train steps card
+    against CPU; each YAML served 2 x 800 x 1344 bf16 (switch off and on)
+    and trained 3 steps at 8 x 800 x 1344, launches asserted. Returns the NMS
+    result and the runs' launches."""
     for name, prepare in (("retinanet", spread_scores), ("cascade", None)):
         check_small_against_cpu(rng, dev, False, two_stage_cfg(name, narrow=True),
                                 label=f"{SSC} {name}", prepare=prepare)
@@ -2652,21 +2772,19 @@ def check_keypoint_kernels(rng, dev):
     del storage
     bwd = []
     for dtype in (torch.bfloat16, torch.float32):
-        g = torch.from_numpy(rng.standard_normal((8, 128, 14, 14, 256)).astype(np.float32)).to(
-            dev, dtype)
+        g = card_normal(rng, (8, 128, 14, 14, 256), dev, dtype)
         bwd.append(roi_bwd_case("keypoint ratio=2 S=14 8x128", g, starts, wy, wx, valid, shape,
                                 tag=f"{KP} roi_bwd  "))
     torch.cuda.empty_cache()
     return {"nms": nms, "fwd": fwd, "bwd": bwd}
 
 
-def run_keypoint(rng, dev):
-    """Phase 12: Keypoint R-CNN R50-FPN. The kernels at its new shapes; a
-    narrow float32 model and train step card against CPU; the YAML served 2
-    x 800 x 1344 bf16 (switch off and on) and trained 3 steps at 8 x 800 x
-    1344, launches asserted. Returns the kernel results and the runs'
-    launches."""
-    kernels_ = check_keypoint_kernels(rng, dev)
+def run_keypoint(rng, dev, kernels_):
+    """Phase 12: Keypoint R-CNN R50-FPN. The kernels at its new shapes
+    (``kernels_``, checked earlier); a narrow float32 model and train step
+    card against CPU; the YAML served 2 x 800 x 1344 bf16 (switch off and
+    on) and trained 3 steps at 8 x 800 x 1344, launches asserted. Returns
+    the kernel results and the runs' launches."""
     check_small_against_cpu(rng, dev, False, two_stage_cfg("keypoint", narrow=True),
                             label=f"{KP} keypoint")
     check_train_against_cpu(dev, False, two_stage_cfg("keypoint", narrow=True, batch=2),
@@ -2677,7 +2795,8 @@ def run_keypoint(rng, dev):
 
 
 def keypoint_lines(kp):
-    """The ``kernels`` line's entries of phase 12's shapes (``<kernel>@keypoint_<case>``);
+    """The ``kernels`` line's entries of phase 12's shapes (``<kernel>@keypoint_<case>``,
+    ``keypoint`` once);
     ``launches`` counts the kernel in the Keypoint R-CNN run that has the
     shape (its training for the RPN's NMS, the 8 x 128 pools and the
     backward, its serving for the 2 x 100 pools)."""
@@ -2689,8 +2808,15 @@ def keypoint_lines(kp):
              for r in kp["fwd"]]
     rows += [("roi_patch_bwd", ROI_SRC, tpu_kernel("*/ops/pallas/roi_patch.py", 440),
               t["roi_patch_bwd"], r) for r in kp["bwd"]]
-    return [kernel_line(f"{kernel}@keypoint_{r['case'].replace(' ', '_')}", src, replaces, n, r,
+    return [kernel_line(f"{kernel}@{case_label('keypoint', r['case'])}", src, replaces, n, r,
                         r["err"]) for kernel, src, replaces, n, r in rows]
+
+
+def case_label(phase: str, case: str) -> str:
+    """``<phase>_<case>`` with spaces as underscores, the phase's name said
+    once when the case already begins with it."""
+    case = case.replace(" ", "_")
+    return case if case.startswith(phase) else f"{phase}_{case}"
 
 
 # -- phase 13: panoptic ---------------------------------------------------------------
@@ -2747,7 +2873,7 @@ def check_panoptic_serving(cfg, out, batch, label) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / FUSION_RUNS * 1e3
         device_ms, _, idle, _ = profile_predict.device_time(lambda: panoptic_fusion(fcfg, out),
-                                                            FUSION_RUNS)
+                                                            FUSION_RUNS, host_ops=False)
         valid, thing = info["valid"], info["is_thing"]
         words += (f"; panoptic_fusion at confidence {conf}: {int((valid & thing).sum())} thing "
                   f"and {int((valid & ~thing).sum())} stuff segments, table matches the map, "
@@ -2790,6 +2916,291 @@ def run_panoptic(rng, dev):
                     check=check_semantic_serving)
     for name in PANOPTIC:
         train_two_stage(rng, dev, name, tag=PAN, profile=True)
+
+
+# -- phase 14: dconv ------------------------------------------------------------------
+
+DC = "dconv     "  # the phase's log tag
+DCONV_R50_YAML = "configs/Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml"
+DCONV_X152_YAML = "configs/Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml"
+DCONV_PANOPTIC_YAML = "configs/Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml"
+# Launches per predict and per step: R50-dconv's as R50-FPN's; the X152
+# cascade's and the panoptic R101 cascade's as the cascade's (three box
+# pools and the mask pool, each its own, forward and, in training, backward).
+DCONV = {
+    "dconv_r50": {"yaml": DCONV_R50_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 2},
+                  "step": {"nms_keep": 1, "roi_patch_fwd": 2, "roi_patch_bwd": 2}},
+    "dconv_x152": {"yaml": DCONV_X152_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 4},
+                   "step": {"nms_keep": 1, "roi_patch_fwd": 4, "roi_patch_bwd": 4}},
+    "dconv_panoptic": {"yaml": DCONV_PANOPTIC_YAML,
+                       "predict": {"nms_keep": 2, "roi_patch_fwd": 4},
+                       "step": {"nms_keep": 1, "roi_patch_fwd": 4, "roi_patch_bwd": 4}},
+}
+SPECS.update(DCONV)
+# DeformConv2d on the card against the CPU (float32): R50's res3-res5 3x3s at
+# batch 2 (800 x 1344), v1, and X152's first res3 block (stride 2, v2 with 2
+# deformable groups, at a narrower 128 channels); within DEFORM_TOL of the
+# output's largest magnitude (the card-against-CPU bound of the masks).
+DEFORM_CASES = (("res3", 128, 100, 168, 1, False, 1), ("res4", 256, 50, 84, 1, False, 1),
+                ("res5", 512, 25, 42, 1, False, 1), ("res3 stride 2 v2 dg=2", 128, 200, 336, 2,
+                                                     True, 2))
+DEFORM_TOL = 1e-4
+# X152's four bottleneck tails (K = N, the 32x8d widths) at batch 2, 800 x 1344.
+X152_TAILS = (("res2", 256, 200, 336), ("res3", 512, 100, 168), ("res4", 1024, 50, 84),
+              ("res5", 2048, 25, 42))
+X152_STEPS = 2
+# The narrow TTA held card against CPU: three small scales and their flips.
+TTA_SMALL = {"MIN_SIZES": (96, 128, 160), "MAX_SIZE": 400}
+
+
+def check_deform_conv(rng, dev):
+    """``DeformConv2d`` (float32) at each of DEFORM_CASES on the card against
+    the CPU, same weights and input: a random offset conv (kernel std 0.05,
+    bias uniform in [-3, 3]) so that samples fall between pixels and off
+    the map; then its device ms per call in bf16 at that shape."""
+    for label, c, h, w, stride, modulated, dg in DEFORM_CASES:
+        layer = DeformConv2d(c, c, 3, stride=stride, deform_groups=dg, modulated=modulated)
+        with torch.no_grad():
+            layer.conv_offset.weight.copy_(torch.from_numpy(
+                rng.normal(0, 0.05, tuple(layer.conv_offset.weight.shape)).astype(np.float32)))
+            layer.conv_offset.bias.copy_(torch.from_numpy(
+                rng.uniform(-3, 3, tuple(layer.conv_offset.bias.shape)).astype(np.float32)))
+        x = torch.from_numpy(rng.standard_normal((2, h, w, c)).astype(np.float32)).permute(
+            0, 3, 1, 2)
+        with torch.no_grad():
+            want = layer(x)
+            card = layer.to(dev)
+            xd = x.to(dev).contiguous(memory_format=torch.channels_last)
+            got = card(xd).cpu()
+            field = card.offset_field(xd)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= DEFORM_TOL * scale:
+            raise AssertionError(f"DeformConv2d {label}: max |err| {err} > {DEFORM_TOL} of "
+                                 f"{scale}")
+        off = field[:, :18 * dg].float()
+        between = float(((off - off.round()).abs() > 0.05).float().mean())
+        card = card.to(torch.bfloat16)
+        xb = xd.to(torch.bfloat16)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: card(xb), reps=10)
+        log(f"{DC} DeformConv2d {label} C={c} {h}x{w} batch 2 f32 card vs CPU: max|err| "
+            f"{err:.3g} (of {scale:.3g}), {between:.1%} of the offsets between pixels; bf16 "
+            f"{ms:.3f} ms per call on the card")
+
+
+def check_dconv_kernels(rng, dev):
+    """The kernels at the slice's new shapes against their plain versions,
+    timed beside their bounds: ``fused_residual`` at X152's four tails at
+    batch 2 (``wgmma`` path); ``nms_keep`` bit-equal at the TTA merge (one
+    image, 18 x 100 class-offset candidates over 80 classes, IoU 0.5,
+    ``max_keep`` 100); ``roi_patch_fwd`` on the largest TTA plane (one 1280 x
+    2048 image, the box pool's 1000 at S = 7) and at the input's own size
+    (the mask pool of ``predict_with_boxes``, 100 at S = 14), bf16."""
+    fused = [fused_case(rng, dev, f"x152 {st} b2 M={2 * h * w} K={k} N={k}", torch.bfloat16,
+                        (2, h, w, k, k), wgmma=True, tag=f"{DC} fused_res")
+             for st, k, h, w in X152_TAILS]
+    torch.cuda.empty_cache()
+    boxes, valid = clustered_boxes(rng, 1, 1800, objects=120)
+    boxes = class_offset(boxes, rng.integers(0, 80, (1, 1800)))
+    nms = nms_case(dev, "tta merge 1x(18x100) class-offset iou=0.5 max_keep=100", boxes, valid,
+                   0.5, 100, plain=greedy_keep_reference_rows, reps=20, tag=f"{DC} nms_keep")
+    roi = [roi_fwd_case("tta plane 1280x2048 box N=1000 S=7",
+                        *roi_inputs(rng, dev, torch.bfloat16, 1000, 7, b=1, size=(1280, 2048)),
+                        tag=f"{DC} roi_patch"),
+           roi_fwd_case("predict_with_boxes 800x1344 mask N=100 S=14",
+                        *roi_inputs(rng, dev, torch.bfloat16, 100, 14, b=1),
+                        tag=f"{DC} roi_patch")]
+    torch.cuda.empty_cache()
+    return {"fused": fused, "nms": nms, "roi": roi}
+
+
+def offset_gradients(model) -> None:
+    """Every ``conv_offset`` of ``model`` has a finite, nonzero gradient (the
+    last step's)."""
+    grads = {n: p.grad for n, p in model.named_parameters() if ".conv_offset." in n}
+    bad = [n for n, g in grads.items()
+           if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    if bad or not grads:
+        raise AssertionError(f"conv_offset gradients not finite and nonzero: {bad[:6]}")
+    log(f"{DC} all {len(grads)} conv_offset gradients finite and nonzero (largest "
+        f"{max(float(g.abs().max()) for g in grads.values()):.3g})")
+
+
+def train_x152_remat(dev):
+    """``cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv`` (bf16) trained
+    X152_STEPS steps at batch 2 with REMAT off, then on, from the same
+    weights and batch: both peaks, REMAT's lower, the first step's losses
+    equal; then at batch 8 with REMAT on, which must fit. Launches per step
+    asserted. Returns the runs and the seeded weights (on the CPU)."""
+    runs, weights = {}, None
+    for remat, b in ((False, 2), (True, 2), (True, 8)):
+        cfg = two_stage_cfg("dconv_x152", batch=b)
+        cfg.MODEL.RESNETS.REMAT = remat
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in make_train_batch(cfg, 800, 1344).items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # The first run's seeded weights for every run (drawing X152's 640M anew costs ~10 s).
+        model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED),
+                            state_dict=weights, training=True)
+        if weights is None:
+            weights = {k: v.cpu() for k, v in model.state_dict().items()}
+        state = create_train_state(cfg, model, torch.Generator(device=dev).manual_seed(SEED))
+        step = build_train_step(cfg, state)
+        zero_launches()
+        t0 = time.perf_counter()
+        values = [{k: float(v) for k, v in step(batch).items()} for _ in range(X152_STEPS)]
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        for kernel, per in DCONV["dconv_x152"]["step"].items():
+            if launches[kernel] != per * X152_STEPS:
+                raise AssertionError(f"x152 remat={remat} b{b}: {launches[kernel]} {kernel} "
+                                     f"launches in {X152_STEPS} steps, expected {per} per step")
+        if not all(np.isfinite(v) for m in values for v in m.values()):
+            raise AssertionError(f"x152 remat={remat} b{b}: non-finite losses {values}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        runs[(remat, b)] = {"peak": peak, "first": values[0], "wall": wall}
+        log(f"{DC} dconv_x152 train REMAT {'on' if remat else 'off'}, {X152_STEPS} steps of batch "
+            f"{b} at 800x1344 bf16 in {wall:.2f} s (the first's set-up included), peak memory "
+            f"{peak:.2f} GiB; launches {launches}; first " + ", ".join(
+                f"{k} {v:.5f}" for k, v in values[0].items()))
+        del model, state, step, batch
+    torch.cuda.empty_cache()
+    off, on = runs[(False, 2)], runs[(True, 2)]
+    if not on["peak"] < off["peak"]:
+        raise AssertionError(f"x152: REMAT's peak {on['peak']:.2f} GiB is not below "
+                             f"{off['peak']:.2f} GiB")
+    worst = max(abs(on["first"][k] - v) / max(abs(v), 1e-12) for k, v in off["first"].items())
+    if not worst <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"x152: REMAT changed the first step's losses by {worst:.3g}")
+    log(f"{DC} dconv_x152 REMAT at batch 2: peak {off['peak']:.2f} -> {on['peak']:.2f} GiB, first "
+        f"step's losses equal within {worst:.3g} relative; batch 8 with REMAT fits in "
+        f"{runs[(True, 8)]['peak']:.2f} GiB")
+    return runs, weights
+
+
+def check_tta_small(rng, dev):
+    """``tta_predict`` of the narrow float32 R50-dconv (TTA_SMALL's scales and
+    flips, one 120 x 150 image in a 128 x 160 batch) on the card against the
+    CPU, same weights: the merged slots held as ``check_small_against_cpu``
+    holds detections (valid equal, ties matched, boxes, scores, masks)."""
+    cfg = two_stage_cfg("dconv_r50", narrow=True)
+    cfg.TEST.AUG.ENABLED = True
+    cfg.TEST.AUG.MIN_SIZES, cfg.TEST.AUG.MAX_SIZE = TTA_SMALL["MIN_SIZES"], TTA_SMALL["MAX_SIZE"]
+    cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gpu_model = build_model(cfg, device=dev, state_dict=cpu_model.state_dict())
+    image = np.zeros((1, 128, 160, 3), np.float32)
+    image[0, :120, :150] = rng.uniform(0, 255, (120, 150, 3))
+    batch = {"image": image, "image_size": np.array([[120, 150]], np.int32)}
+    want = tta_predict(cfg, cpu_model, batch).get_fields()
+    got = {k: v.cpu() for k, v in tta_predict(cfg, gpu_model, batch).get_fields().items()}
+    if not torch.equal(got["is_valid"], want["is_valid"]):
+        raise AssertionError("narrow tta_predict: valid slots differ between the card and the CPU")
+    errs, swapped = hold_detections(got, want)
+    log(f"{DC} narrow f32 tta_predict ({len(TTA_SMALL['MIN_SIZES'])} scales and flips), card vs "
+        f"CPU: valid={int(want['is_valid'].sum())} slots equal, classes equal, {swapped} slots "
+        f"matched across a score tie, max|err| " + ", ".join(f"{k} {v:.3g}"
+                                                             for k, v in errs.items()))
+
+
+def run_tta(rng, dev):
+    """One 800 x 1333 image (in an 800 x 1344 batch) through ``tta_predict`` of
+    ``mask_rcnn_R_50_FPN_1x_dconv_c3-c5`` (bf16, ``SCORE_THRESH_TEST`` 0) under
+    the default ``TEST.AUG``: 9 scales and their flips in a 1280 x 2048
+    bucket, merged, masks at the merged boxes. 100 valid finite clipped
+    detections with masks; launches (2 per predict, and the merge's and
+    ``predict_with_boxes``'s); host ms and device ms per image. Returns the
+    launches."""
+    cfg = two_stage_cfg("dconv_r50")
+    cfg.TEST.AUG.ENABLED = True
+    aug = cfg.TEST.AUG
+    runs = len(aug.MIN_SIZES) * (2 if aug.FLIP else 1)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    batch = serving_batch(rng, dev, b=1)
+    tta_predict(cfg, model, batch)  # warm-up: cuDNN's choices at the bucket's size
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = tta_predict(cfg, model, batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    want = {"nms_keep": 2 * runs + 1, "roi_patch_fwd": 2 * runs + 1}
+    for kernel, n in want.items():
+        if launches[kernel] != n:
+            raise AssertionError(f"tta: {launches[kernel]} {kernel} launches, expected {n}")
+    check_outputs(cfg, out, batch, 1, 800, 1344, "dconv_r50 tta", phase=DC)
+    device_ms, wall_ms, idle, _ = profile_predict.device_time(
+        lambda: tta_predict(cfg, model, batch), 1, host_ops=False)
+    log(f"{DC} dconv_r50 tta_predict, {len(aug.MIN_SIZES)} scales {tuple(aug.MIN_SIZES)} and "
+        f"flips in one 1280x2048 bucket, one 800x1333 image: host {host_ms:.1f} ms per image, "
+        f"device {device_ms:.2f} ms (wall under the profiler {wall_ms:.1f} ms, idle share "
+        f"{idle:.3f}); launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_later_kernels(rng, dev):
+    """The kernel checks of phases 9-14 at their shapes, before phase 8
+    starts the host-bound gates, whose processes would share the card with
+    the timings."""
+    return {"single_level": check_single_level_kernels(rng, dev),
+            "two_stage": check_new_nms_shape(rng, dev),
+            "single_stage_cascade": check_retinanet_nms(rng, dev),
+            "keypoint": check_keypoint_kernels(rng, dev),
+            "dconv": check_dconv_kernels(rng, dev), "deform": check_deform_conv(rng, dev)}
+
+
+def run_dconv(rng, dev, kernels_):
+    """Phase 14: deformable convolution, REMAT and TTA. ``DeformConv2d`` card
+    against CPU and the kernels at the new shapes (``kernels_``, checked
+    earlier); a narrow float32 R50-dconv
+    model, train step and TTA card against CPU; ``mask_rcnn_R_50_FPN_1x_dconv_c3-c5``
+    served 2 x 800 x 1344 (switch off and on) and trained at 8 x 800 x 1344
+    (every offset conv's gradient finite and nonzero); the X152-dconv
+    cascade served at batch 2 (switch on: its 50 tails fused) and trained
+    with REMAT off and on; the panoptic R101-dconv cascade served at batch 2 and trained at
+    batch 8; TTA at full width. Returns the kernel results and launches."""
+    with phase_seconds("dconv.narrow"):
+        check_small_against_cpu(rng, dev, False, two_stage_cfg("dconv_r50", narrow=True),
+                                label=f"{DC} dconv_r50")
+        check_train_against_cpu(dev, False, two_stage_cfg("dconv_r50", narrow=True, batch=2),
+                                label=f"{DC} dconv_r50")
+        check_tta_small(rng, dev)
+    with phase_seconds("dconv.r50"):
+        serving = {"dconv_r50": serve_two_stage(rng, dev, "dconv_r50", turns=(False, True),
+                                                tag=DC)}
+        train_two_stage(rng, dev, "dconv_r50", tag=DC, profile=True, check_model=offset_gradients)
+    with phase_seconds("dconv.x152"):
+        x152, weights = train_x152_remat(dev)
+        serving["dconv_x152"] = serve_two_stage(rng, dev, "dconv_x152", turns=(True,), tag=DC,
+                                                weights=weights)
+    with phase_seconds("dconv.panoptic"):
+        serve_two_stage(rng, dev, "dconv_panoptic", turns=(False,), tag=DC,
+                        check=check_panoptic_serving)
+        train_two_stage(rng, dev, "dconv_panoptic", tag=DC, profile=True,
+                        check_model=offset_gradients)
+    with phase_seconds("dconv.tta"):
+        tta = run_tta(rng, dev)
+    return {**kernels_, "serving": serving, "x152": x152, "tta": tta}
+
+
+def dconv_lines(dc):
+    """The ``kernels`` line's entries of phase 14's shapes
+    (``<kernel>@dconv_<case>``): the X152 tails with the X152 serving run's
+    fused launches (switch on), the merge's NMS and the ROI planes with the
+    TTA run's launches."""
+    tails = dc["serving"]["dconv_x152"]["fused_residual"]
+    fused_src = tpu_kernel("*/ops/pallas/fused_residual.py", 118)
+    rows = [("fused_residual", FUSED_SRC, fused_src, tails, r) for r in dc["fused"]]
+    rows.append(("nms_keep", NMS_SRC, tpu_kernel("*/ops/pallas/nms_keep.py", 161),
+                 dc["tta"]["nms_keep"], dc["nms"]))
+    rows += [("roi_patch_fwd", ROI_SRC, tpu_kernel("*/ops/pallas/roi_patch.py", 667),
+              dc["tta"]["roi_patch_fwd"], r) for r in dc["roi"]]
+    return [kernel_line(f"{kernel}@{case_label('dconv', r['case'])}", src, replaces, n, r,
+                        r["err"]) for kernel, src, replaces, n, r in rows]
 
 
 def probe():
@@ -2846,6 +3257,8 @@ def main() -> None:
         roi = check_roi(rng, dev)
         bwd = check_roi_bwd(rng, dev)
         fused = check_fused(rng, dev)
+    with phase_seconds("later_kernels"):
+        later = check_later_kernels(rng, dev)
     with phase_seconds("variants"):
         variants = check_variants(dev)
         variant_times, variant_launches = run_variants_tool()
@@ -2861,17 +3274,23 @@ def main() -> None:
     with phase_seconds("loop"), fused_switch(False):
         run_loop()
     with phase_seconds("workflow"), fused_switch(False):
-        run_workflow()  # and the overfit gates of the C4, FPN and class-agnostic families
+        pending = run_workflow()  # (b) and the overfit gates go on beside the later phases
     with phase_seconds("single_level"):
-        single = run_single_level(rng, dev)
-    with phase_seconds("two_stage"), fused_switch(False):
-        two = run_two_stage(rng, dev)
+        single = run_single_level(rng, dev, later["single_level"])
+    # Phase 10 after 11-13: its Fast R-CNN CLIs start processes, which the
+    # gates' processes (done by then) would slow.
     with phase_seconds("single_stage_cascade"), fused_switch(False):
-        ssc = run_single_stage_cascade(rng, dev)
+        ssc = run_single_stage_cascade(rng, dev, later["single_stage_cascade"])
     with phase_seconds("keypoint"), fused_switch(False):
-        kp = run_keypoint(rng, dev)
+        kp = run_keypoint(rng, dev, later["keypoint"])
     with phase_seconds("panoptic"), fused_switch(False):
         run_panoptic(rng, dev)
+    with phase_seconds("two_stage"), fused_switch(False):
+        two = run_two_stage(rng, dev, later["two_stage"])
+    with phase_seconds("dconv"), fused_switch(False):
+        dc = run_dconv(rng, dev, later["dconv"])
+    with phase_seconds("gates"):
+        finish_workflow(pending)
     probe()
     log(f"seconds    total {time.perf_counter() - START:.1f}")
 
@@ -2899,6 +3318,7 @@ def main() -> None:
                     NMS_SRC, tpu_kernel("*/ops/pallas/nms_keep.py", 161),
                     ssc["serving"]["retinanet"]["nms_keep"], ssc["nms"], ssc["nms"]["err"]),
         *keypoint_lines(kp),
+        *dconv_lines(dc),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

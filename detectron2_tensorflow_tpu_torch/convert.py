@@ -8,7 +8,13 @@ modules carry Detectron2's names and PyTorch's layouts (a C4 model's
 RetinaNet's ``head.*`` and ``backbone.top_block.*`` and a cascade's
 ``roi_heads.box_head.{k}.*`` included), so only the box head's ``fc1`` (each
 cascade stage's) changes: Detectron2 flattens the pooled features in (c, h,
-w) order, the port in (h, w, c), so its columns are permuted.
+w) order, the port in (h, w, c), so its columns are permuted. A deformable
+block's offset conv, Detectron2's ``conv2_offset``, is the port's
+``conv2.conv_offset``; its ``conv2.weight`` and ``conv2.norm.*`` keep their
+names. The port's deformable kernel is dense over the channels, as the JAX
+package's: a grouped Detectron2 kernel (a ResNeXt's, ``[F, C / groups, 3,
+3]``) does not fit it and raises, naming the tensor, rather than being
+reshaped.
 
 :func:`convert_variables` reads the JAX model's ``variables``, nested dicts
 of numpy (or array-like) values with a ``params`` and a ``frozen``
@@ -46,7 +52,12 @@ Layout changes:
     ``BatchNorm_0/BatchNorm_0/{scale,bias}``; the ``batch_stats``
     collection (BN's ``mean``, ``var``) becomes ``norm.running_mean`` /
     ``norm.running_var``. Basic blocks (R18/R34) keep their JAX
-    names (``conv1``, ``conv2``, ``shortcut``), which are the port's.
+    names (``conv1``, ``conv2``, ``shortcut``), which are the port's;
+  * a deformable block's ``conv2/kernel`` and ``conv2/conv_offset/{kernel,
+    bias}`` become ``conv2.weight`` and ``conv2.conv_offset.{weight,bias}``,
+    and the norm the JAX block keeps beside it, ``conv2_norm`` (its frozen
+    leaves, or its ``GroupNorm_0`` / ``BatchNorm_0``), the deformable conv's
+    ``conv2.norm``.
 """
 
 from __future__ import annotations
@@ -74,6 +85,9 @@ _FROZEN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "ru
 _AFFINE = {"scale": "weight", "bias": "bias"}
 _BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
 _NORM_WRAPPERS = (["GroupNorm_0", "GroupNorm_0"], ["BatchNorm_0", "BatchNorm_0"])
+# The norm a JAX deformable block keeps beside its conv2, and its wrapped modules.
+_DEFORM_NORM = "conv2_norm"
+_DEFORM_NORM_INNER = ("GroupNorm_0", "BatchNorm_0")
 # Model state that no Detectron2 checkpoint holds, at its initial value.
 _MODEL_STATE = {"loss_normalizer": INITIAL_LOSS_NORMALIZER}
 
@@ -89,6 +103,16 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()):
 
 _TOWER = re.compile(r"^(cls|bbox)_subnet_(\d+)$")
 _SEM_SEG_CONV = re.compile(r"^(p\d+)_(\d+)$")
+
+
+def _deform_norm(mod: List[str]):
+    """The port's ``conv2`` path of a JAX ``conv2_norm`` module path (with its
+    ``GroupNorm_0`` / ``BatchNorm_0`` or without), else None."""
+    if mod and mod[-1] == _DEFORM_NORM:
+        return mod[:-1] + ["conv2"]
+    if len(mod) > 1 and mod[-2] == _DEFORM_NORM and mod[-1] in _DEFORM_NORM_INNER:
+        return mod[:-2] + ["conv2"]
+    return None
 
 
 def _module_name(path: Tuple[str, ...], prefix: Dict[str, str]) -> str:
@@ -129,6 +153,11 @@ def convert_variables(variables) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(variables["params"]):
         *mod, leaf = path
+        deform = _deform_norm(mod)
+        if deform is not None:
+            out[f"{_module_name(tuple(deform), prefix)}.norm.{_AFFINE[leaf]}"] = \
+                torch.from_numpy(arr.copy())
+            continue
         if len(mod) > 2 and mod[-2:] in _NORM_WRAPPERS:
             name = _module_name(tuple(mod[:-2]), prefix)
             out[f"{name}.norm.{_AFFINE[leaf]}"] = torch.from_numpy(arr.copy())
@@ -146,12 +175,19 @@ def convert_variables(variables) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected JAX parameter {'/'.join(path)}")
     for path, arr in _flatten(variables.get("frozen", {})):
         *mod, bn, leaf = path
+        if bn == _DEFORM_NORM:
+            mod, bn = mod + ["conv2"], "FrozenBatchNorm_0"
         if not bn.startswith("FrozenBatchNorm"):
             raise KeyError(f"unexpected frozen variable {'/'.join(path)}")
         name = _module_name(tuple(mod), prefix)
         out[f"{name}.norm.{_FROZEN[leaf]}"] = torch.from_numpy(arr.copy())
     for path, arr in _flatten(variables.get("batch_stats", {})):
         *mod, leaf = path
+        deform = _deform_norm(mod)
+        if deform is not None:
+            out[f"{_module_name(tuple(deform), prefix)}.norm.{_BATCH_STATS[leaf]}"] = \
+                torch.from_numpy(arr.copy())
+            continue
         if len(mod) < 3 or mod[-2:] != ["BatchNorm_0", "BatchNorm_0"]:
             raise KeyError(f"unexpected batch_stats variable {'/'.join(path)}")
         name = _module_name(tuple(mod[:-2]), prefix)
@@ -186,26 +222,42 @@ def _port_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
+def _d2_name(name: str) -> str:
+    """Detectron2's name of the port's tensor ``name``: a deformable block's
+    ``conv2.conv_offset`` is Detectron2's ``conv2_offset``."""
+    return name.replace(".conv2.conv_offset.", ".conv2_offset.")
+
+
 def convert_d2_weights(sd: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """A Detectron2 state dict -> (the port's float32 ``state_dict``, the
     checkpoint's names that the model has no place for). Raises
     ``KeyError`` when the checkpoint lacks a tensor the model has."""
     shapes = _port_shapes(cfg)
     model_state = [k for k in _MODEL_STATE if shapes.pop(k, None) is not None]
-    missing = sorted(set(shapes) - set(sd))
+    d2_name = {k: _d2_name(k) for k in shapes}
+    missing = sorted(d2_name[k] for k in shapes if d2_name[k] not in sd)
     if missing:
         raise KeyError(f"checkpoint lacks {len(missing)} tensors of the model: {missing[:8]}")
+    deform_kernels = {k[:-len("conv_offset.weight")] + "weight" for k in shapes
+                      if k.endswith(".conv2.conv_offset.weight")}
     out: Dict[str, torch.Tensor] = {}
     for name in shapes:
-        arr = np.asarray(sd[name], np.float32)
+        arr = np.asarray(sd[d2_name[name]], np.float32)
         if re.fullmatch(r"roi_heads\.box_head\.(\d+\.)?fc1\.weight", name):
             s = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
             arr = arr.reshape(arr.shape[0], -1, s, s).transpose(0, 2, 3, 1).reshape(arr.shape[0], -1)
+        if name in deform_kernels and arr.shape != shapes[name]:
+            raise ValueError(
+                f"{name}: the checkpoint's deformable kernel {arr.shape} does not fit the "
+                f"port's dense {shapes[name]}: a grouped Detectron2 kernel "
+                f"(MODEL.RESNETS.NUM_GROUPS > 1) has no place in the port's deformable conv, "
+                f"which, as the JAX package's, convolves every channel; it is not reshaped")
         if arr.shape != shapes[name]:
             raise ValueError(f"{name}: checkpoint {arr.shape}, model {shapes[name]}")
         out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     for name in model_state:  # not a Detectron2 tensor: the model's initial value
         out[name] = torch.tensor(_MODEL_STATE[name])
-    leftovers = [k for k in sd if k not in shapes and "cell_anchors" not in k
+    used = set(d2_name.values())
+    leftovers = [k for k in sd if k not in used and "cell_anchors" not in k
                  and "anchor_generator" not in k and "pixel_" not in k]
     return out, leftovers

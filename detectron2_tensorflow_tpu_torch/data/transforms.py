@@ -8,6 +8,10 @@ output coordinate maps to ``(d + 0.5) * in / out - 0.5``, the two source
 taps get float32 weights, and the rows are filtered before the columns. For
 float32 masks this agrees with ``cv2`` to float32 rounding; ``cv2`` filters
 uint8 images in fixed point, so images agree to one level.
+A float32 image (the TTA's scales, ``engine/tta.py``) goes through
+:func:`resize_bilinear` unrounded, as the JAX TTA hands ``cv2.resize`` a
+float32 array: ``cv2``'s float path, which it matches to three float32
+ulps (4.6e-5 at pixel values up to 255, ``tests/test_torch_tta.py``).
 
 Every augmentation the default config leaves off (crop, vertical flip,
 rotation, the colour changes, box jitter) raises ``NotImplementedError``

@@ -24,8 +24,14 @@ the model's device after ``predict``, un-resizes the panoptic map the same
 way and feeds the PQ evaluator (``panoptic/PQ`` ...) against the dataset's
 ``get_panoptic_gt``, thing categories by their contiguous class and stuff
 categories by 1000 + their stuff label. ``run_evaluation`` runs each family
-that ``EVAL.METRICS`` names. Test-time augmentation, the VOC evaluators and
-the drawn examples raise ``NotImplementedError``: they wait for their
+that ``EVAL.METRICS`` names. With ``TEST.AUG.ENABLED`` the detection loop
+predicts each image through ``engine.tta.tta_predict`` (the JAX
+evaluator's dispatch): its merged detections are in the input batch's
+frame, so the loop un-resizes them as it does ``predict``'s. The semantic
+and panoptic loops raise on ``TEST.AUG``: the JAX semantic loop reads a
+``sem_seg`` that ``tta_predict``'s merged detections do not have, so it
+fails there too, and the JAX panoptic loop has no TTA. The VOC evaluators
+and the drawn examples raise ``NotImplementedError``: they wait for their
 families.
 """
 
@@ -44,6 +50,7 @@ from ..evaluation.np_masks import paste_masks
 from ..evaluation.panoptic_eval import PanopticEvaluator
 from ..evaluation.sem_seg_eval import SemSegEvaluator
 from .train import to_device
+from .tta import tta_predict
 
 logger = logging.getLogger(__name__)
 
@@ -66,6 +73,15 @@ SEGMENTATION_METRICS = ("semantic_segmentation_metrics", "panoptic_segmentation_
 _PREDICT_INPUTS = ("image", "image_size", "proposal_boxes", "proposal_scores", "proposal_valid")
 
 
+_OUTPUTS = ("boxes", "scores", "pred_classes", "is_valid", "pred_masks", "pred_keypoints",
+            "sem_seg")
+
+
+def _to_numpy(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
+            for k, v in out.items() if k in _OUTPUTS}
+
+
 def build_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
     """``predict(batch) -> outputs``: the batch's inputs (numpy arrays) go to the
     model's device, ``model.predict`` runs there, and the outputs come back
@@ -77,11 +93,20 @@ def build_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
 
     def predict(batch: Dict) -> Dict[str, np.ndarray]:
         inputs = to_device({k: v for k, v in batch.items() if k in _PREDICT_INPUTS}, device)
-        out = model.predict(inputs).get_fields()
-        return {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
-                for k, v in out.items()
-                if k in ("boxes", "scores", "pred_classes", "is_valid", "pred_masks",
-                         "pred_keypoints", "sem_seg")}
+        return _to_numpy(model.predict(inputs).get_fields())
+
+    return predict
+
+
+def build_tta_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
+    """``predict(batch) -> outputs`` as :func:`build_predict`'s, each image of
+    the batch through ``tta_predict`` and the outputs stacked."""
+    def predict(batch: Dict) -> Dict[str, np.ndarray]:
+        outs = [_to_numpy(tta_predict(cfg, model, {"image": batch["image"][i:i + 1],
+                                                   "image_size": batch["image_size"][i:i + 1]}
+                                      ).get_fields())
+                for i in range(batch["image"].shape[0])]
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
     return predict
 
@@ -117,8 +142,6 @@ def _check_supported(cfg) -> None:
                                            "SingleStageDetector", "PanopticFPN"):
         raise NotImplementedError(
             f"evaluating {cfg.MODEL.META_ARCHITECTURE} is not ported")
-    if cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError("TEST.AUG (test-time augmentation) is not ported")
 
 
 def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
@@ -159,7 +182,7 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
             ev.all_per_category = cfg.EVAL.ALL_METRICS_PER_CATEGORY
             ev.class_names = list(class_names)
 
-    predict = build_predict(cfg, model)
+    predict = (build_tta_predict if cfg.TEST.AUG.ENABLED else build_predict)(cfg, model)
     seen = set()
     n_done = 0
     for batch in data_iter:
@@ -231,9 +254,11 @@ def evaluate_sem_seg(cfg, model, dataset, data_iter: Iterable[Dict],
                      max_images: Optional[int] = None) -> Dict[str, float]:
     """The semantic evaluation loop: ``{"sem_seg/mIoU": ...}`` (module
     docstring). ``dataset``'s samples carry their original-resolution
-    ``sem_seg``."""
+    ``sem_seg``. ``TEST.AUG`` raises (module docstring)."""
     if cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError("TEST.AUG (test-time augmentation) is not ported")
+        raise NotImplementedError(
+            "TEST.AUG (test-time augmentation) of a semantic evaluation: tta_predict merges "
+            "detections and has no sem_seg (the JAX evaluator fails on it too)")
     ev = SemSegEvaluator(cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES,
                          ignore_label=cfg.MODEL.SEM_SEG_HEAD.IGNORE_VALUE)
     predict = build_predict(cfg, model)
@@ -262,7 +287,9 @@ def evaluate_panoptic(cfg, model, dataset, data_iter: Iterable[Dict],
     from ..models.meta_arch.rcnn import panoptic_fusion
 
     if cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError("TEST.AUG (test-time augmentation) is not ported")
+        raise NotImplementedError(
+            "TEST.AUG (test-time augmentation) of a panoptic evaluation: the JAX package has "
+            "no TTA there")
     cat_table = {cid: True for cid in dataset.thing_contiguous.values()}
     cat_table.update({1000 + cid: False for cid in dataset.stuff_contiguous.values()})
     pq = PanopticEvaluator(cat_table)

@@ -28,19 +28,34 @@ its first block does not stride and its 3x3 convs are dilated (padding =
 dilation), as in the JAX package. :func:`build_res5_head` builds res5 on
 its own, as the JAX package's ``Res5ROIHeads`` does: bottleneck blocks
 whatever the depth, ``RES2_OUT_CHANNELS * 8`` wide, first stride 2, the
-trunk's norm, fed by the trunk's res4 channels. Deformable convs, the
-space-to-depth stem and rematerialization raise ``NotImplementedError``.
+trunk's norm, fed by the trunk's res4 channels.
+
+``DEFORM_ON_PER_STAGE`` makes every bottleneck block of a stage deformable,
+as in the JAX package: its ``conv2`` is a :class:`~..deform_conv.DeformConv2d`
+(``DEFORM_MODULATED``, ``DEFORM_NUM_GROUPS``; stride and dilation as the
+3x3 it replaces) with the norm after it, then ReLU; ``conv3`` keeps its
+fused tail. Like the JAX ``DeformConv2D`` its kernel is dense over the
+channels, in a ResNeXt too (``NUM_GROUPS`` does not split it). A basic-block
+trunk (R18/R34) with a deformable stage raises, as Detectron2 does: the JAX
+package would build it without a deformable conv. ``REMAT`` recomputes each
+block's activations in the backward pass (``torch.utils.checkpoint``,
+non-reentrant) in the stages after ``FREEZE_AT``, as the JAX package's
+``nn.remat`` does; a trainable BN does not update its running statistics
+a second time in the recomputation (``layers.recomputing``). The
+space-to-depth stem raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.fused_residual import fused_epilogue_enabled
-from ..layers import Conv2d, max_pool
+from ..deform_conv import DeformConv2d
+from ..layers import Conv2d, max_pool, recompute_context
 
 NORMS = ("FrozenBN", "BN", "SyncBN", "GN")
 BLOCKS_PER_STAGE = {
@@ -70,7 +85,8 @@ class BottleneckBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  bottleneck_channels: int, stride: int, num_groups: int,
                  stride_in_1x1: bool, norm: str, has_shortcut: bool,
-                 fused_tail: bool = False, dilation: int = 1):
+                 fused_tail: bool = False, dilation: int = 1, deform: bool = False,
+                 deform_modulated: bool = False, deform_groups: int = 1):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.shortcut = (
@@ -79,14 +95,22 @@ class BottleneckBlock(nn.Module):
         )
         self.conv1 = Conv2d(in_channels, bottleneck_channels, 1, stride=s1,
                             norm=norm, activation="relu")
-        self.conv2 = Conv2d(bottleneck_channels, bottleneck_channels, 3,
-                            stride=s3, dilation=dilation, groups=num_groups, norm=norm,
-                            activation="relu")
+        self.deform = deform
+        if deform:  # dense over the channels, as the JAX DeformConv2D (module doc)
+            self.conv2 = DeformConv2d(bottleneck_channels, bottleneck_channels, 3, stride=s3,
+                                      dilation=dilation, deform_groups=deform_groups,
+                                      modulated=deform_modulated, norm=norm)
+        else:
+            self.conv2 = Conv2d(bottleneck_channels, bottleneck_channels, 3,
+                                stride=s3, dilation=dilation, groups=num_groups, norm=norm,
+                                activation="relu")
         self.conv3 = Conv2d(bottleneck_channels, out_channels, 1, norm=norm,
                             fuse_residual=fused_tail)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv2(self.conv1(x))
+        if self.deform:
+            out = torch.relu(out)
         sc = self.shortcut(x) if self.shortcut is not None else x
         return self.conv3(out, residual=sc)
 
@@ -111,20 +135,42 @@ class BasicBlock(nn.Module):
         return self.conv2(out, residual=sc)
 
 
+class RematStage(nn.Sequential):
+    """A stage whose blocks each run under ``torch.utils.checkpoint`` while
+    gradients are recorded: the backward pass recomputes a block's
+    activations from its input (the JAX package's per-block ``nn.remat``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self:
+            if torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False, context_fn=recompute_context)
+            else:
+                x = block(x)
+        return x
+
+
 class ResNet(nn.Module):
     """Stem + res2..res5; returns ``{name: [B, C, H, W]}`` for ``out_features``."""
 
     def __init__(self, depth: int, num_groups: int, width_per_group: int,
                  stem_out_channels: int, res2_out_channels: int,
                  stride_in_1x1: bool, norm: str, out_features: List[str],
-                 freeze_at: int = 0, fused_tail: bool = False, res5_dilation: int = 1):
+                 freeze_at: int = 0, fused_tail: bool = False, res5_dilation: int = 1,
+                 deform_on_per_stage: Sequence[bool] = (False,) * 4,
+                 deform_modulated: bool = False, deform_groups: int = 1,
+                 remat: bool = False):
         super().__init__()
         self.freeze_at = freeze_at
         if depth not in BLOCKS_PER_STAGE:
             raise NotImplementedError(f"ResNet depth {depth} is not ported")
+        bottleneck = depth >= 50
+        if any(deform_on_per_stage) and not bottleneck:
+            raise NotImplementedError(
+                f"deformable convolutions (MODEL.RESNETS.DEFORM_ON_PER_STAGE "
+                f"{list(deform_on_per_stage)}) need bottleneck blocks: ResNet-{depth} has basic "
+                f"blocks, which Detectron2 does not deform either")
         self.out_features = list(out_features)
         self.stem = BasicStem(3, stem_out_channels, norm)
-        bottleneck = depth >= 50
         in_ch = stem_out_channels
         out_ch = res2_out_channels if bottleneck else res2_out_channels // 4
         bott = num_groups * width_per_group
@@ -141,11 +187,16 @@ class ResNet(nn.Module):
                     blocks.append(BottleneckBlock(in_ch, out_ch, bott, stride,
                                                   num_groups, stride_in_1x1, norm,
                                                   has_shortcut=i == 0, fused_tail=fused_tail,
-                                                  dilation=dilation))
+                                                  dilation=dilation,
+                                                  deform=deform_on_per_stage[idx],
+                                                  deform_modulated=deform_modulated,
+                                                  deform_groups=deform_groups))
                 else:
                     blocks.append(BasicBlock(in_ch, out_ch, stride, norm, has_shortcut=i == 0))
                 in_ch = out_ch
-            self.add_module(name, nn.Sequential(*blocks))
+            # Frozen stages do no backward work: remat would only slow them down.
+            stage = RematStage if remat and idx + 2 > freeze_at else nn.Sequential
+            self.add_module(name, stage(*blocks))
             self.stage_names.append(name)
             out_ch *= 2
             bott *= 2
@@ -201,12 +252,8 @@ def build_resnet_backbone(cfg) -> ResNet:
     if r.NORM not in NORMS:
         raise NotImplementedError(f"MODEL.RESNETS.NORM '{r.NORM}' is not ported "
                                   f"(known: {NORMS})")
-    for key in ("STEM_SPACE_TO_DEPTH", "REMAT"):
-        if r[key]:
-            raise NotImplementedError(f"MODEL.RESNETS.{key} is not ported")
-    if any(r.DEFORM_ON_PER_STAGE):
-        raise NotImplementedError("deformable convolutions (MODEL.RESNETS.DEFORM_ON_PER_STAGE) "
-                                  "are not ported")
+    if r.STEM_SPACE_TO_DEPTH:
+        raise NotImplementedError("MODEL.RESNETS.STEM_SPACE_TO_DEPTH is not ported")
     return ResNet(
         depth=r.DEPTH,
         num_groups=r.NUM_GROUPS,
@@ -219,4 +266,8 @@ def build_resnet_backbone(cfg) -> ResNet:
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
         fused_tail=fused_epilogue_enabled(),
         res5_dilation=r.RES5_DILATION,
+        deform_on_per_stage=tuple(r.DEFORM_ON_PER_STAGE),
+        deform_modulated=r.DEFORM_MODULATED,
+        deform_groups=r.DEFORM_NUM_GROUPS,
+        remat=r.REMAT,
     )

@@ -38,6 +38,8 @@ ported: the JAX package's ``D2TPU_DOT_TAIL`` branch, a TPU dead end.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -93,6 +95,32 @@ def batch_moments(x: torch.Tensor):
     return mean, var
 
 
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _RECOMPUTE.depth = getattr(_RECOMPUTE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE.depth -= 1
+
+
+def recomputing() -> bool:
+    """True inside a ``torch.utils.checkpoint`` recomputation that runs under
+    :func:`recompute_context` (on this thread)."""
+    return getattr(_RECOMPUTE, "depth", 0) > 0
+
+
+def recompute_context():
+    """``context_fn`` of a non-reentrant ``torch.utils.checkpoint``: nothing in
+    the forward pass, :func:`recomputing` true in the recomputation, where a
+    trainable BN normalizes with the same batch moments but leaves its running
+    statistics alone (they were updated once, in the forward pass)."""
+    return contextlib.nullcontext(), _recomputing()
+
+
 class BatchNorm2d(nn.Module):
     """Trainable BN with the JAX package's semantics (module docstring): batch
     moments in training, running statistics otherwise. ``weight`` and
@@ -111,10 +139,11 @@ class BatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             mean, var = batch_moments(x)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if not recomputing():
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         shape = (1, -1, 1, 1)

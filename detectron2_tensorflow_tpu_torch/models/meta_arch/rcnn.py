@@ -69,13 +69,14 @@ import torch
 from torch import nn
 
 from ...structures import Instances
+from ..deform_conv import OFFSET_CONV, DeformConv2d
 from ..layers import BatchNorm2d
 from ..roi_heads.cascade import CascadeROIHeads
 from ..roi_heads.roi_heads import Res5ROIHeads, StandardROIHeads
 from ..rpn import RPN, add_ground_truth_to_proposals
 from ..sampling import draw_noise
 from ..sem_seg import build_sem_seg_head, combine_semantic_and_instance_outputs, sem_seg_loss
-from .common import Detector
+from .common import Detector, norms_in_eval
 from .single_stage import SingleStageDetector
 
 ROI_HEADS = {"StandardROIHeads": StandardROIHeads, "Res5ROIHeads": Res5ROIHeads,
@@ -151,12 +152,30 @@ class GeneralizedRCNN(Detector):
         heads = self.roi_heads
         storage = heads.pooling_storage(features)
         detections = heads.box_detections(proposals, storage, image_sizes)
+        return self._instance_outputs(detections, storage)
+
+    def _instance_outputs(self, detections: Instances, storage) -> Instances:
+        """The mask and keypoint heads on ``detections`` (when the model has them)."""
+        heads = self.roi_heads
         if self.mask_on:
             mask_in = heads.detection_mask_features(detections, storage)
             detections = heads.mask_inference(heads.mask_head(mask_in), detections)
         if self.keypoint_on:
             detections = heads.detection_keypoints(detections, storage)
         return detections
+
+    def predict_with_boxes(self, batch: Dict[str, torch.Tensor],
+                           detections: Instances) -> Instances:
+        """The mask and keypoint heads on GIVEN ``detections`` (``boxes [B, D,
+        4]`` in ``batch``'s frame, ``pred_classes``, ``is_valid``) over
+        ``batch``'s features: no proposals and no box stage (the JAX
+        ``predict_with_boxes_fn``, Detectron2's ``detected_instances``
+        path). TTA attaches masks to its merged boxes this way. Serving
+        mode, as :meth:`predict`."""
+        with torch.inference_mode(), norms_in_eval(self):
+            features = self.features(batch["image"])
+            return self._instance_outputs(detections,
+                                          self.roi_heads.pooling_storage(features))
 
     def losses(self, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
@@ -413,7 +432,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     variance ``1 / fan_in``, the small normals of the RPN head, the
     predictors and RetinaNet's head (every conv of it), zero biases, GN
     and BN at identity with BN's running statistics at (0, 1) (FrozenBN
-    keeps its identity buffers).
+    keeps its identity buffers), a deformable conv's kernel as a conv's and
+    its offset conv at zero (``DeformConv2D``'s initializers).
     """
     if recipe == "jax":
         _init_like_jax(model, generator)
@@ -427,10 +447,17 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             head.cls_score.bias.fill_(head.prior_bias)
 
 
+def _is_offset_conv(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] == OFFSET_CONV
+
+
 def _init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if _is_offset_conv(name):
+                mod.weight.zero_()
+                mod.bias.zero_()
+            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, DeformConv2d)):
                 w = mod.weight
                 small = _small_std(name, jax_recipe=True)
                 if small is not None:
@@ -444,7 +471,7 @@ def _init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
                     t = torch.empty(w.shape)
                     nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
                     w.copy_(t)
-                if mod.bias is not None:
+                if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
             elif isinstance(mod, (nn.GroupNorm, BatchNorm2d)):
                 mod.weight.fill_(1.0)
@@ -466,11 +493,18 @@ def _init_for_serving(model: nn.Module, generator: torch.Generator) -> None:
     is linear in the input's scale up to the softmax; the stem's FrozenBN
     scales the raw pixels (std 1, values up to ~130) by 1/640, which keeps
     the class softmax unsaturated (scores near 1/81 at 80 classes) and the
-    RPN deltas small, so proposals are real boxes near their anchors.
+    RPN deltas small, so proposals are real boxes near their anchors. A
+    deformable conv's offset conv gets zero weights and standard normal
+    biases: constant offsets of about a pixel, whatever the activations'
+    scale, so its samples fall between pixels and, at the borders, off the
+    map.
     """
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if _is_offset_conv(name):
+                mod.weight.zero_()
+                mod.bias.copy_(torch.randn(mod.bias.shape, generator=generator))
+            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, DeformConv2d)):
                 w = mod.weight
                 std = _small_std(name, jax_recipe=False)
                 if std is None and isinstance(mod, nn.ConvTranspose2d):
@@ -480,7 +514,7 @@ def _init_for_serving(model: nn.Module, generator: torch.Generator) -> None:
                 elif std is None:
                     std = math.sqrt(2.0 / w[0].numel())
                 w.copy_(torch.randn(w.shape, generator=generator) * std)
-                if mod.bias is not None:
+                if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
             if hasattr(mod, "running_var"):
                 if name.endswith("stem.conv1.norm"):

@@ -1,7 +1,8 @@
 """Learning check: overfit a small detector on 8 synthetic images and report AP.
 
     python -m detectron2_tensorflow_tpu_torch.tools.overfit_check [STEPS]
-        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint|semantic] [--eval_at N[,N...]]
+        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint|semantic|dconv]
+        [--eval_at N[,N...]]
         [--device cpu] [KEY VALUE ...]
 
 The port's counterpart of the repo's ``tools/overfit_check.py`` for its
@@ -19,7 +20,8 @@ OKS sigmas 0.05) and ``semantic`` (``semantic_R_50_FPN_1x.yaml``'s
 SemanticSegmentor, 4 classes: the background and the 3 box classes of
 ``SyntheticDataset(with_sem_seg=True)``, on 194x306 images of 30-70 px
 boxes resized to the 128x256 / 256x128 buckets, as the JAX tool has it)
-families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
+and ``dconv`` (``Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml``: deformable
+res3-res5) families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
 ``config.small_cfg()``, anchors scaled to 10-30 px boxes, ResNet-18 with GN trained from the JAX
 package's initializers (``FREEZE_AT 0``), 3 classes, 64 ROIs per image, 8
 images per step, LR 0.01 after 100 warm-up steps. It trains STEPS (default
@@ -27,11 +29,18 @@ images per step, LR 0.01 after 100 warm-up steps. It trains STEPS (default
 bbox (and segm, or keypoint) AP on the same images and lists on stderr the GT instances
 no detection finds (IoU >= 0.5, same class, score above the report
 threshold) and the detections above it that find none (the JAX tool's
-threshold: 0.5 for ``rcnn``, 0.25 for the other archs). ``KEY VALUE`` overrides apply last
+threshold: 0.5 for ``rcnn``, 0.25 for the other archs). The JAX recipe's
+ResNet-18 has basic blocks, which the JAX package gives no deformable conv
+(its ``dconv`` run trains none: the ``rcnn`` gate again), and which the port
+refuses to deform; so ``dconv`` keeps the YAML's ResNet-50 (GN, from
+scratch, the recipe's other settings) and also reports its offset convs:
+how many there are and how many moved away from their zero start.
+``KEY VALUE`` overrides apply last
 (for example narrower widths). It runs on the card unless ``--device cpu``.
 The last line of stdout is one JSON object: ``arch``, ``steps``,
 ``train_seconds``, ``final_loss``, ``bbox_ap``, ``bbox_ap50`` and, with
-masks, ``segm_ap``, ``segm_ap50``, with keypoints ``keypoints_ap``; for
+masks, ``segm_ap``, ``segm_ap50``, with keypoints ``keypoints_ap``, with
+deformable convs ``conv_offsets`` and ``conv_offsets_moved``; for
 ``semantic`` ``miou`` and ``macc`` (``evaluate_sem_seg`` on the same
 images) in place of the APs.
 ``--eval_at`` also evaluates after each
@@ -65,6 +74,7 @@ REPO_CONFIGS = {
     "cascade": "configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml",
     "keypoint": "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml",
     "semantic": "configs/COCO-SemanticSegmentation/semantic_R_50_FPN_1x.yaml",
+    "dconv": "configs/Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml",
 }
 
 
@@ -107,7 +117,8 @@ def overfit_cfg(arch: str):
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8, 16, 32, 64, 128]]
     elif arch != "semantic":  # anchors for 10-30 px boxes, one size per FPN level
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8], [16], [32], [64], [128]]
-    cfg.MODEL.RESNETS.DEPTH = 18
+    # The JAX recipe's ResNet-18, but a deformable trunk needs bottleneck blocks.
+    cfg.MODEL.RESNETS.DEPTH = 50 if arch == "dconv" else 18
     cfg.MODEL.RESNETS.NORM = "GN"
     cfg.MODEL.BACKBONE.FREEZE_AT = 0
     cfg.MODEL.ROI_HEADS.NUM_CLASSES = 3
@@ -242,6 +253,10 @@ def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: 
         out["segm_ap50"] = round(float(results.get("segm/AP50", float("nan"))), 2)
     if "keypoints/AP" in results:
         out["keypoints_ap"] = round(float(results["keypoints/AP"]), 2)
+    offsets = [m.weight for n, m in model.named_modules() if n.endswith(".conv_offset")]
+    if offsets:
+        out["conv_offsets"] = len(offsets)
+        out["conv_offsets_moved"] = sum(bool(w.detach().abs().max() > 0) for w in offsets)
     print(json.dumps(out), flush=True)
     return out
 

@@ -146,12 +146,15 @@ def suffix() -> str:
     return "_fused" if fused_epilogue_enabled() else ""
 
 
-def device_time(fn, runs: int):
+def device_time(fn, runs: int, host_ops: bool = True):
     """``(device ms per call, wall ms per call, idle share, profiler)`` of
     ``runs`` calls of ``fn`` under ``torch.profiler``: the device time is
     the sum of the kernels' times, the idle share 1 - device time / wall
-    time."""
-    with profile_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    time. ``host_ops`` False records the device's activity alone: the same
+    sums, without the host operators a full table shows, whose
+    post-processing takes seconds over a long call."""
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile_ctx(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
             fn()

@@ -519,8 +519,8 @@ def test_single_level_patch_fits_the_kernel():
 def test_proposal_network_raises_by_name():
     """``GeneralizedRCNN`` names any other meta-architecture it is handed
     (the C4 RPN YAML's ``ProposalNetwork`` builds through ``build_model``),
-    and ``build_model`` names the parts not ported yet (the deformable
-    convs of ``Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml``)."""
+    and ``build_model`` names what the port refuses (deformable convs on a
+    basic-block trunk, as Detectron2 refuses them)."""
     _, tcfg = yaml_cfgs("configs/COCO-Detection/rpn_R_50_C4_1x.yaml")
     with pytest.raises(NotImplementedError, match="ProposalNetwork"), torch.device("meta"):
         GeneralizedRCNN(tcfg)
@@ -528,6 +528,7 @@ def test_proposal_network_raises_by_name():
     with pytest.raises(NotImplementedError, match="PanopticFPN"), torch.device("meta"):
         GeneralizedRCNN(tcfg)
     _set(tcfg, "MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True])
+    _set(tcfg, "MODEL.RESNETS.DEPTH", 18)
     with pytest.raises(NotImplementedError, match="DEFORM_ON_PER_STAGE"):
         build_model(tcfg, device="cpu")
 

@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from detectron2_tensorflow_tpu_torch.data import TFRecordDataset
@@ -140,15 +141,45 @@ def test_eval_restores_a_checkpoint_file_or_warns_of_random_weights(trained, tmp
 @pytest.mark.parametrize("tool,opts,match", [
     ("train", ["AUGMENT.ROTATE", "True"], "AUGMENT.ROTATE"),
     ("train", ["MODEL.KEYPOINT_ON", "True", "AUGMENT.CROP.ENABLED", "True"], "AUGMENT.CROP.ENABLED"),
-    ("eval", ["TEST.AUG.ENABLED", "True"], "TEST.AUG"),
+    # TEST.AUG is ported: tools.eval passes it through to the TTA evaluation.
+    pytest.param("eval", ["TEST.AUG.ENABLED", "True", "TEST.AUG.MIN_SIZES", "(96, 128)",
+                          "TEST.AUG.MAX_SIZE", "256", "--max_images", "1"], None,
+                 id="eval-opts2-TEST.AUG"),
     ("eval", ["EVAL.METRICS", "['pascal_voc_detection_metrics']"], "pascal_voc"),
 ])
-def test_unported_options_raise_naming_the_key(trained, tool, opts, match):
+def test_unported_options_raise_naming_the_key(trained, tool, opts, match, monkeypatch):
     main = {"build_records": tools_build_records.main, "train": tools_train.main,
             "eval": tools_eval.main}[tool]
     device = [] if tool == "build_records" else ["--device", "cpu"]
+    if match is None:
+        from detectron2_tensorflow_tpu_torch.engine import evaluator
+
+        calls = []
+        real = evaluator.tta_predict
+        monkeypatch.setattr(evaluator, "tta_predict",
+                            lambda *a: calls.append(a[2]["image_size"]) or real(*a))
+        opts, flags = opts[:-2], opts[-2:]
+        metrics = main([*device, *flags, *_opts(trained["root"]), *opts])
+        assert len(calls) >= 1 and np.isfinite(metrics["bbox/AP"])
+        return
     with pytest.raises(NotImplementedError, match=match):
         main([*device, *_opts(trained["root"]), *opts])
+
+
+def test_train_evaluates_through_tta(trained, tmp_path, monkeypatch):
+    """``tools.train`` passes ``TEST.AUG`` through: its periodic evaluation of
+    the val split predicts each image by ``tta_predict``."""
+    from detectron2_tensorflow_tpu_torch.engine import evaluator
+
+    calls = []
+    real = evaluator.tta_predict
+    monkeypatch.setattr(evaluator, "tta_predict",
+                        lambda *a: calls.append(a[2]["image_size"]) or real(*a))
+    summary = tools_train.main(["--device", "cpu", "--max_iter", "1", *_opts(trained["root"]),
+                                "LOGS.ROOT_DIR", str(tmp_path / "logs"), "TEST.EVAL_PERIOD", "1",
+                                "EVAL.NUM_EVAL", "1", "TEST.AUG.ENABLED", "True",
+                                "TEST.AUG.MIN_SIZES", "(96,)", "TEST.AUG.MAX_SIZE", "256"])
+    assert summary["steps"] == 1 and len(calls) >= 1
 
 
 def test_workflow_check_runs_its_four_steps(tmp_path, capsys):

@@ -271,7 +271,8 @@ def test_jax_cfgnode_and_port_cfgnode_agree_on_construction():
 # R-CNN on FPN, C4 and DC5 trunks: R50, R101, X101, the class-agnostic heads,
 # GN and SyncBN, the R18-GN overfit config; the RPN-only ProposalNetwork;
 # RetinaNet; Keypoint R-CNN; PanopticFPN and the SemanticSegmentor, the R18-GN
-# panoptic overfit config); every other file must
+# panoptic overfit config; the deformable trunks of the four Misc dconv
+# files); every other file must
 # raise NotImplementedError on a key the port does not read yet, never build
 # while ignoring one.
 BUILDS = {
@@ -281,6 +282,10 @@ BUILDS = {
     "configs/COCO-Detection/retinanet_R_50_FPN_3x.yaml",
     "configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml",
     "configs/Misc/cascade_mask_rcnn_R_50_FPN_3x.yaml",
+    "configs/Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml",
+    "configs/Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml",
+    "configs/Misc/mask_rcnn_R_50_FPN_3x_dconv_c3-c5.yaml",
+    "configs/Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml",
     "configs/Base-RCNN-C4.yaml",
     "configs/Base-RCNN-DilatedC5.yaml",
     "configs/Base-RCNN-FPN.yaml",
@@ -372,8 +377,11 @@ def test_config_builds_or_raises(path):
 @pytest.mark.parametrize("opts,match", [
     (["MODEL.BACKBONE.NAME", "'SpineNet'"], "SpineNet"),
     (["MODEL.RESNETS.STEM_SPACE_TO_DEPTH", "True"], "STEM_SPACE_TO_DEPTH"),
-    (["MODEL.RESNETS.REMAT", "True"], "REMAT"),
-    (["MODEL.RESNETS.DEFORM_ON_PER_STAGE", "[False, True, True, True]"], "DEFORM"),
+    # REMAT is ported: the model builds, its stages after FREEZE_AT recomputing.
+    pytest.param(["MODEL.RESNETS.REMAT", "True"], None, id="opts2-REMAT"),
+    # Deformable stages are ported on bottleneck trunks; a basic-block trunk raises.
+    (["MODEL.RESNETS.DEFORM_ON_PER_STAGE", "[False, True, True, True]",
+      "MODEL.RESNETS.DEPTH", "18", "MODEL.RESNETS.RES2_OUT_CHANNELS", "64"], "DEFORM"),
     (["MODEL.PROPOSAL_GENERATOR.NAME", "'PrecomputedProposals'"], "PROPOSAL_GENERATOR"),
     (["MODEL.ROI_BOX_HEAD.NAME", "'Other'"], "ROI_BOX_HEAD"),
     (["MODEL.ROI_MASK_HEAD.NAME", "'Other'"], "ROI_MASK_HEAD"),
@@ -385,5 +393,12 @@ def test_unported_model_keys_raise(opts, match):
     cfg.merge_from_file(os.path.join(REPO, "configs/COCO-InstanceSegmentation/"
                                            "mask_rcnn_R_50_FPN_1x.yaml"))
     cfg.merge_from_list(opts)
+    if match is None:
+        from detectron2_tensorflow_tpu_torch.models.backbones.resnet import RematStage
+
+        trunk = _meta_model(cfg).backbone.bottom_up
+        assert [isinstance(getattr(trunk, s), RematStage) for s in trunk.stage_names] == [
+            False, True, True, True]
+        return
     with pytest.raises(NotImplementedError, match=match):
         _meta_model(cfg)

@@ -815,3 +815,51 @@ def test_panoptic_predict_on_the_card_equals_the_cpu(dev):
     chip_smoke.check_small_against_cpu(rng, dev, False,
                                        chip_smoke.two_stage_cfg("panoptic", narrow=True),
                                        label="panoptic")
+
+
+@pytest.mark.parametrize("stride,modulated,dg", [(1, False, 1), (2, True, 2), (1, True, 1)])
+def test_deform_conv_on_the_card_equals_the_cpu(dev, stride, modulated, dg):
+    """``DeformConv2d`` float32 on the card against the CPU, real offsets
+    (samples between pixels and off the map): the output within 1e-4 of its
+    largest magnitude, and the gradients of the input, the kernel and the
+    offset conv within 1e-4 of each one's largest."""
+    torch.manual_seed(0)
+    layer = chip_smoke.DeformConv2d(32, 24, 3, stride=stride, deform_groups=dg,
+                                    modulated=modulated)
+    with torch.no_grad():
+        layer.conv_offset.weight.normal_(0, 0.05)
+        layer.conv_offset.bias.uniform_(-3, 3)
+    x = torch.randn(2, 32, 23, 29)
+    g = torch.randn(2, 24, (23 - 1) // stride + 1, (29 - 1) // stride + 1)
+    outs = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        lay = layer.to(d)
+        for p in lay.parameters():
+            p.grad = None
+        xd = x.to(d).detach().requires_grad_(True)
+        out = lay(xd)
+        (out * g.to(d)).sum().backward()
+        outs[name] = [t.detach().cpu() for t in (out, xd.grad, lay.weight.grad,
+                                                 lay.conv_offset.weight.grad,
+                                                 lay.conv_offset.bias.grad)]
+    for got, want in zip(outs["card"], outs["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_tta_predict_on_the_card_equals_the_cpu(dev):
+    """The narrow float32 R50-dconv's ``tta_predict`` on the card against the
+    CPU (``chip_smoke.check_tta_small``: three scales and flips, the merged
+    slots at the standing tolerances)."""
+    chip_smoke.check_tta_small(np.random.default_rng(0), dev)
+
+
+def test_dconv_predict_and_step_on_the_card_equal_the_cpu(dev):
+    """The narrow float32 R50-dconv ``predict`` and train step on the card
+    against the CPU, as ``chip_smoke`` holds them."""
+    rng = np.random.default_rng(0)
+    chip_smoke.check_small_against_cpu(rng, dev, False,
+                                       chip_smoke.two_stage_cfg("dconv_r50", narrow=True),
+                                       label="dconv")
+    chip_smoke.check_train_against_cpu(dev, False,
+                                       chip_smoke.two_stage_cfg("dconv_r50", narrow=True,
+                                                                batch=2), label="dconv")

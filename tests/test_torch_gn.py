@@ -428,12 +428,21 @@ def test_fused_tails_only_on_frozen_bn_bottlenecks(depth, norm, tails):
     ("MODEL.RESNETS.NORM", "naiveSyncBN", "NORM 'naiveSyncBN'"),
     ("MODEL.RESNETS.NORM", "LN", "NORM 'LN'"),
     ("MODEL.NECK.NORM", "LN", "NECK.NORM 'LN'"),
+    # R18's basic blocks take no deformable conv (Detectron2 refuses them too).
     ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, True, True], "DEFORM"),
     ("MODEL.RESNETS.STEM_SPACE_TO_DEPTH", True, "STEM_SPACE_TO_DEPTH"),
-    ("MODEL.RESNETS.REMAT", True, "REMAT"),
+    # REMAT is ported: R18's basic blocks recompute too (FREEZE_AT 0: every stage).
+    pytest.param("MODEL.RESNETS.REMAT", True, None, id="MODEL.RESNETS.REMAT-True-REMAT"),
 ])
 def test_unported_trunk_keys_raise(key, value, match):
     _, tcfg = yaml_cfgs(**{key: value})
+    if match is None:
+        from detectron2_tensorflow_tpu_torch.models.backbones.resnet import RematStage
+
+        with torch.device("meta"):
+            trunk = GeneralizedRCNN(tcfg).backbone.bottom_up
+        assert all(isinstance(getattr(trunk, s), RematStage) for s in trunk.stage_names)
+        return
     with pytest.raises(NotImplementedError, match=match), torch.device("meta"):
         GeneralizedRCNN(tcfg)
 

@@ -51,7 +51,8 @@ for m in ("config.yaml_subset", "data.loader", "engine.checkpoint", "engine.eval
           "data.coco", "data.records", "evaluation.coco_results", "tools.make_synthetic_coco",
           "tools.build_records", "tools.train", "tools.eval", "tools.workflow_check",
           "tools.overfit_check", "tools.workflow_check_panoptic", "data.panoptic",
-          "models.sem_seg", "evaluation.panoptic_eval", "evaluation.sem_seg_eval"):
+          "models.sem_seg", "evaluation.panoptic_eval", "evaluation.sem_seg_eval",
+          "models.deform_conv", "engine.tta"):
     assert pkg.__name__ + "." + m in sys.modules, m
 assert "PIL" not in sys.modules  # imported at the first decode or encode only
 print("ok")

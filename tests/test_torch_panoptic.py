@@ -614,12 +614,20 @@ def test_yaml_builds_the_jax_tree(path):
 
 
 def test_dconv_panoptic_yaml_raises_by_name():
-    """``Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml`` needs deformable
-    convs, which the port does not have: building it raises naming them."""
+    """``Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml`` builds: a cascade
+    PanopticFPN on an R101-GN trunk with deformable res3-res5 (30 blocks).
+    On a basic-block trunk its deformable stages raise, naming them, as
+    Detectron2 refuses them."""
     cfg = get_cfg()
     cfg.merge_from_file(c4.os.path.join(c4.REPO,
                                         "configs/Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml"))
     assert meta_architecture(cfg).__name__ == "PanopticFPN"
+    with torch.device("meta"):
+        model = meta_architecture(cfg)(cfg)
+    names = [n for n, _ in model.named_modules() if n.endswith(".conv2.conv_offset")]
+    assert len(names) == 4 + 23 + 3 and type(model.roi_heads).__name__ == "CascadeROIHeads"
+    cfg.MODEL.RESNETS.DEPTH = 34
+    cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 64
     with pytest.raises(NotImplementedError, match="DEFORM"):
         with torch.device("meta"):
             meta_architecture(cfg)(cfg)

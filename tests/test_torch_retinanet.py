@@ -506,12 +506,18 @@ def test_retinanet_yaml_builds_the_jax_tree(path):
 
 @pytest.mark.parametrize("path,match", [
     ("configs/Misc/cascade_lcc_R_50_FPN_3x.yaml", "CascadeLCCHeads"),
+    # The deformable X152 builds now (tests/test_torch_dconv.py); its deformable
+    # stages on a basic-block trunk raise, naming them.
     ("configs/Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml", "deformable"),
     ("configs/COCO-InstanceSegmentation/solo_v2_R_50_FPN_1x.yaml", "SOLOv2Head"),
     ("configs/COCO-Detection/yolov4_D_53_PAN_1x.yaml", "YOLOV4Head|DarkNet53"),
 ])
 def test_unported_families_raise_by_name(path, match):
     _, tcfg = yaml_cfgs(path)
+    if "dconv" in path:
+        with torch.device("meta"):
+            assert meta_architecture(tcfg)(tcfg) is not None
+        tcfg.MODEL.RESNETS.DEPTH = 34
     with pytest.raises(NotImplementedError, match=match), torch.device("meta"):
         meta_architecture(tcfg)(tcfg)
 
