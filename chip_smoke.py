@@ -225,7 +225,27 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      with masks), host and device ms. Its gate, ``tools.overfit_check 600
      --arch dconv`` (R50-GN, deformable c3-c5: bbox AP50 >= 90, every offset
      conv moved from zero), runs with the others;
- 15. gates: waits for workflow (b), the panoptic workflow and the overfit
+ 15. solov2: SOLOv2 R50-FPN. No kernel shape is new (its trunk's fused tails
+     are R50-FPN's; it launches no NMS or pooling kernel). Narrow float32
+     SOLOv2 models (plain and deformable v2 towers, head weights spread as
+     the CPU tests spread them) held against the CPU: valid slots and
+     classes equal (across score ties as ``tie_order`` matches them), each
+     mask pixel equal but where the CPU's sigmoid lies within 1e-3 of the
+     threshold (counted), scores to 1e-5 (plus a flipped slot's share);
+     ``assign_level`` bit-equal on GT with argmin ties; a narrow train step
+     (128-wide head, GN tie-free) with the same positive-cap draws, losses
+     and gradients to the standing tolerances. ``solo_v2_R_50_FPN_1x.yaml``
+     (bf16, seeded random weights, both score thresholds 0) serves 2 x 800
+     x 1344 with the switch off and on (100 valid detections per image,
+     bool whole-frame masks ``[2, 100, 200, 336]`` each non-empty, boxes
+     their extents in the padded frame; per ``predict`` 0 / 0 ``nms_keep``
+     / ``roi_patch_fwd``, 16 fused tails on) and trains 3 steps at 8 x 800 x
+     1344 with 64 GT (no kernel launch; ``loss_ins``, ``loss_cate`` finite,
+     the frozen stem and res2 bit-equal, every trainable parameter moved),
+     with img/s, device ms, idle share and peak memory. Its gate,
+     ``tools.overfit_check 600 --arch solov2`` (bbox AP50 >= 90, segm AP no
+     more than 10 below the JAX tool's), runs with the others;
+ 16. gates: waits for workflow (b), the panoptic workflow and the overfit
      gates started in phase 8, and checks them.
 
 Each phase's seconds are printed on a line of their own; phase 14's parts
@@ -296,6 +316,7 @@ from detectron2_tensorflow_tpu_torch.models.poolers import (
     skip_tier_class,
 )
 from detectron2_tensorflow_tpu_torch.models.sampling import draw_noise
+from detectron2_tensorflow_tpu_torch.models.single_stage.solov2 import SOLOv2
 from detectron2_tensorflow_tpu_torch.ops import fused_residual
 from detectron2_tensorflow_tpu_torch.ops.fused_residual import (
     fused_conv1x1_bn_add_relu,
@@ -1314,9 +1335,9 @@ def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held
     """Narrow float32 train step (``narrow_train_cfg()`` unless ``cfg``) on a
     2 x 128 x 160 batch: losses and gradients on the card (kernels) against
     the CPU (plain versions), from the same weights, sampler noise and
-    proposals (a ``LOAD_PROPOSALS`` model's from the batch), with the fused
-    tail switched off or on for both (a model without an RPN or ROI heads
-    draws no noise). ``held``: the parameter-name prefixes whose gradients
+    proposals (a ``LOAD_PROPOSALS`` model's from the batch; SOLOv2's
+    positive-cap draws), with the fused tail switched off or on for both (a
+    model without an RPN, ROI heads or SOLOv2 draws no noise). ``held``: the parameter-name prefixes whose gradients
     are held (the others must be finite), on tie-free weights
     (:func:`tie_free`), for models whose normalized layers make the rest
     ill-conditioned; None holds every gradient. ``prepare(model)`` adjusts
@@ -1353,7 +1374,10 @@ def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held
         n_props = (cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if cpu_model.load_proposals
                    else proposals.is_valid.shape[1]) + nb["gt_boxes"].shape[1]
         noise["roi"] = draw_noise(gen, (2, n_props), "cpu")
-    gnoise = {k: tuple(t.to(dev) for t in v) for k, v in noise.items()}
+    if hasattr(cpu_model, "solov2"):  # the positive cap's U(0, 0.5) draws
+        noise["solo"] = torch.rand((2, cpu_model.solov2.num_cells()), generator=gen) * 0.5
+    gnoise = {k: v.to(dev) if torch.is_tensor(v) else tuple(t.to(dev) for t in v)
+              for k, v in noise.items()}
 
     def run(model, b, nz, props):
         with given_proposals(model, props):
@@ -1877,6 +1901,10 @@ OVERFIT_JAX_KEYPOINT_AP = 84.87
 # The semantic gate's mIoU the same way (tools/overfit_check.py 600 --arch
 # semantic on the CPU: mIoU 69.24, mACC 76.87; PERF.md section 6).
 OVERFIT_JAX_SEMANTIC_MIOU = 69.24
+# The solov2 gate's segm AP the same way (tools/overfit_check.py 600 --arch
+# solov2 on the CPU: bbox AP 74.38, AP50 100.0, segm AP 70.65; PERF.md
+# section 6).
+OVERFIT_JAX_SOLOV2_SEGM_AP = 70.65
 OVERFIT_JAX_STEPS = 600
 OVERFIT_AP_BELOW = 10.0
 
@@ -2110,7 +2138,7 @@ def train_single_level(dev, name: str):
 
 
 OVERFIT_STEPS = {"c4": 1200, "rcnn": 600, "cls_agnostic": 600, "retinanet": 600, "cascade": 600,
-                 "keypoint": 600, "semantic": 600, "dconv": 600}
+                 "keypoint": 600, "semantic": 600, "dconv": 600, "solov2": 600}
 
 
 def yield_cpu() -> None:
@@ -2123,8 +2151,8 @@ def yield_cpu() -> None:
 def start_overfit_gates(pano_root: str):
     """Start ``tools.overfit_check`` on c4 (1200 steps, evaluated at 600 as
     well), rcnn, (phase 10's family) cls_agnostic, (phase 11's) retinanet
-    and cascade, (phase 12's) keypoint, (phase 13's) semantic and (phase
-    14's) dconv (600 each), and ``tools.workflow_check_panoptic`` into
+    and cascade, (phase 12's) keypoint, (phase 13's) semantic, (phase 14's)
+    dconv and (phase 15's) solov2 (600 each), and ``tools.workflow_check_panoptic`` into
     ``pano_root``, as subprocesses at once (each is host-bound, and yields
     its CPU to this process); :func:`finish_overfit_gates` reads them."""
     procs = {"panoptic": subprocess.Popen(
@@ -2144,8 +2172,8 @@ def start_overfit_gates(pano_root: str):
 def finish_overfit_gates(procs):
     """Wait for the gates; each JSON line is logged, the last of each gates
     (bbox AP50 >= 90), c4's at step 600 (bbox AP no more than 10 below the
-    JAX package's), keypoint's keypoint AP and semantic's mIoU (each no more
-    than 10 below the JAX package's). Returns each family's last
+    JAX package's), keypoint's keypoint AP, semantic's mIoU and solov2's
+    segm AP (each no more than 10 below the JAX package's). Returns each family's last
     line. The panoptic workflow is read apart (``finish_panoptic_workflow``)."""
     lines = {}
     for arch, proc in procs.items():
@@ -2189,6 +2217,11 @@ def finish_overfit_gates(procs):
         raise AssertionError(f"overfit --arch keypoint: keypoint AP {kp.get('keypoints_ap')} "
                              f"more than {OVERFIT_AP_BELOW} below the JAX package's "
                              f"{OVERFIT_JAX_KEYPOINT_AP}")
+    solo = lines["solov2"][-1]
+    if not solo.get("segm_ap", -1.0) >= OVERFIT_JAX_SOLOV2_SEGM_AP - OVERFIT_AP_BELOW:
+        raise AssertionError(f"overfit --arch solov2: segm AP {solo.get('segm_ap')} more than "
+                             f"{OVERFIT_AP_BELOW} below the JAX package's "
+                             f"{OVERFIT_JAX_SOLOV2_SEGM_AP}")
     dc = lines["dconv"][-1]  # the deformable convs learned: every offset conv left its zero
     if not 0 < dc.get("conv_offsets_moved", 0) == dc.get("conv_offsets"):
         raise AssertionError(f"overfit --arch dconv: {dc.get('conv_offsets_moved')} of "
@@ -2301,14 +2334,17 @@ PRECISE_BN_BATCHES = 4
 
 
 def two_stage_cfg(name: str, narrow: bool = False, batch: int = 0):
-    """``name``'s YAML (phase 10's or 11's) as ``single_level_cfg`` shapes
-    it: bf16 at full width (``SCORE_THRESH_TEST`` 0, the ROI heads' and
-    RetinaNet's) or narrow float32, ``batch`` > 0 for training."""
+    """``name``'s YAML (phase 10's or a later one's) as ``single_level_cfg``
+    shapes it: bf16 at full width (``SCORE_THRESH_TEST`` 0, the ROI heads',
+    RetinaNet's and SOLOv2's, with SOLOv2's ``UPDATE_SCORE_THRESH_TEST``) or
+    narrow float32, ``batch`` > 0 for training."""
     cfg = get_cfg()
     cfg.merge_from_file(str(ROOT / SPECS[name]["yaml"]))
     cfg.MODEL.DTYPE = "bfloat16"
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
+    cfg.MODEL.SOLO.SCORE_THRESH_TEST = 0.0
+    cfg.MODEL.SOLO.UPDATE_SCORE_THRESH_TEST = 0.0
     if narrow:
         for k, v in (NORM_NARROW if name in ("gn", "syncbn") else NARROW).items():
             cfg.MODEL.RESNETS[k] = v
@@ -3203,6 +3239,202 @@ def dconv_lines(dc):
                         r["err"]) for kernel, src, replaces, n, r in rows]
 
 
+# -- phase 15: solov2 -------------------------------------------------------------------
+
+SOLO = "solov2    "  # the phase's log tag
+SOLO_YAML = "configs/COCO-InstanceSegmentation/solo_v2_R_50_FPN_1x.yaml"
+# SOLOv2 launches no NMS or pooling kernel: its point NMS, dynamic conv and
+# matrix NMS are products and elementwise work (XLA in the JAX package); the
+# trunk's fused tails are R50-FPN's (16 per predict with the switch on).
+SPECS["solov2"] = {"yaml": SOLO_YAML, "predict": {"nms_keep": 0, "roi_patch_fwd": 0},
+                   "step": {"nms_keep": 0, "roi_patch_fwd": 0, "roi_patch_bwd": 0}}
+# The narrow head on a 2 x 128 x 160 input: two 64-wide convs a tower (128
+# wide in the train step, where a GN of 32 channels, one a group, would leave
+# every gradient behind it a remainder of large terms), grids of the small
+# input, 50 candidates, 20 detection slots.
+SOLO_NARROW = {"MASK_KERNEL_CONVS_DIM": 64, "MASK_KERNEL_NUM_CONVS": 2,
+               "MASK_FEATURE_CONVS_DIM": 32, "MASK_FEATURE_OUT_DIMS": 32,
+               "NUM_GRIDS": [12, 10, 8, 6, 4], "TOPK_CANDIDATES_TEST": 50,
+               "SCORE_THRESH_TEST": 0.05, "UPDATE_SCORE_THRESH_TEST": 0.02}
+SOLO_TRAIN_WIDTH = 128
+# A mask pixel of the narrow model may differ card against CPU only where the
+# CPU's sigmoid lies within MASK_FLIP_TOL of MASK_THRESH_TEST (a logit within
+# ~4e-3 of 0: the two sides' float32 head outputs differ by ~1e-5 of their
+# largest, logits of order 10). Such a slot's score may move by its flips'
+# share of the mask's area (maskness), its box by one stride-4 cell.
+MASK_FLIP_TOL = 1e-3
+
+
+def solo_cfg(narrow: bool = False, batch: int = 0, deform: bool = False):
+    """The SOLOv2 YAML as ``two_stage_cfg`` shapes it (bf16 at full width,
+    every detection slot real), or narrow float32 with SOLO_NARROW's head."""
+    cfg = two_stage_cfg("solov2", narrow, batch)
+    s = cfg.MODEL.SOLO
+    s.USE_DEFORM_CONV = s.DEFORM_MODULATED = deform
+    if narrow:
+        for k, v in SOLO_NARROW.items():
+            s[k] = v
+        cfg.TEST.DETECTIONS_PER_IMAGE = 20
+        if batch:
+            s.MASK_KERNEL_CONVS_DIM = s.MASK_FEATURE_CONVS_DIM = SOLO_TRAIN_WIDTH
+            s.MASK_FEATURE_OUT_DIMS = SOLO_TRAIN_WIDTH
+    return cfg
+
+
+def spread_solo(model) -> None:
+    """The narrow head's classifier x30 and kernel predictor x10, as the CPU
+    tests spread them: scores spread over (0, 1) and mask logits of order 10,
+    so that few candidates tie at the top-k and few pixels at the threshold."""
+    with torch.no_grad():
+        model.head.cate_pred.weight.mul_(30.0)
+        model.head.kernel_pred.weight.mul_(10.0)
+
+
+def check_solo_small_against_cpu(rng, dev, deform: bool = False) -> None:
+    """The narrow float32 SOLOv2 (spread; ``deform``: its towers deformable,
+    v2) on 2 x 128 x 160, the card against the CPU from the same weights:
+    valid slots and classes equal (matched across score ties by
+    ``tie_order``), masks equal but at pixels whose CPU sigmoid lies within
+    MASK_FLIP_TOL of the threshold (counted), scores within SMALL_TOL plus a
+    flipped slot's maskness share, boxes equal (one cell where flips)."""
+    cfg = solo_cfg(narrow=True, deform=deform)
+    cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    spread_solo(cpu_model)
+    gpu_model = build_model(cfg, device=dev, state_dict=cpu_model.state_dict())
+    image = rng.uniform(0, 255, (2, 128, 160, 3)).astype(np.float32)
+    sizes = np.array([[128, 160], [112, 150]], np.int32)
+    batch = {"image": torch.from_numpy(image), "image_size": torch.from_numpy(sizes)}
+    want = cpu_model.predict(batch).get_fields()
+    got = gpu_model.predict({k: v.to(dev) for k, v in batch.items()})
+    got = {k: v.cpu() for k, v in got.get_fields().items()}
+    if not torch.equal(got["is_valid"], want["is_valid"]) or not bool(want["is_valid"].any()):
+        raise AssertionError("narrow SOLOv2: valid slots differ between the card and the CPU, "
+                             "or none is valid")
+    order = tie_order(got, want)
+    classes = torch.gather(got["pred_classes"], 1, order)
+    if not torch.equal(classes, want["pred_classes"]):
+        raise AssertionError("narrow SOLOv2: classes differ between the card and the CPU")
+    cands = []  # the CPU's candidates, computed at the first flip
+
+    def candidates():
+        if not cands:
+            with torch.inference_mode():
+                cands.extend(cpu_model.solov2.candidates(*cpu_model._head_outputs(
+                    batch["image"]))[1:])
+        return cands
+
+    thresh = cfg.MODEL.SOLO.MASK_THRESH_TEST
+    flips = score_err = 0.0
+    flipped_slots = 0
+    for i, j in torch.nonzero(want["is_valid"]).tolist():
+        k = int(order[i, j])
+        gm, wm = got["pred_masks"][i, k], want["pred_masks"][i, j]
+        differ = gm != wm
+        n = int(differ.sum())
+        tol_s, tol_b = SMALL_TOL["scores"], SMALL_TOL["boxes"]
+        if n:
+            cand_cls, cand_pred = candidates()
+            match = torch.nonzero((cand_cls[i] == want["pred_classes"][i, j])
+                                  & ((cand_pred[i] > thresh) == wm.reshape(-1)).all(-1))
+            sig = cand_pred[i, int(match[0, 0])].reshape(wm.shape)
+            near = (sig[differ] - thresh).abs()
+            if not bool((near <= MASK_FLIP_TOL).all()):
+                raise AssertionError(f"narrow SOLOv2: image {i} slot {j}: {n} mask pixels "
+                                     f"differ, {float(near.max()):.3g} from the threshold")
+            flips += n
+            flipped_slots += 1
+            tol_s += float(want["scores"][i, j]) * n / max(int(wm.sum()), 1)
+            tol_b = 4.0
+        err_s = abs(float(got["scores"][i, k] - want["scores"][i, j]))
+        err_b = float((got["boxes"][i, k] - want["boxes"][i, j]).abs().max())
+        if not (err_s <= tol_s and err_b <= tol_b):
+            raise AssertionError(f"narrow SOLOv2: image {i} slot {j}: score |err| {err_s:.3g} "
+                                 f"(tolerance {tol_s:.3g}), box |err| {err_b:.3g} ({tol_b})")
+        score_err = max(score_err, err_s)
+    swapped = int((order != torch.arange(order.shape[1])).sum())
+    log(f"{SOLO} narrow f32{' deformable (v2) towers' if deform else ''}, card vs CPU: "
+        f"valid={int(want['is_valid'].sum())} slots equal, classes equal, {swapped} slots "
+        f"matched across a score tie, {int(flips)} mask pixels flipped (in {flipped_slots} "
+        f"slots) within {MASK_FLIP_TOL} of the threshold, scores max|err| {score_err:.3g}")
+
+
+def check_solo_assignment(dev) -> None:
+    """``SOLOv2.assign_level`` on the card against the CPU, every level, on
+    GT with argmin ties (repeated boxes): the first claimant wins on both."""
+    drv = SOLOv2(solo_cfg(narrow=True, batch=2))
+    rng = np.random.default_rng(SEED)
+    xy = rng.uniform(0, 80, (2, 6, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(6, 80, (2, 6, 2))], -1).astype(np.float32)
+    boxes[:, 3:5] = boxes[:, 1:2]
+    gt = {"gt_boxes": boxes, "gt_classes": rng.integers(0, 5, (2, 6)).astype(np.int32),
+          "gt_valid": np.ones((2, 6), bool),
+          "gt_masks": rng.uniform(0, 1, (2, 6, 28, 28)).astype(np.float32)}
+    cpu = {k: torch.from_numpy(v) for k, v in gt.items()}
+    gpu = {k: v.to(dev) for k, v in cpu.items()}
+    positives = 0
+    for (lo, hi), grid in zip(drv.scale_ranges, drv.num_grids):
+        want = drv.assign_level(cpu, grid, lo, hi, (128, 160))
+        got = drv.assign_level(gpu, grid, lo, hi, (128, 160))
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"SOLOv2 assignment at grid {grid} differs on the card")
+        positives += int(want[2].sum())
+    log(f"{SOLO} assign_level bit-equal card vs CPU on {len(drv.num_grids)} levels with argmin "
+        f"ties ({positives} positive cells)")
+
+
+def check_solo_serving(cfg, out, batch, label) -> None:
+    """A served SOLOv2 batch: 100 valid slots per image, finite scores and
+    boxes inside the padded frame, classes of the 80, bool whole-frame masks
+    ``[2, 100, 200, 336]`` each non-empty and each box its mask's extent;
+    ``detector_postprocess`` resizes them to the 800 x 1344 canvas."""
+    f = out.get_fields()
+    b = f["boxes"].shape[0]
+    m = f["pred_masks"]
+    if tuple(m.shape) != (b, 100, 200, 336) or m.dtype != torch.bool:
+        raise AssertionError(f"{label}: masks {tuple(m.shape)} {m.dtype}")
+    if f["is_valid"].sum(1).tolist() != [100] * b:
+        raise AssertionError(f"{label}: valid per image {f['is_valid'].sum(1).tolist()}")
+    if not (bool(torch.isfinite(f["scores"]).all()) and bool(torch.isfinite(f["boxes"]).all())):
+        raise AssertionError(f"{label}: non-finite scores or boxes")
+    bx = f["boxes"]
+    if (bool((bx < 0).any()) or bool((bx[..., 2] > 1344).any())
+            or bool((bx[..., 3] > 800).any()) or bool((bx[..., 2:] <= bx[..., :2]).any())):
+        raise AssertionError(f"{label}: boxes outside the padded frame or empty")
+    area = m.sum((2, 3))
+    if not bool((area > 0).all()):
+        raise AssertionError(f"{label}: {int((area == 0).sum())} empty masks")
+    cls = f["pred_classes"]
+    if bool((cls < 0).any()) or bool((cls >= cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES).any()):
+        raise AssertionError(f"{label}: classes out of range")
+    p = detector_postprocess(cfg, out, batch).pred_masks
+    if tuple(p.shape) != (b, 100, 800, 1344) or p.dtype != torch.uint8:
+        raise AssertionError(f"{label}: postprocess gave {tuple(p.shape)} {p.dtype}")
+    log(f"{SOLO} {label}: 100 valid detections per image, masks {tuple(m.shape)} bool, "
+        f"{int(area.min())}-{int(area.max())} cells each, boxes their extents in the padded "
+        f"frame, scores in [{float(f['scores'].min()):.4f}, {float(f['scores'].max()):.4f}], "
+        f"{len(set(cls.flatten().tolist()))} classes; conventional masks {tuple(p.shape)} with "
+        f"{int(p.sum())} pixels set")
+
+
+def run_solov2(rng, dev):
+    """Phase 15: SOLOv2 R50-FPN. Narrow float32 models (plain and deformable
+    towers) and a train step card against CPU, the assignment's ties; the
+    YAML served 2 x 800 x 1344 bf16 (switch off and on) and trained 3 steps
+    at 8 x 800 x 1344 with 64 GT, launches asserted (no kernel but the fused
+    tails). Returns the runs' launches."""
+    with phase_seconds("solov2.narrow"):
+        check_solo_small_against_cpu(rng, dev)
+        check_solo_small_against_cpu(rng, dev, deform=True)
+        check_solo_assignment(dev)
+        check_train_against_cpu(dev, False, solo_cfg(narrow=True, batch=2), label=SOLO,
+                                prepare=tie_free)
+    with phase_seconds("solov2.full"):
+        serving = serve_two_stage(rng, dev, "solov2", turns=(False, True), tag=SOLO,
+                                  check=check_solo_serving)
+        training, peak = train_two_stage(rng, dev, "solov2", tag=SOLO, profile=True)
+    return {"serving": serving, "training": training, "peak": peak}
+
+
 def probe():
     """What the card's machine offers a JPEG route (decides nothing here).
     Each module is imported in a child interpreter, so this one imports none."""
@@ -3289,6 +3521,8 @@ def main() -> None:
         two = run_two_stage(rng, dev, later["two_stage"])
     with phase_seconds("dconv"), fused_switch(False):
         dc = run_dconv(rng, dev, later["dconv"])
+    with phase_seconds("solov2"), fused_switch(False):
+        run_solov2(rng, dev)
     with phase_seconds("gates"):
         finish_workflow(pending)
     probe()

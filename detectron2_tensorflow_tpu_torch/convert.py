@@ -30,8 +30,13 @@ towers' ``head.{cls,bbox}_subnet.{2i}``; a cascade's ``box_heads_{k}`` and
 (conv ``i`` of level ``p{l}``, with its GN wrapper) is
 ``sem_seg_head.p{l}.{2i}`` (Detectron2's ``nn.Sequential`` holds an
 upsample after each conv) and its ``predictor`` ``sem_seg_head.predictor``.
-A single-stage model's ``loss_normalizer`` is the JAX ``initial_state``'s
-100, as for a Detectron2 checkpoint.
+A RetinaNet's ``loss_normalizer`` is the JAX ``initial_state``'s 100, as
+for a Detectron2 checkpoint. SOLOv2's ``head/{cate,kernel}_tower_{i}``,
+``cate_pred``, ``kernel_pred``, ``mask_{f}_{i}`` and ``mask_pred`` keep
+their names (``head.cate_tower_0`` ...); a deformable tower's
+``conv/{kernel, conv_offset}`` (``MODEL.SOLO.USE_DEFORM_CONV``) becomes the
+tower's ``weight`` and ``conv_offset``, its norm beside it the tower's
+``norm``. :func:`convert_solo_weights` reads an mmdet SOLOv2 checkpoint.
 
 Layout changes:
   * conv kernels HWIO -> OIHW;
@@ -62,6 +67,7 @@ Layout changes:
 
 from __future__ import annotations
 
+import math
 import pickle
 import re
 from typing import Dict, List, Tuple
@@ -69,6 +75,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .models.deform_conv import OFFSET_CONV
 from .models.meta_arch.single_stage import INITIAL_LOSS_NORMALIZER
 
 _PREFIX = {
@@ -163,6 +170,8 @@ def convert_variables(variables) -> Dict[str, torch.Tensor]:
             out[f"{name}.norm.{_AFFINE[leaf]}"] = torch.from_numpy(arr.copy())
             continue
         deconv = mod[-1] == "deconv"
+        if mod[-2:] == ["conv", OFFSET_CONV] and len(mod) > 3:  # a SOLOv2 deformable tower's
+            mod = mod[:-2] + [OFFSET_CONV]
         if mod[-1] in ("conv", "deconv") and len(mod) > 2:
             mod = mod[:-1]  # the inner conv module of a Conv2D / ConvTranspose2D
         name = _module_name(tuple(mod), prefix)
@@ -192,9 +201,86 @@ def convert_variables(variables) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected batch_stats variable {'/'.join(path)}")
         name = _module_name(tuple(mod[:-2]), prefix)
         out[f"{name}.norm.{_BATCH_STATS[leaf]}"] = torch.from_numpy(arr.copy())
-    if "head" in params:
+    if "cls_score" in params.get("head", {}):  # RetinaNet
         out["loss_normalizer"] = torch.tensor(INITIAL_LOSS_NORMALIZER, dtype=torch.float32)
     return out
+
+
+# A torchvision BN's leaves (the port's FrozenBN buffers), and a GN's.
+_BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+_GN_LEAVES = ("weight", "bias")
+
+
+def convert_solo_weights(sd: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, torch.Tensor],
+                                                                    List[str]]:
+    """An mmdetection SOLOv2 checkpoint -> (the port's float32 ``state_dict``
+    entries it holds, the checkpoint's names that the model has no place for).
+
+    Port of the JAX package's ``convert/solo.py`` (with the torchvision trunk
+    of its ``convert/torchvision.py``), writing the port's names: the
+    torchvision trunk ``backbone.{conv1, bn1, layer{L}.{b}.conv{i} / bn{i} /
+    downsample.{0,1}}`` -> ``backbone.bottom_up.{stem.conv1, res{L+1}.{b}.conv{i},
+    .shortcut}`` (each BN a FrozenBN ``norm``), the FPN's ``neck.lateral_convs.{l}``
+    / ``neck.fpn_convs.{l}`` -> ``backbone.fpn_lateral{l+2}`` /
+    ``backbone.fpn_output{l+2}``, the towers' ``bbox_head.{cate,kernel}_convs.{i}.{conv,gn}``
+    -> ``head.{cate,kernel}_tower_{i}`` and its ``norm``, ``bbox_head.solo_cate`` /
+    ``solo_kernel`` -> ``head.cate_pred`` / ``kernel_pred``, the mask
+    branch's ``mask_feat_head.convs_all_levels.{i}.conv{k}`` -> ``head.mask_{f}_{k}``
+    and ``conv_pred.0`` -> ``head.mask_pred``. Kernels are PyTorch's OIHW on
+    both sides; the classifier's ``fc.*`` is dropped."""
+    sd = {k: np.asarray(v, np.float32) for k, v in sd.items()
+          if not k.endswith("num_batches_tracked")}
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+
+    def put(src: str, dst: str):
+        used.add(src)
+        out[dst] = torch.from_numpy(np.ascontiguousarray(sd[src]))
+
+    def conv(src: str, dst: str):
+        put(f"{src}.weight", f"{dst}.weight")
+        if f"{src}.bias" in sd:
+            put(f"{src}.bias", f"{dst}.bias")
+
+    def norm(src: str, dst: str, leaves):
+        for leaf in leaves:
+            put(f"{src}.{leaf}", f"{dst}.norm.{leaf}")
+
+    trunk = "backbone.bottom_up"
+    conv("backbone.conv1", f"{trunk}.stem.conv1")
+    norm("backbone.bn1", f"{trunk}.stem.conv1", _BN_LEAVES)
+    for layer in range(1, 5):
+        b = 0
+        while f"backbone.layer{layer}.{b}.conv1.weight" in sd:
+            src, dst = f"backbone.layer{layer}.{b}", f"{trunk}.res{layer + 1}.{b}"
+            for i in (1, 2, 3):
+                if f"{src}.conv{i}.weight" in sd:
+                    conv(f"{src}.conv{i}", f"{dst}.conv{i}")
+                    norm(f"{src}.bn{i}", f"{dst}.conv{i}", _BN_LEAVES)
+            if f"{src}.downsample.0.weight" in sd:
+                conv(f"{src}.downsample.0", f"{dst}.shortcut")
+                norm(f"{src}.downsample.1", f"{dst}.shortcut", _BN_LEAVES)
+            b += 1
+    for lvl in range(2, 6):
+        conv(f"neck.lateral_convs.{lvl - 2}.conv", f"backbone.fpn_lateral{lvl}")
+        conv(f"neck.fpn_convs.{lvl - 2}.conv", f"backbone.fpn_output{lvl}")
+    s = cfg.MODEL.SOLO
+    for i in range(s.MASK_KERNEL_NUM_CONVS):
+        for tower in ("cate", "kernel"):
+            conv(f"bbox_head.{tower}_convs.{i}.conv", f"head.{tower}_tower_{i}")
+            norm(f"bbox_head.{tower}_convs.{i}.gn", f"head.{tower}_tower_{i}", _GN_LEAVES)
+    conv("bbox_head.solo_cate", "head.cate_pred")
+    conv("bbox_head.solo_kernel", "head.kernel_pred")
+    common = int(math.log2(s.MASK_FEATURE_COMMON_STRIDE))
+    for i, f in enumerate(s.MASK_FEATURE_IN_FEATURES):
+        for k in range(max(1, i + 2 - common)):
+            src = f"mask_feat_head.convs_all_levels.{i}.conv{k}"
+            conv(f"{src}.conv", f"head.mask_{f}_{k}")
+            norm(f"{src}.gn", f"head.mask_{f}_{k}", _GN_LEAVES)
+    conv("mask_feat_head.conv_pred.0.conv", "head.mask_pred")
+    norm("mask_feat_head.conv_pred.0.gn", "head.mask_pred", _GN_LEAVES)
+    leftovers = [k for k in sd if k not in used and not k.startswith(("fc.", "backbone.fc"))]
+    return out, leftovers
 
 
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:

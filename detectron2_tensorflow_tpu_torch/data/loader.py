@@ -7,8 +7,11 @@ Port of ``pick_bucket``, ``pad_sample_to_batch_arrays`` and
   so the model sees a small static set of shapes, and samples are batched
   per bucket;
 * GT is padded to ``cfg.INPUT.MAX_GT_INSTANCES`` with validity masks
-  (keypoints too: ``gt_keypoints [G, K, 3]``, zero in the padded slots); a
-  semantic map becomes ``gt_sem_seg [bh, bw]`` int32, -1 in the padding;
+  (keypoints too: ``gt_keypoints [G, K, 3]``, zero in the padded slots);
+  masks become ``MINI_MASK_SIZE`` mini-masks ``gt_masks``, and a sample
+  with masks under ``TRANSFORM.RESIZE.USE_MINI_MASKS False`` raises (the
+  JAX loader fails there on a broadcast); a semantic map becomes
+  ``gt_sem_seg [bh, bw]`` int32, -1 in the padding;
 * precomputed proposals (``MODEL.LOAD_PROPOSALS``) fill fixed top-k slots
   ``proposal_boxes [K, 4]``, ``proposal_scores [K]`` and
   ``proposal_valid [K]``, best score first (a stable sort), empty slots
@@ -137,6 +140,7 @@ def build_dataloader(
     buckets = [tuple(b) for b in cfg.INPUT.PAD_BUCKETS]
     max_gt = cfg.INPUT.MAX_GT_INSTANCES
     mini = cfg.TRANSFORM.RESIZE.MINI_MASK_SIZE
+    use_mini_masks = cfg.TRANSFORM.RESIZE.USE_MINI_MASKS
     rng = np.random.default_rng(seed)
     num_readers = max(1, cfg.DATALOADER.NUM_READERS)
     proposal_topk = (cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if training
@@ -184,6 +188,12 @@ def build_dataloader(
     def batch_stream():
         pools: Dict[tuple, List[Dict]] = {}
         for s in sample_stream():
+            if s.get("masks") is not None and not use_mini_masks:
+                raise ValueError(
+                    "TRANSFORM.RESIZE.USE_MINI_MASKS is False, but the loader collates masks "
+                    f"as {mini}x{mini} mini-masks (gt_masks), the only targets the mask losses "
+                    "read (the JAX loader fails here on a broadcast): set "
+                    "TRANSFORM.RESIZE.USE_MINI_MASKS True")
             h, w = s["image"].shape[:2]
             bucket = pick_bucket(h, w, buckets)
             pools.setdefault(bucket, []).append(pad_sample_to_batch_arrays(s, bucket, max_gt, mini))

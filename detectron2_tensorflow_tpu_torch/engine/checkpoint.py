@@ -15,8 +15,9 @@ multiple of ``keep_period``.
 ``load_pretrained`` reads ``PRETRAINS.*`` into a model, keeping tensors
 whose name and shape the model has and warning about the rest: ``WEIGHTS``
 names a port checkpoint (a train-loop checkpoint or a bare ``state_dict``),
-``DETECTRON2`` a Detectron2 ``.pkl``/``.pth`` file. ``BACKBONE``, ``MMDET``
-and ``DARKNET`` need converters the port does not have yet. A file that is
+``DETECTRON2`` a Detectron2 ``.pkl``/``.pth`` file, ``MMDET`` an
+mmdetection SOLOv2 checkpoint (``convert.convert_solo_weights``).
+``BACKBONE`` and ``DARKNET`` need converters the port does not have yet. A file that is
 not there is skipped with a warning, and training starts from the model's
 own weights.
 """
@@ -174,11 +175,25 @@ def load_pretrained(cfg, model: torch.nn.Module) -> bool:
         model.load_state_dict(overlay_compatible(model.state_dict(), converted))
         return True
 
-    for key, converter in (("BACKBONE", "the caffe2/torchvision backbone converters"),
-                           ("MMDET", "the mmdet converter"),
-                           ("DARKNET", "the darknet converter")):
-        if pre[key]:
-            raise NotImplementedError(f"PRETRAINS.{key} needs {converter}, not ported yet")
+    if pre.BACKBONE:
+        raise NotImplementedError("PRETRAINS.BACKBONE needs the caffe2/torchvision backbone "
+                                  "converters, not ported yet")
+
+    if pre.MMDET:
+        from ..convert import convert_solo_weights, load_state_dict
+
+        path = os.path.join(root, pre.MMDET)
+        if missing(path):
+            return False
+        logger.info("initializing from mmdet checkpoint %s", path)
+        converted, leftovers = convert_solo_weights(load_state_dict(path), cfg)
+        if leftovers:
+            logger.warning("unconverted mmdet keys: %s", leftovers)
+        model.load_state_dict(overlay_compatible(model.state_dict(), converted))
+        return True
+
+    if pre.DARKNET:
+        raise NotImplementedError("PRETRAINS.DARKNET needs the darknet converter, not ported yet")
     return False
 
 

@@ -11,7 +11,9 @@ resolution, pastes the masks there and streams each image into the COCO
 bbox, segm and keypoint (OKS) evaluators; a ``ProposalNetwork``'s proposals go to the proposal-recall
 evaluator (``box_proposals/AR@100``, ``box_proposals/AR@1000``) instead.
 A RetinaNet (``SingleStageDetector``) predicts no masks, so it gets the bbox
-evaluator alone. ``EVAL.CLASS_AGNOSTIC`` zeroes the GT and predicted classes before the
+evaluator alone. SOLOv2's masks are whole frames at stride 4: their content
+region is resized to the original image (``fullframe_masks_to_image``)
+rather than pasted into boxes. ``EVAL.CLASS_AGNOSTIC`` zeroes the GT and predicted classes before the
 evaluators see them. ``TEST.KEYPOINT_OKS_SIGMAS`` replaces COCO's person
 sigmas of the keypoint evaluator.
 
@@ -46,9 +48,10 @@ import torch
 from ..config import num_classes_of
 from ..data.transforms import resize_nearest
 from ..evaluation.coco_eval import CocoEvaluator, ProposalEvaluator
-from ..evaluation.np_masks import paste_masks
+from ..evaluation.np_masks import fullframe_masks_to_image, paste_masks
 from ..evaluation.panoptic_eval import PanopticEvaluator
 from ..evaluation.sem_seg_eval import SemSegEvaluator
+from ..models.meta_arch.postprocess import fullframe_masks
 from .train import to_device
 from .tta import tta_predict
 
@@ -183,6 +186,7 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
             ev.class_names = list(class_names)
 
     predict = (build_tta_predict if cfg.TEST.AUG.ENABLED else build_predict)(cfg, model)
+    fullframe = fullframe_masks(cfg)
     seen = set()
     n_done = 0
     for batch in data_iter:
@@ -211,7 +215,10 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
                 evaluators["keypoints"] = (keypoint_evaluator(cfg, num_classes), "keypoints")
             det_masks = None
             if "pred_masks" in out and any(kind == "segm" for _, kind in evaluators.values()):
-                det_masks = paste_masks(out["pred_masks"][i][valid], boxes, oh, ow)
+                masks = out["pred_masks"][i][valid]
+                # SOLOv2's masks are whole frames at stride 4, not box crops.
+                det_masks = (fullframe_masks_to_image(masks, int(rh), int(rw), oh, ow)
+                             if fullframe else paste_masks(masks, boxes, oh, ow))
             det_kps = None
             if "pred_keypoints" in out:  # x, y to the original frame
                 det_kps = out["pred_keypoints"][i][valid].copy()

@@ -1,8 +1,9 @@
 """Detection losses, elementwise and unreduced: callers apply validity
 masks and normalizers.
 
-Port of ``smooth_l1_loss``, ``sigmoid_focal_loss``, ``sigmoid_cross_entropy``
-and ``softmax_cross_entropy`` in the JAX package's ``models/losses.py``.
+Port of ``smooth_l1_loss``, ``sigmoid_focal_loss``, ``sigmoid_cross_entropy``,
+``softmax_cross_entropy`` and ``dice_loss`` in the JAX package's
+``models/losses.py``.
 """
 
 from __future__ import annotations
@@ -52,3 +53,13 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
     labels = torch.clamp(labels, 0, logits.shape[-1] - 1).long()
     logp = F.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, labels[..., None])[..., 0]
+
+
+def dice_loss(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-instance dice loss ``[N]`` of ``[N, ...]`` sigmoid probabilities:
+    ``1 - (2 sum(p t) + eps) / (sum(p^2) + sum(t^2) + eps)``."""
+    p = pred.reshape(pred.shape[0], -1)
+    t = target.reshape(target.shape[0], -1)
+    inter = torch.sum(p * t, dim=1)
+    denom = torch.sum(p * p, dim=1) + torch.sum(t * t, dim=1)
+    return 1.0 - (2.0 * inter + eps) / (denom + eps)

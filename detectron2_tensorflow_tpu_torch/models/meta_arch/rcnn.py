@@ -402,6 +402,8 @@ _SMALL_INIT = {
     "sem_seg_head.predictor": 0.001,
     "head.cls_score": 0.01,
     "head.bbox_pred": 0.01,
+    "head.cate_pred": 0.01,
+    "head.kernel_pred": 0.01,
 }
 # RetinaNet's towers: normal(0.01) in the JAX package, variance-preserving for serving.
 _JAX_TOWERS = ("head.cls_subnet.", "head.bbox_subnet.")
@@ -422,15 +424,16 @@ def _small_std(name: str, jax_recipe: bool) -> Optional[float]:
 def init_weights(model: nn.Module, generator: torch.Generator,
                  recipe: str = "serving") -> None:
     """Seeded random weights: ``recipe`` "serving" (``_init_for_serving``)
-    or "jax". Either way RetinaNet's classifier bias starts at its prior
-    (``RetinaNetHead.prior_bias``), as in the JAX package.
+    or "jax". Either way the classifier bias of RetinaNet's and SOLOv2's
+    head starts at its prior (``prior_bias``), as in the JAX package.
 
     "jax" draws from the JAX package's initializers, the ones its ``train.py``
     starts from scratch with: convs and the deconv truncated normal with
     variance ``2 / fan_out`` (``variance_scaling(2.0, "fan_out",
     "normal")``; RetinaNet's P6 and P7 too), the box head's FCs uniform with
     variance ``1 / fan_in``, the small normals of the RPN head, the
-    predictors and RetinaNet's head (every conv of it), zero biases, GN
+    predictors, RetinaNet's head (every conv of it) and SOLOv2's
+    ``cate_pred`` and ``kernel_pred``, zero biases, GN
     and BN at identity with BN's running statistics at (0, 1) (FrozenBN
     keeps its identity buffers), a deformable conv's kernel as a conv's and
     its offset conv at zero (``DeformConv2D``'s initializers).
@@ -444,7 +447,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     head = getattr(model, "head", None)
     if head is not None:
         with torch.no_grad():
-            head.cls_score.bias.fill_(head.prior_bias)
+            classifier = head.cate_pred if hasattr(head, "cate_pred") else head.cls_score
+            classifier.bias.fill_(head.prior_bias)
 
 
 def _is_offset_conv(name: str) -> bool:
@@ -485,9 +489,10 @@ def _init_for_serving(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights that keep activations of order one.
 
     Convs and FCs are variance-preserving (He-normal over fan-in, with the
-    JAX package's small normals for the RPN head, the predictors and
-    RetinaNet's classifier and box convs: its sigmoid scores start near the
-    prior, unsaturated), and
+    JAX package's small normals for the RPN head, the predictors,
+    RetinaNet's classifier and box convs and SOLOv2's ``cate_pred`` and
+    ``kernel_pred``: the sigmoid scores start near the prior, unsaturated),
+    and
     every bottleneck's last FrozenBN scales its branch by 0.2, so the
     residual stream does not grow with depth. With zero biases the network
     is linear in the input's scale up to the softmax; the stem's FrozenBN

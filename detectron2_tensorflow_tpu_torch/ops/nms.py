@@ -1,8 +1,8 @@
-"""Fixed-shape exact greedy NMS, batched over images.
+"""Fixed-shape exact greedy NMS and matrix NMS, batched over images.
 
 Port of the JAX package's ``ops/nms.py`` (``nms``, ``nms_fixed``,
-``class_aware_nms``). Boxes are score-sorted once; the keep mask over the
-sorted order comes from :func:`greedy_keep`; outputs are fixed-capacity
+``class_aware_nms``, ``matrix_nms``). Boxes are score-sorted once; the keep
+mask over the sorted order comes from :func:`greedy_keep`; outputs are fixed-capacity
 tensors with validity masks. Every function takes ``[B, N, ...]`` inputs
 and treats each image independently, as the JAX package's per-image vmap
 does.
@@ -14,7 +14,8 @@ kernel ``ops/pallas/nms_keep.py`` ``greedy_keep``. Both give the keep mask
 of the JAX package bit for bit (the IoU is ``structures.boxes.pairwise_iou``'s
 float32 arithmetic). :func:`nms_fixed_levels` runs the NMS of several
 candidate sets (the RPN's levels) as one batch, so one keep-mask launch
-serves them all.
+serves them all. :func:`matrix_nms` is SOLOv2's soft decay from the mask
+IoU matrix (XLA in the JAX package, plain PyTorch here).
 """
 
 from __future__ import annotations
@@ -237,3 +238,38 @@ def nms_fixed_levels(levels, iou_threshold: float, max_outputs: int):
     cuts = [min(max_outputs, s.shape[1]) for _, s, _ in levels]
     return [(out_boxes[:, l, :k], out_scores[:, l, :k], out_valid[:, l, :k])
             for l, k in enumerate(cuts)]
+
+
+MATRIX_NMS_KERNELS = ("gaussian", "linear")
+
+
+def matrix_nms(seg_masks: torch.Tensor, labels: torch.Tensor, scores: torch.Tensor,
+               sigma: float = 2.0, kernel: str = "gaussian") -> torch.Tensor:
+    """SOLOv2's Matrix NMS: each mask's score decayed by its mask IoU with the
+    higher-scoring masks of its class (port of the JAX package's
+    ``ops/nms.py`` ``matrix_nms``, batched over images).
+
+    ``seg_masks [B, N, H, W]`` binary (bool or float), each image's masks
+    sorted by descending score; ``labels`` and ``scores`` ``[B, N]``.
+    Returns the decayed scores ``[B, N]``. The intersections are one
+    ``[N, HW] x [HW, N]`` float32 product per image (exact: sums of 0/1
+    products below 2^24); entry ``[i, j]`` of the IoU matrix counts when
+    ``i < j`` and the classes agree; each suppressor ``i`` is compensated by
+    its own largest such IoU (its column's maximum)."""
+    if kernel not in MATRIX_NMS_KERNELS:
+        raise ValueError(f"unknown matrix_nms kernel: {kernel} (known: {MATRIX_NMS_KERNELS})")
+    b, n = seg_masks.shape[:2]
+    flat = seg_masks.reshape(b, n, -1).float()
+    areas = flat.sum(-1)
+    inter = torch.bmm(flat, flat.transpose(1, 2))
+    union = areas[:, :, None] + areas[:, None, :] - inter
+    iou = torch.where(union > 0, inter / torch.clamp(union, min=1e-6), torch.zeros_like(inter))
+    upper = torch.ones((n, n), dtype=torch.bool, device=flat.device).triu(1)
+    same_class = labels[:, :, None] == labels[:, None, :]
+    decay_iou = torch.where(upper & same_class, iou, torch.zeros_like(iou))
+    compensate = decay_iou.amax(dim=1)  # [B, N]: suppressor i's own largest IoU
+    if kernel == "gaussian":
+        decay = torch.exp(-(decay_iou ** 2 - compensate[:, :, None] ** 2) * sigma)
+    else:
+        decay = (1.0 - decay_iou) / torch.clamp(1.0 - compensate[:, :, None], min=1e-6)
+    return scores * torch.clamp(decay.amin(dim=1), max=1.0)

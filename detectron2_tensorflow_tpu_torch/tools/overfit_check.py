@@ -1,7 +1,7 @@
 """Learning check: overfit a small detector on 8 synthetic images and report AP.
 
     python -m detectron2_tensorflow_tpu_torch.tools.overfit_check [STEPS]
-        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint|semantic|dconv]
+        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint|semantic|dconv|solov2]
         [--eval_at N[,N...]]
         [--device cpu] [KEY VALUE ...]
 
@@ -21,7 +21,13 @@ SemanticSegmentor, 4 classes: the background and the 3 box classes of
 ``SyntheticDataset(with_sem_seg=True)``, on 194x306 images of 30-70 px
 boxes resized to the 128x256 / 256x128 buckets, as the JAX tool has it)
 and ``dconv`` (``Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml``: deformable
-res3-res5) families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
+res3-res5) and ``solov2`` (``solo_v2_R_50_FPN_1x.yaml``, 3 classes, grids
+24/20/16/12/8, the ``dice+bce`` mask loss, on ``semantic``'s 194x306 images
+and buckets; no anchors; the JAX recipe also sets
+``MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST`` 0.2, which SOLOv2 never
+reads: it keeps ``MODEL.SOLO.SCORE_THRESH_TEST`` 0.1, and so does this one;
+it takes the small configuration's ``TRANSFORM``, whose mini-masks are the
+only targets SOLOv2's loss reads) families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
 ``config.small_cfg()``, anchors scaled to 10-30 px boxes, ResNet-18 with GN trained from the JAX
 package's initializers (``FREEZE_AT 0``), 3 classes, 64 ROIs per image, 8
 images per step, LR 0.01 after 100 warm-up steps. It trains STEPS (default
@@ -75,7 +81,11 @@ REPO_CONFIGS = {
     "keypoint": "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml",
     "semantic": "configs/COCO-SemanticSegmentation/semantic_R_50_FPN_1x.yaml",
     "dconv": "configs/Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml",
+    "solov2": "configs/COCO-InstanceSegmentation/solo_v2_R_50_FPN_1x.yaml",
 }
+# The archs trained on 194x306 images of 30-70 px boxes in the 128x256 /
+# 256x128 buckets (a stride-4 head needs targets of more than a few cells).
+LARGE_INPUT_ARCHS = ("semantic", "solov2")
 
 
 def report_thresh(arch: str) -> float:
@@ -103,6 +113,11 @@ def get_cfg_for(arch: str):
         cfg.TEST.KEYPOINT_OKS_SIGMAS = [0.05] * 4
     elif arch == "semantic":
         cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES = 4  # the background and the 3 box classes
+    elif arch == "solov2":
+        cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES = 3
+        cfg.MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST = 0.2  # read by no model (module doc)
+        cfg.MODEL.SOLO.NUM_GRIDS = [24, 20, 16, 12, 8]  # fewer cells at the small input
+        cfg.MODEL.SOLO.INS_LOSS_TYPE = "dice+bce"  # pure dice collapses from scratch
     return cfg
 
 
@@ -115,7 +130,7 @@ def overfit_cfg(arch: str):
     cfg.TRANSFORM.RESIZE.MINI_MASK_SIZE = 28
     if arch == "c4":  # one feature level: one set of sizes
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8, 16, 32, 64, 128]]
-    elif arch != "semantic":  # anchors for 10-30 px boxes, one size per FPN level
+    elif arch not in LARGE_INPUT_ARCHS:  # anchors for 10-30 px boxes, one size per FPN level
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8], [16], [32], [64], [128]]
     # The JAX recipe's ResNet-18, but a deformable trunk needs bottleneck blocks.
     cfg.MODEL.RESNETS.DEPTH = 50 if arch == "dconv" else 18
@@ -138,17 +153,17 @@ def overfit_cfg(arch: str):
 
 def overfit_inputs(cfg, arch: str) -> SyntheticDataset:
     """The 8 training (and evaluation) images of ``arch``'s recipe; for
-    ``semantic`` (a stride-4 head needs targets of more than a few cells)
-    larger images and boxes, resized to the 128x256 / 256x128 buckets,
-    which ``cfg`` is set to, as the JAX tool's ``main`` does."""
-    if arch != "semantic":
+    ``semantic`` and ``solov2`` (a stride-4 head needs targets of more than a
+    few cells) larger images and boxes, resized to the 128x256 / 256x128
+    buckets, which ``cfg`` is set to, as the JAX tool's ``main`` does."""
+    if arch not in LARGE_INPUT_ARCHS:
         return SyntheticDataset(n=8, num_classes=3, with_keypoints=arch == "keypoint")
     r = cfg.TRANSFORM.RESIZE
     r.MIN_SIZE_TRAIN, r.MAX_SIZE_TRAIN = (128,), 256
     r.MIN_SIZE_TEST, r.MAX_SIZE_TEST = 128, 256
     cfg.INPUT.PAD_BUCKETS = ((128, 256), (256, 128))
     return SyntheticDataset(n=8, h=194, w=306, num_classes=3, box_range=(30, 70),
-                            with_sem_seg=True)
+                            with_sem_seg=arch == "semantic")
 
 
 def parse_args(argv=None):

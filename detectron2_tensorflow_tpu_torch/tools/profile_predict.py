@@ -6,7 +6,7 @@ Builds chip_smoke's model (Mask R-CNN R50-FPN, bf16, seeded random weights,
 ``SCORE_THRESH_TEST = 0``; with ``--config_file``, that YAML's model, for
 example ``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml`` or
 ``configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml``, in bf16 with the same
-threshold, RetinaNet's too), serves a random 800x1344 batch of each given
+threshold, RetinaNet's and SOLOv2's too), serves a random 800x1344 batch of each given
 size (default 2; a ``LOAD_PROPOSALS`` model gets ``engine.add_proposal_slots``'s
 proposals around ``make_train_batch``'s random boxes), and prints: images/s on the host clock around
 synchronized runs; from ``torch.profiler``, the device time per batch, the
@@ -17,7 +17,8 @@ apart) and the top kernels by device time; for a model with a semantic
 head (``PanopticFPN``, ``SemanticSegmentor``) the head's own device time
 (its convs, GN, upsamples and the float32 logits) and the argmax's, on the
 served features, and for a ``PanopticFPN`` the device and wall time of
-``panoptic_fusion`` on the served output. The full profiler table goes to
+``panoptic_fusion`` on the served output; for SOLOv2 the head's, the
+inference's, the dynamic conv's and matrix NMS's device time. The full profiler table goes to
 ``profile_predict[_<config>]_b<batch>[_fused].txt`` in ``main``'s output
 directory. Set ``D2TPU_ENABLE_FUSED_EPILOGUE=1`` to profile the model with
 the fused bottleneck tail (``_fused`` in the file name).
@@ -71,11 +72,14 @@ def yaml_cfg(config_file: str):
 
 def serving_cfg(config_file: Optional[str] = None):
     """``bench_cfg()``, or ``config_file``'s model in bf16, with
-    ``SCORE_THRESH_TEST = 0`` (the ROI heads' and RetinaNet's) so that every
+    ``SCORE_THRESH_TEST = 0`` (the ROI heads', RetinaNet's and SOLOv2's, with
+    SOLOv2's ``UPDATE_SCORE_THRESH_TEST``) so that every
     detection slot is real."""
     cfg = yaml_cfg(config_file) if config_file else bench_cfg()
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
+    cfg.MODEL.SOLO.SCORE_THRESH_TEST = 0.0
+    cfg.MODEL.SOLO.UPDATE_SCORE_THRESH_TEST = 0.0
     return cfg
 
 
@@ -110,6 +114,39 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
             out_dir / f"profile_predict{name_of(config_file)}_b{batch}{suffix()}.txt")
     if hasattr(model, "sem_seg_head"):
         profile_semantic(cfg, model, inputs)
+    if hasattr(model, "solov2"):
+        profile_solov2(model, inputs)
+
+
+def profile_solov2(model, inputs) -> None:
+    """SOLOv2's head (towers, mask branch), its inference, and inside that
+    the dynamic conv (``TOPK_CANDIDATES_TEST`` kernels against the mask
+    features, float32, and the sigmoid) and matrix NMS (on those masks
+    binarized), each timed on the served features."""
+    from detectron2_tensorflow_tpu_torch.ops.nms import matrix_nms
+
+    drv = model.solov2
+    with torch.inference_mode():
+        feats = model.features(inputs["image"])
+        head = device_time(lambda: model.head(feats), 3)
+        outputs = model._head_outputs(inputs["image"])
+        infer = device_time(lambda: drv.inference(*outputs), 3)
+        mask_feat = outputs[2]
+        b, e, hm, wm = mask_feat.shape
+        kernels = torch.cat([k.reshape(b, -1, e) for k in outputs[1]], 1)[:, :drv.topk]
+        flat = mask_feat.reshape(b, e, hm * wm)
+        dyn = device_time(lambda: torch.sigmoid(torch.bmm(kernels, flat)), 3)
+        binary = torch.sigmoid(torch.bmm(kernels, flat)) > drv.mask_thresh
+        labels = torch.zeros(binary.shape[:2], dtype=torch.int64, device=binary.device)
+        scores = torch.linspace(1.0, 0.0, binary.shape[1], device=binary.device).expand(b, -1)
+        nms = device_time(lambda: matrix_nms(binary, labels, scores, drv.nms_sigma,
+                                             drv.nms_kernel), 3)
+    print(f"  SOLOv2 head (towers on grids {drv.num_grids}, mask branch to {hm}x{wm}): device "
+          f"{head[0]:.3f} ms/call, wall {head[1]:.3f} ms; inference: device {infer[0]:.3f} "
+          f"ms/call, wall {infer[1]:.3f} ms")
+    print(f"  dynamic conv ([{b}, {kernels.shape[1]}, {e}] x [{e}, {hm * wm}] float32 + sigmoid): "
+          f"device {dyn[0]:.3f} ms/call; matrix NMS ([{b}, {binary.shape[1]}, {hm * wm}], one "
+          f"class): device {nms[0]:.3f} ms/call")
 
 
 def profile_semantic(cfg, model, inputs) -> None:

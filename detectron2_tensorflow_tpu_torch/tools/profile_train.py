@@ -11,7 +11,8 @@ images/s on the host clock around synchronized steps, the peak device
 memory, and from ``torch.profiler`` the device time per step, the device's
 idle share, the device time by category (as ``profile_predict``) and the top
 kernels; for a model with a semantic head, the device ms of that head's
-forward, ``sem_seg_loss`` and backward on the step's features. The full
+forward, ``sem_seg_loss`` and backward on the step's features, and for
+SOLOv2 its head's forward, losses and backward. The full
 profiler table goes to
 ``profile_train[_<config>]_b<batch>[_fused].txt`` beside
 ``profile_predict``'s (``D2TPU_ENABLE_FUSED_EPILOGUE=1``: the fused
@@ -92,6 +93,23 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
         ms = profile_predict.device_time(head_step, 3)
         model.zero_grad(set_to_none=True)
         print(f"  sem_seg head forward + loss + backward: device {ms[0]:.3f} ms/step, wall "
+              f"{ms[1]:.3f} ms")
+    if hasattr(model, "solov2"):
+        with torch.no_grad():
+            feats = model.features(data["image"])
+        feats = {k: v.detach().requires_grad_(True) for k, v in feats.items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def solo_step():
+            cate, kernels, mask_feat = model.head(feats)
+            losses = model.solov2.losses([c.float() for c in cate], [k.float() for k in kernels],
+                                         mask_feat.float(), data,
+                                         tuple(data["image"].shape[1:3]), gen)
+            sum(losses.values()).backward()
+
+        ms = profile_predict.device_time(solo_step, 3)
+        model.zero_grad(set_to_none=True)
+        print(f"  SOLOv2 head forward + losses + backward: device {ms[0]:.3f} ms/step, wall "
               f"{ms[1]:.3f} ms")
 
 

@@ -349,6 +349,8 @@ BUILDS = {
     "configs/quick_schedules/semantic_R_50_FPN_instant_test.yaml",
     "configs/quick_schedules/semantic_R_50_FPN_training_acc_test.yaml",
     "configs/synthetic/overfit_panoptic_R_18.yaml",
+    "configs/Base-SOLO.yaml",
+    "configs/COCO-InstanceSegmentation/solo_v2_R_50_FPN_1x.yaml",
 }
 
 
@@ -402,3 +404,64 @@ def test_unported_model_keys_raise(opts, match):
         return
     with pytest.raises(NotImplementedError, match=match):
         _meta_model(cfg)
+
+
+SOLO_YAML = "configs/COCO-InstanceSegmentation/solo_v2_R_50_FPN_1x.yaml"
+
+
+def test_solo_mask_kernel_size_raises_and_fails_in_jax():
+    """``MODEL.SOLO.MASK_KERNEL_SIZE`` 3: the kernel head would emit 9 x 256
+    channels for a dynamic conv that is a 1x1 product over 256, so the
+    port's model raises by name, and the JAX model's ``predict`` fails on
+    the shapes (abstractly evaluated: no compile)."""
+    import jax
+    import jax.numpy as jnp
+
+    from detectron2_tensorflow_tpu.models import build_model as jax_build_model
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, SOLO_YAML))
+    cfg.MODEL.SOLO.MASK_KERNEL_SIZE = 3
+    with pytest.raises(NotImplementedError, match="MASK_KERNEL_SIZE"):
+        _meta_model(cfg)
+    jcfg = jax_get_cfg()
+    jcfg.merge_from_file(os.path.join(REPO, SOLO_YAML))
+    jcfg.MODEL.SOLO.MASK_KERNEL_SIZE = 3
+    jmodel = jax_build_model(jcfg)
+    batch = {"image": jnp.zeros((1, 64, 64, 3)), "image_size": jnp.asarray([[64, 64]])}
+    variables = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), batch)
+    with pytest.raises(ValueError, match="2304"):
+        jax.eval_shape(jmodel.predict, variables, batch)
+
+
+def test_solo_full_frame_masks_raise_in_the_loader_and_fail_in_jax():
+    """The SOLO YAMLs set ``TRANSFORM.RESIZE.USE_MINI_MASKS False``, which
+    keeps full-frame masks; both loaders collate ``gt_masks`` as mini-masks,
+    the only targets SOLOv2's loss reads. The port's loader raises a
+    ``ValueError`` naming the key (training and evaluation), the JAX
+    loader's collation fails on a broadcast; with the key True both give
+    56 x 56 mini-masks."""
+    import numpy as np
+
+    from detectron2_tensorflow_tpu.data.loader import pad_sample_to_batch_arrays as jax_pad
+    from detectron2_tensorflow_tpu_torch.data import SyntheticDataset, build_dataloader
+    from detectron2_tensorflow_tpu_torch.data import transforms
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, SOLO_YAML))
+    assert cfg.TRANSFORM.RESIZE.USE_MINI_MASKS is False
+    r = cfg.TRANSFORM.RESIZE
+    r.MIN_SIZE_TRAIN, r.MAX_SIZE_TRAIN, r.MIN_SIZE_TEST, r.MAX_SIZE_TEST = (128,), 256, 128, 256
+    cfg.INPUT.PAD_BUCKETS = ((128, 256), (256, 128))
+    cfg.SOLVER.IMS_PER_BATCH = 2
+    ds = SyntheticDataset(n=2, h=194, w=306, num_classes=3, box_range=(30, 70))
+    for training in (True, False):
+        with pytest.raises(ValueError, match="TRANSFORM.RESIZE.USE_MINI_MASKS"):
+            next(build_dataloader(cfg, ds, training=training))
+    sample, _ = transforms.run(cfg, ds[0], True, np.random.default_rng(0))
+    assert sample["masks"].shape[1:] == (128, 202)
+    with pytest.raises(ValueError, match="broadcast"):
+        jax_pad(sample, (128, 256), cfg.INPUT.MAX_GT_INSTANCES, r.MINI_MASK_SIZE)
+    r.USE_MINI_MASKS = True
+    batch = next(build_dataloader(cfg, ds, training=True))
+    assert batch["gt_masks"].shape == (2, cfg.INPUT.MAX_GT_INSTANCES, 56, 56)

@@ -863,3 +863,35 @@ def test_dconv_predict_and_step_on_the_card_equal_the_cpu(dev):
     chip_smoke.check_train_against_cpu(dev, False,
                                        chip_smoke.two_stage_cfg("dconv_r50", narrow=True,
                                                                 batch=2), label="dconv")
+
+
+@pytest.mark.parametrize("deform", [False, True])
+def test_solov2_predict_and_step_on_the_card_equal_the_cpu(dev, deform):
+    """The narrow float32 SOLOv2 ``predict`` (plain and deformable towers),
+    its assignment's ties and its train step on the card against the CPU,
+    as ``chip_smoke`` holds them."""
+    chip_smoke.check_solo_small_against_cpu(np.random.default_rng(0), dev, deform=deform)
+    chip_smoke.check_solo_assignment(dev)
+    chip_smoke.check_train_against_cpu(dev, False, chip_smoke.solo_cfg(narrow=True, batch=2),
+                                       label=chip_smoke.SOLO, prepare=chip_smoke.tie_free)
+
+
+@pytest.mark.parametrize("kernel", ["gaussian", "linear"])
+def test_matrix_nms_on_the_card_equals_the_cpu(dev, kernel):
+    """``matrix_nms`` of 500 random rectangles a frame at SOLOv2's full-width
+    mask shape (200 x 336), two images: the decayed scores within 1e-6 (the
+    intersections are exact sums of 0/1 products on both sides)."""
+    from detectron2_tensorflow_tpu_torch.ops.nms import matrix_nms
+
+    rng = np.random.default_rng(0)
+    masks = np.zeros((2, 500, 200, 336), bool)
+    for i in range(2):
+        for j in range(500):
+            y, x = rng.integers(0, 180), rng.integers(0, 300)
+            masks[i, j, y:y + rng.integers(4, 60), x:x + rng.integers(4, 90)] = True
+    labels = rng.integers(0, 80, (2, 500))
+    scores = -np.sort(-rng.uniform(0, 1, (2, 500))).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (masks, labels, scores)]
+    want = matrix_nms(*args, kernel=kernel)
+    got = matrix_nms(*[a.to(dev) for a in args], kernel=kernel).cpu()
+    assert float((got - want).abs().max()) <= 1e-6 and bool((want < torch.from_numpy(scores)).any())

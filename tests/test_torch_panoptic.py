@@ -332,22 +332,27 @@ def test_fusion_reads_no_value_back_per_slot(monkeypatch):
 
 def test_sem_seg_postprocess_matches_jax():
     """``conventional`` and ``raw`` zero the padding as the JAX package does;
-    ``fixed`` raises by name."""
+    ``fixed`` resizes the content region to its square canvas as it does."""
     rng = np.random.default_rng(3)
     sem = rng.integers(0, 9, (2, 32, 48)).astype(np.int32)
     sizes = np.array([[32, 40], [20, 48]], np.int32)
     _, tcfg = pano_cfgs()
     jcfg, _ = pano_cfgs()
-    for fmt in ("conventional", "raw"):
+    for fmt in ("conventional", "raw", "fixed"):
         jcfg.MODEL.SEGMENTATION_OUTPUT.FORMAT = tcfg.MODEL.SEGMENTATION_OUTPUT.FORMAT = fmt
+        jcfg.MODEL.SEGMENTATION_OUTPUT.FIXED_RESOLUTION = 24
+        tcfg.MODEL.SEGMENTATION_OUTPUT.FIXED_RESOLUTION = 24
         want = np.asarray(jax_sem_seg_postprocess(jcfg, jnp.asarray(sem),
                                                   {"image_size": jnp.asarray(sizes)}))
         got = sem_seg_postprocess(tcfg, torch.from_numpy(sem),
                                   {"image_size": torch.from_numpy(sizes)}).numpy()
         np.testing.assert_array_equal(got, want)
-        assert not got[0, :, 40:].any() and not got[1, 20:].any()
-    tcfg.MODEL.SEGMENTATION_OUTPUT.FORMAT = "fixed"
-    with pytest.raises(NotImplementedError, match="fixed"):
+        if fmt == "fixed":
+            assert got.shape == (2, 24, 24) and got.any()
+        else:
+            assert not got[0, :, 40:].any() and not got[1, 20:].any()
+    tcfg.MODEL.SEGMENTATION_OUTPUT.FORMAT = "other"
+    with pytest.raises(ValueError, match="other"):
         sem_seg_postprocess(tcfg, torch.from_numpy(sem), {"image_size": torch.from_numpy(sizes)})
 
 
