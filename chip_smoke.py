@@ -21,7 +21,7 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      are bit-equal at serving's RPN (10 x 1000, and stacked with p6's 819
      rows padded to 1000), the box head (2 x 2000, ``max_keep`` 100) and
      training's stacked RPN (40 x 2000, ``max_keep`` 1000);
-     The kernel checks of phases 9-14 at their shapes run next, in a phase
+     The kernel checks of phases 9-16 at their shapes run next, in a phase
      of their own (``later_kernels``): from phase 8 on, the gates' processes
      share the card, which would distort the timings;
   4. variants: the ROI forward's seven ablations at the ROI tool's shapes
@@ -86,7 +86,7 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      ``tools.overfit_check`` subprocesses, and phase 13's panoptic workflow
      (host-bound, as (b) is). (a) runs in the phase; (b) (on a thread), the
      gates and the panoptic workflow start at its end and run on beside
-     phases 9-14, and the last phase, ``gates``, waits for them and checks
+     phases 9-16, and the last phase, ``gates``, waits for them and checks
      them (this keeps the script inside its time limit);
   9. single_level: the C4 (``Res5ROIHeads``) and DC5 (dilated res5)
      families. Each kernel at their shapes against its plain version, timed
@@ -245,7 +245,20 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      with img/s, device ms, idle share and peak memory. Its gate,
      ``tools.overfit_check 600 --arch solov2`` (bbox AP50 >= 90, segm AP no
      more than 10 below the JAX tool's), runs with the others;
- 16. gates: waits for workflow (b), the panoptic workflow and the overfit
+ 16. yolov4: YOLOv4 serving (its training is a later slice). ``nms_keep``
+     bit-equal at its new shape, the class-agnostic top 1000 of 2 images
+     (clustered boxes in 608 x 608, IoU 0.5, ``max_keep`` 100); the narrow
+     float32 YOLOv4 (CSP-DarkNet53 stem 16, res2 32, neck 32, head 32, 5
+     classes, the predictors' objectness and class rows x10) held against
+     the CPU: valid slots and classes equal, boxes 1e-3, scores 1e-5; a
+     seeded darknet blob and manifest through ``load_pretrained`` onto the
+     card, every tensor bit-equal; ``yolov4_D_53_PAN_1x.yaml`` (bf16, seeded
+     random weights, ``YOLOV4.SCORE_THRESH_TEST`` 0) serving 2 x 608 x 608
+     with the switch off and on (100 valid, finite, clipped detections per
+     image, classes in [0, 80), scores in (0, 1]; per ``predict`` 1 / 0
+     ``nms_keep`` / ``roi_patch_fwd`` and 0 fused tails), with img/s,
+     device ms, idle share and peak memory;
+ 17. gates: waits for workflow (b), the panoptic workflow and the overfit
      gates started in phase 8, and checks them.
 
 Each phase's seconds are printed on a line of their own; phase 14's parts
@@ -275,6 +288,11 @@ import torch
 
 from detectron2_tensorflow_tpu_torch import bench_cfg, kernels, train_cfg
 from detectron2_tensorflow_tpu_torch.config import finalize, get_cfg
+from detectron2_tensorflow_tpu_torch.convert import (
+    emit_manifest,
+    read_darknet_blob,
+    write_darknet_weights,
+)
 from detectron2_tensorflow_tpu_torch.data import (
     SyntheticDataset,
     build_dataloader,
@@ -290,7 +308,7 @@ from detectron2_tensorflow_tpu_torch.engine import (
     train,
 )
 from detectron2_tensorflow_tpu_torch.engine.tta import precise_bn, tta_predict
-from detectron2_tensorflow_tpu_torch.engine.checkpoint import all_steps
+from detectron2_tensorflow_tpu_torch.engine.checkpoint import all_steps, load_pretrained
 from detectron2_tensorflow_tpu_torch.models import ProposalNetwork, build_model
 from detectron2_tensorflow_tpu_torch.models.backbones.resnet import BLOCKS_PER_STAGE
 from detectron2_tensorflow_tpu_torch.models.deform_conv import DeformConv2d
@@ -428,9 +446,10 @@ def fused_switch(on: bool):
 
 def bottleneck_tails(cfg) -> int:
     """Fused tails per trunk forward with the switch on: one per bottleneck
-    block of a FrozenBN trunk (16 on R50, 50 on X152), none otherwise."""
+    block of a FrozenBN ResNet (16 on R50, 50 on X152), none otherwise (a
+    DarkNet53 block ends in a 3x3 conv, its norm and mish)."""
     r = cfg.MODEL.RESNETS
-    if r.NORM != "FrozenBN" or r.DEPTH < 50:
+    if cfg.MODEL.BACKBONE.NAME != "ResNet" or r.NORM != "FrozenBN" or r.DEPTH < 50:
         return 0
     return sum(BLOCKS_PER_STAGE[r.DEPTH])
 
@@ -2336,8 +2355,8 @@ PRECISE_BN_BATCHES = 4
 def two_stage_cfg(name: str, narrow: bool = False, batch: int = 0):
     """``name``'s YAML (phase 10's or a later one's) as ``single_level_cfg``
     shapes it: bf16 at full width (``SCORE_THRESH_TEST`` 0, the ROI heads',
-    RetinaNet's and SOLOv2's, with SOLOv2's ``UPDATE_SCORE_THRESH_TEST``) or
-    narrow float32, ``batch`` > 0 for training."""
+    RetinaNet's, SOLOv2's, with SOLOv2's ``UPDATE_SCORE_THRESH_TEST``, and
+    YOLOv4's) or narrow float32, ``batch`` > 0 for training."""
     cfg = get_cfg()
     cfg.merge_from_file(str(ROOT / SPECS[name]["yaml"]))
     cfg.MODEL.DTYPE = "bfloat16"
@@ -2345,6 +2364,7 @@ def two_stage_cfg(name: str, narrow: bool = False, batch: int = 0):
     cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.SOLO.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.SOLO.UPDATE_SCORE_THRESH_TEST = 0.0
+    cfg.MODEL.YOLOV4.SCORE_THRESH_TEST = 0.0
     if narrow:
         for k, v in (NORM_NARROW if name in ("gn", "syncbn") else NARROW).items():
             cfg.MODEL.RESNETS[k] = v
@@ -2354,11 +2374,13 @@ def two_stage_cfg(name: str, narrow: bool = False, batch: int = 0):
         cfg.MODEL.ROI_MASK_HEAD.CONV_DIM = 32
         cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = (32,) * 8
         cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM = 32
+        cfg.MODEL.YOLOV4.CONV_DIMS = 32
         cfg.MODEL.ROI_HEADS.NUM_CLASSES = 5
         cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES = 5
         cfg.MODEL.DTYPE = "float32"
         cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.05
         cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.05
+        cfg.MODEL.YOLOV4.SCORE_THRESH_TEST = 0.05
         cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN = 64
         cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST = 64
     if batch:
@@ -2421,10 +2443,12 @@ def check_two_stage_small(rng, dev):
                                 held=NORMED_HELD if name in ("gn", "syncbn") else None)
 
 
-def serving_batch(rng, dev, b=2, h=800, w=1344):
+def serving_batch(rng, dev, b=2, h=800, w=1344, content=(800, 1333)):
+    """``b`` random images in an ``h`` x ``w`` bucket, each ``content`` (h, w)
+    of it an image's."""
     image = torch.from_numpy(rng.uniform(0, 255, (b, h, w, 3)).astype(np.float32)).to(dev)
     return {"image": image,
-            "image_size": torch.tensor([[800, 1333]] * b, dtype=torch.int32, device=dev)}
+            "image_size": torch.tensor([list(content)] * b, dtype=torch.int32, device=dev)}
 
 
 def check_proposal_outputs(cfg, out, b: int, label: str) -> str:
@@ -2447,7 +2471,8 @@ def check_proposal_outputs(cfg, out, b: int, label: str) -> str:
 
 def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check=None,
                     weights=None):
-    """``name``'s YAML (bf16, seeded random weights) serving 2 x 800 x 1344,
+    """``name``'s YAML (bf16, seeded random weights) serving 2 images at its
+    first pad bucket (800 x 1344; YOLOv4's 608 x 608, ``profile_predict.serving_shape``),
     with the fused tail off and on in ``turns``: launches per ``predict``
     asserted (no fused tail but on FrozenBN trunks), outputs checked (by
     ``check(cfg, out, batch, label)`` when given), img/s and device ms per
@@ -2461,7 +2486,8 @@ def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check
             models[fused] = build_model(cfg, generator=torch.Generator().manual_seed(SEED),
                                         state_dict=weights)
     b = 2
-    batch = serving_batch(rng, dev, b)
+    (h, w), content = profile_predict.serving_shape(cfg)
+    batch = serving_batch(rng, dev, b, h, w, content)
     for model in models.values():
         model.predict(batch)
     torch.cuda.synchronize()
@@ -2496,11 +2522,11 @@ def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check
         elif check is not None:
             check(cfg, out, batch, label)
         else:
-            check_outputs(cfg, out, batch, b, 800, 1344, label, phase=tag)
+            check_outputs(cfg, out, batch, b, h, w, label, phase=tag)
     timing = {f: profile_predict.device_time(lambda: models[f].predict(batch), 3,
                                              host_ops=False) for f in models}
     log(f"{tag} {name} predict, {iters} runs a turn ({''.join('N' if f else 'F' for f in turns)}), "
-        f"batch {b} at 800x1344 bf16: " + "; ".join(
+        f"batch {b} at {h}x{w} bf16: " + "; ".join(
             f"switch {'on' if f else 'off'} {np.median(rates[f]):.2f} img/s, device ms per "
             f"predict {timing[f][0]:.2f} (idle share {timing[f][2]:.3f})" for f in models)
         + f"; launches {launches}")
@@ -3179,14 +3205,15 @@ def run_tta(rng, dev):
 
 
 def check_later_kernels(rng, dev):
-    """The kernel checks of phases 9-14 at their shapes, before phase 8
+    """The kernel checks of phases 9-16 at their shapes, before phase 8
     starts the host-bound gates, whose processes would share the card with
     the timings."""
     return {"single_level": check_single_level_kernels(rng, dev),
             "two_stage": check_new_nms_shape(rng, dev),
             "single_stage_cascade": check_retinanet_nms(rng, dev),
             "keypoint": check_keypoint_kernels(rng, dev),
-            "dconv": check_dconv_kernels(rng, dev), "deform": check_deform_conv(rng, dev)}
+            "dconv": check_dconv_kernels(rng, dev), "deform": check_deform_conv(rng, dev),
+            "yolov4": check_yolov4_nms(rng, dev)}
 
 
 def run_dconv(rng, dev, kernels_):
@@ -3435,6 +3462,113 @@ def run_solov2(rng, dev):
     return {"serving": serving, "training": training, "peak": peak}
 
 
+# -- phase 16: yolov4 -------------------------------------------------------------------
+
+YOLO = "yolov4    "  # the phase's log tag
+YOLO_YAML = "configs/COCO-Detection/yolov4_D_53_PAN_1x.yaml"
+# YOLOv4 serving: one class-agnostic NMS over the top 1000 of the three levels'
+# candidates per predict, no pooling; its training is a later slice.
+SPECS["yolov4"] = {"yaml": YOLO_YAML, "predict": {"nms_keep": 1, "roi_patch_fwd": 0}}
+YOLO_SIZE = 608  # Base-YOLO's pad bucket (608, 608)
+# The narrow predictors' objectness and class rows x10: the scores spread over
+# (0, 1) rather than within float32 rounding of each other (the CPU tests'
+# ``spread``).
+YOLO_SPREAD = 10.0
+
+
+def check_yolov4_nms(rng, dev):
+    """``nms_keep`` bit-equal at YOLOv4's serving shape: per image the top
+    1000 candidates (class-agnostic, score-sorted, clipped to 608 x 608),
+    IoU 0.5, ``max_keep`` 100."""
+    boxes, valid = clustered_boxes(rng, 2, 1000, h=float(YOLO_SIZE), w=float(YOLO_SIZE),
+                                   objects=100)
+    return nms_case(dev, "yolov4 class-agnostic 2x1000 iou=0.5 max_keep=100", boxes, valid,
+                    0.5, 100, plain=greedy_keep_reference_rows, reps=50, tag=f"{YOLO} nms_keep")
+
+
+def spread_yolo(model) -> None:
+    """Each predictor's objectness and class rows (field ``j >= 4`` of each
+    anchor's ``5 + K``) x YOLO_SPREAD."""
+    with torch.no_grad():
+        for i in range(1, 4):
+            w = getattr(model.head, f"pred{i}").weight
+            fields = w.shape[0] // model.yolov4.num_anchors
+            w[torch.arange(w.shape[0]) % fields >= 4] *= YOLO_SPREAD
+
+
+def check_yolo_serving(cfg, out, batch, label) -> None:
+    """A served YOLOv4 batch: 100 valid slots per image, finite boxes clipped
+    to the 608 x 608 image and not empty, classes of the 80, scores in (0, 1]
+    (sigmoid products), no masks."""
+    f = out.get_fields()
+    b = f["boxes"].shape[0]
+    if "pred_masks" in f or tuple(f["boxes"].shape) != (b, 100, 4):
+        raise AssertionError(f"{label}: fields {sorted(f)}, boxes {tuple(f['boxes'].shape)}")
+    if f["is_valid"].sum(1).tolist() != [100] * b:
+        raise AssertionError(f"{label}: valid per image {f['is_valid'].sum(1).tolist()}")
+    if not (bool(torch.isfinite(f["scores"]).all()) and bool(torch.isfinite(f["boxes"]).all())):
+        raise AssertionError(f"{label}: non-finite scores or boxes")
+    bx, size = f["boxes"], batch["image_size"][:, None]
+    if (bool((bx < 0).any()) or bool((bx[..., 2] > size[..., 1]).any())
+            or bool((bx[..., 3] > size[..., 0]).any()) or bool((bx[..., 2:] < bx[..., :2]).any())):
+        raise AssertionError(f"{label}: boxes not clipped to the image")
+    cls, s = f["pred_classes"], f["scores"]
+    if bool((cls < 0).any()) or bool((cls >= cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES).any()):
+        raise AssertionError(f"{label}: classes out of range")
+    if not (float(s.min()) > 0.0 and float(s.max()) <= 1.0):
+        raise AssertionError(f"{label}: scores outside (0, 1]")
+    log(f"{YOLO} {label}: 100 valid detections per image, finite, boxes clipped to "
+        f"{YOLO_SIZE}x{YOLO_SIZE}, scores in [{float(s.min()):.4f}, {float(s.max()):.4f}], "
+        f"{len(set(cls.flatten().tolist()))} classes")
+
+
+def check_darknet_load(dev) -> None:
+    """``PRETRAINS.DARKNET`` on the card's machine: the narrow float32 model's
+    seeded CPU weights written as a darknet blob and manifest into a temp
+    dir (``convert.write_darknet_weights``) load through ``load_pretrained``
+    into a model on the card, every tensor bit-equal."""
+    cfg = two_stage_cfg("yolov4", narrow=True)
+    source = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED + 1))
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    manifest = emit_manifest(source)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "darknet"))
+        path = os.path.join(tmp, cfg.PRETRAINS.DARKNET)
+        write_darknet_weights(path, source.state_dict(), manifest)
+        cfg.PRETRAINS.ROOT = tmp
+        if not load_pretrained(cfg, model):
+            raise AssertionError("darknet: load_pretrained loaded nothing")
+        blob = read_darknet_blob(path)
+    want = source.state_dict()
+    got = model.state_dict()
+    differ = [k for k, v in got.items() if not torch.equal(v.cpu(), want[k])]
+    if differ or sorted(got) != sorted(want):
+        raise AssertionError(f"darknet: {len(differ)} tensors differ from the blob's, first "
+                             f"{differ[:3]}")
+    log(f"{YOLO} darknet blob ({len(manifest['nodes'])} nodes, {blob.size} floats) and "
+        f"manifest through load_pretrained onto the card: all {len(got)} tensors bit-equal")
+
+
+def run_yolov4(rng, dev, nms):
+    """Phase 16: YOLOv4 serving. The new ``nms_keep`` shape (``nms``, checked
+    earlier); the narrow float32 model card against CPU; the darknet blob
+    loaded on the card; ``yolov4_D_53_PAN_1x.yaml`` served 2 x 608 x 608
+    bf16 (switch off and on: 1 / 0 ``nms_keep`` / ``roi_patch_fwd`` per
+    ``predict``, 0 fused tails), with img/s, device ms, idle share and peak
+    memory. Returns the NMS result and the serving run's launches."""
+    with phase_seconds("yolov4.narrow"):
+        check_small_against_cpu(rng, dev, False, two_stage_cfg("yolov4", narrow=True),
+                                label=f"{YOLO} narrow", prepare=spread_yolo)
+        check_darknet_load(dev)
+    with phase_seconds("yolov4.full"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        serving = serve_two_stage(rng, dev, "yolov4", turns=(False, True), tag=YOLO,
+                                  check=check_yolo_serving)
+        log(f"{YOLO} serving peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+            "(both models, batch 2 at 608x608 bf16)")
+    return {"nms": nms, "serving": serving}
+
+
 def probe():
     """What the card's machine offers a JPEG route (decides nothing here).
     Each module is imported in a child interpreter, so this one imports none."""
@@ -3523,6 +3657,8 @@ def main() -> None:
         dc = run_dconv(rng, dev, later["dconv"])
     with phase_seconds("solov2"), fused_switch(False):
         run_solov2(rng, dev)
+    with phase_seconds("yolov4"), fused_switch(False):
+        yolo = run_yolov4(rng, dev, later["yolov4"])
     with phase_seconds("gates"):
         finish_workflow(pending)
     probe()
@@ -3553,6 +3689,9 @@ def main() -> None:
                     ssc["serving"]["retinanet"]["nms_keep"], ssc["nms"], ssc["nms"]["err"]),
         *keypoint_lines(kp),
         *dconv_lines(dc),
+        kernel_line("nms_keep@" + case_label("yolov4", yolo["nms"]["case"]), NMS_SRC,
+                    tpu_kernel("*/ops/pallas/nms_keep.py", 161),
+                    yolo["serving"]["nms_keep"], yolo["nms"], yolo["nms"]["err"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,13 @@ for a Detectron2 checkpoint. SOLOv2's ``head/{cate,kernel}_tower_{i}``,
 their names (``head.cate_tower_0`` ...); a deformable tower's
 ``conv/{kernel, conv_offset}`` (``MODEL.SOLO.USE_DEFORM_CONV``) becomes the
 tower's ``weight`` and ``conv_offset``, its norm beside it the tower's
-``norm``. :func:`convert_solo_weights` reads an mmdet SOLOv2 checkpoint.
+``norm``. :func:`convert_solo_weights` reads an mmdet SOLOv2 checkpoint, and
+:func:`convert_darknet_weights` a darknet ``.weights`` blob through its
+JSON manifest (:func:`emit_manifest` writes the skeleton of one;
+:func:`write_darknet_weights` writes a model's tensors the other way). A YOLOv4's
+DarkNet trunk, neck and head keep the JAX module names (``backbone/res1/
+block_1/conv1`` is ``backbone.bottom_up.res1.block_1.conv1``,
+``neck/spp_conv1`` ``backbone.spp_conv1``, ``head/pred1`` ``head.pred1``).
 
 Layout changes:
   * conv kernels HWIO -> OIHW;
@@ -67,6 +73,7 @@ Layout changes:
 
 from __future__ import annotations
 
+import json
 import math
 import pickle
 import re
@@ -281,6 +288,140 @@ def convert_solo_weights(sd: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, torc
     norm("mask_feat_head.conv_pred.0.gn", "head.mask_pred", _GN_LEAVES)
     leftovers = [k for k in sd if k not in used and not k.startswith(("fc.", "backbone.fc"))]
     return out, leftovers
+
+
+# Darknet ``.weights`` files: the header's int32 words (major, minor, revision)
+# and the int64 ``seen`` counter, 5 float32 slots skipped.
+DARKNET_HEADER_INTS = 5
+DARKNET_NORMS = ("bn", "frozen")
+
+
+def read_darknet_blob(path: str, skip_header: bool = True) -> np.ndarray:
+    """A darknet ``.weights`` file as float32, its 5-word header skipped."""
+    data = np.fromfile(path, dtype=np.float32)
+    return data[DARKNET_HEADER_INTS:] if skip_header else data
+
+
+def _node_prefix(manifest: Dict) -> Dict[str, str]:
+    """``_module_name``'s prefixes for a manifest's JAX paths: the trunk is
+    ``backbone.bottom_up`` when a ``neck/`` node is there, as
+    :func:`convert_variables` maps it."""
+    neck = any(n["name"].split("/")[0] == "neck" for n in manifest["nodes"])
+    return {**_PREFIX, "backbone": "backbone.bottom_up" if neck else "backbone", "head": "head"}
+
+
+def convert_darknet_weights(blob: np.ndarray, manifest: Dict) -> Tuple[Dict[str, torch.Tensor],
+                                                                         int]:
+    """A darknet blob read through its JSON manifest -> (the port's float32
+    ``state_dict`` entries, the floats consumed).
+
+    Port of the JAX package's ``convert/darknet.py``. The manifest (the JAX
+    package's format, so one ``<weights>.json`` serves both packages) lists
+    the conv nodes in file order by their JAX paths (``backbone/stem``,
+    ``neck/spp_conv1``, ``head/pred1``), with a ``norm`` map of ``"bn"``
+    (trainable BN) or ``"frozen"`` (FrozenBN) per normed node. Each node
+    reads, in darknet's layout: ``out`` biases (the norm's beta when it has
+    one), then for either norm its gamma, running mean and running variance,
+    then the ``[out, in, k, k]`` weights, which the port keeps as they are
+    (OIHW). Both norms land on the conv's ``norm.{bias, weight,
+    running_mean, running_var}``; a node without one gets ``bias``. Raises
+    ``ValueError`` when the blob runs out or a norm is unknown."""
+    prefix = _node_prefix(manifest)
+    norms = manifest.get("norm", {})
+    out: Dict[str, torch.Tensor] = {}
+    start = 0
+
+    def take(n: int, shape=None) -> torch.Tensor:
+        nonlocal start
+        v = blob[start:start + n]
+        if len(v) != n:
+            raise ValueError(f"darknet blob exhausted at {start} (+{n} of {len(blob)})")
+        start += n
+        v = np.asarray(v, np.float32)
+        return torch.from_numpy(v.reshape(shape) if shape else v.copy())
+
+    for node in manifest["nodes"]:
+        name = _module_name(tuple(node["name"].split("/")), prefix)
+        cin, cout, k = node["in_channels"], node["out_channels"], node["size"]
+        norm = norms.get(node["name"])
+        if norm and norm not in DARKNET_NORMS:
+            raise ValueError(f"unknown manifest norm '{norm}' at {node['name']}")
+        bias = take(cout)
+        if norm:
+            out[f"{name}.norm.bias"] = bias
+            for leaf in ("weight", "running_mean", "running_var"):
+                out[f"{name}.norm.{leaf}"] = take(cout)
+        else:
+            out[f"{name}.bias"] = bias
+        out[f"{name}.weight"] = take(cin * cout * k * k, (cout, cin, k, k)).clone()
+    return out, start
+
+
+def darknet_floats(state_dict: Dict[str, torch.Tensor], manifest: Dict) -> np.ndarray:
+    """The tensors of ``state_dict`` in darknet's layout for ``manifest``, as
+    float32: the inverse of :func:`convert_darknet_weights`."""
+    prefix = _node_prefix(manifest)
+    parts = []
+    for node in manifest["nodes"]:
+        name = _module_name(tuple(node["name"].split("/")), prefix)
+        if node["name"] in manifest.get("norm", {}):
+            leaves = [f"{name}.norm.{leaf}"
+                      for leaf in ("bias", "weight", "running_mean", "running_var")]
+        else:
+            leaves = [f"{name}.bias"]
+        parts += [state_dict[k].detach().float().cpu().reshape(-1).numpy()
+                  for k in leaves + [f"{name}.weight"]]
+    return np.concatenate(parts)
+
+
+def write_darknet_weights(path: str, state_dict: Dict[str, torch.Tensor], manifest: Dict,
+                          seen: int = 0) -> None:
+    """A darknet ``.weights`` file of ``state_dict`` for ``manifest`` (the
+    header's major 0, minor 2, revision 5 and the int64 ``seen``, then
+    :func:`darknet_floats`) and its manifest beside it, ``<path>.json``."""
+    with open(path, "wb") as f:
+        np.asarray([0, 2, 5], np.int32).tofile(f)
+        np.asarray([seen], np.int64).tofile(f)
+        darknet_floats(state_dict, manifest).tofile(f)
+    with open(path + ".json", "w") as f:
+        json.dump(manifest, f)
+
+
+def _jax_path(name: str, neck: bool) -> str:
+    """The JAX module path of the port's module ``name`` (the inverse of
+    ``_module_name`` for a model whose modules keep the JAX names)."""
+    for port, jax_top in (("backbone.bottom_up.", "backbone/"),
+                          ("backbone.", "neck/" if neck else "backbone/"), ("head.", "head/")):
+        if name.startswith(port):
+            return jax_top + name[len(port):].replace(".", "/")
+    raise KeyError(f"no darknet node for module {name}")
+
+
+def emit_manifest(model: torch.nn.Module) -> Dict:
+    """The darknet manifest skeleton of a built model, as the JAX package's
+    ``emit_manifest`` gives it for the same model's variables: every conv
+    node by its JAX path (``in_channels``, ``out_channels``, ``size``),
+    in the order of the paths' components (the JAX walk of a tree with
+    sorted keys), and the ``norm`` map: ``"bn"`` for a trainable BN,
+    ``"frozen"`` for a FrozenBN (no entry for a GN, as there). Reorder the
+    nodes to the ``.weights`` file's order before use."""
+    from .models.layers import BatchNorm2d, FrozenBatchNorm2d
+
+    neck = hasattr(getattr(model, "backbone", None), "bottom_up")
+    nodes, norm = [], {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, torch.nn.Conv2d):
+            continue
+        path = _jax_path(name, neck)
+        out_ch, in_ch, k, _ = mod.weight.shape
+        nodes.append({"name": path, "in_channels": int(in_ch),
+                      "out_channels": int(out_ch), "size": int(k)})
+        kind = {BatchNorm2d: "bn", FrozenBatchNorm2d: "frozen"}.get(type(getattr(mod, "norm", None)))
+        if kind:
+            norm[path] = kind
+    nodes.sort(key=lambda n: n["name"].split("/"))
+    return {"nodes": nodes, "norm": {n["name"]: norm[n["name"]] for n in nodes
+                                     if n["name"] in norm}}
 
 
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:

@@ -16,14 +16,17 @@ multiple of ``keep_period``.
 whose name and shape the model has and warning about the rest: ``WEIGHTS``
 names a port checkpoint (a train-loop checkpoint or a bare ``state_dict``),
 ``DETECTRON2`` a Detectron2 ``.pkl``/``.pth`` file, ``MMDET`` an
-mmdetection SOLOv2 checkpoint (``convert.convert_solo_weights``).
-``BACKBONE`` and ``DARKNET`` need converters the port does not have yet. A file that is
-not there is skipped with a warning, and training starts from the model's
-own weights.
+mmdetection SOLOv2 checkpoint (``convert.convert_solo_weights``),
+``DARKNET`` a darknet ``.weights`` file read through the JSON manifest beside
+it, ``<path>.json`` (``convert.convert_darknet_weights``; one manifest serves
+both packages). ``BACKBONE`` needs converters the port does not have yet. A
+file that is not there is skipped with a warning, and training starts from
+the model's own weights.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import re
@@ -193,7 +196,17 @@ def load_pretrained(cfg, model: torch.nn.Module) -> bool:
         return True
 
     if pre.DARKNET:
-        raise NotImplementedError("PRETRAINS.DARKNET needs the darknet converter, not ported yet")
+        from ..convert import convert_darknet_weights, read_darknet_blob
+
+        path = os.path.join(root, pre.DARKNET)
+        if missing(path):
+            return False
+        logger.info("initializing from darknet weights %s", path)
+        with open(path + ".json") as f:
+            manifest = json.load(f)
+        converted, _ = convert_darknet_weights(read_darknet_blob(path), manifest)
+        model.load_state_dict(overlay_compatible(model.state_dict(), converted))
+        return True
     return False
 
 

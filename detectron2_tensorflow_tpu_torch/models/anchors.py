@@ -1,10 +1,12 @@
-"""Anchor generation (Detectron2's DefaultAnchorGenerator).
+"""Anchor generation (Detectron2's DefaultAnchorGenerator, and YOLO's).
 
 Port of the JAX package's ``models/anchors.py``: cell anchors are
 centered at the origin and shifted by ``stride * (x, y)`` for every grid
-cell; per level the result is ``[H * W * A, 4]`` in (y, x, a) order. The
-grid is computed in numpy, as in the JAX package, so both give identical
-coordinates.
+cell (``DefaultAnchorGenerator``) or by ``stride * (x + 0.5, y + 0.5)``, the
+cell's centre (``YOLOAnchorGenerator``, whose anchors are ``(w, h)`` pixel
+shapes, one set per level); per level the result is ``[H * W * A, 4]`` in
+(y, x, a) order. The grid is computed in numpy, as in the JAX package, so
+both give identical coordinates.
 """
 
 from __future__ import annotations
@@ -66,8 +68,39 @@ class DefaultAnchorGenerator:
         return out
 
 
-def build_anchor_generator(cfg, strides: Sequence[int]) -> DefaultAnchorGenerator:
+class YOLOAnchorGenerator:
+    """YOLO's anchors: ``sizes[level]`` lists ``(w, h)`` pairs in input
+    pixels, centred on the level's cell centres."""
+
+    def __init__(self, sizes, strides):
+        if len(sizes) != len(strides):
+            raise ValueError(f"{len(sizes)} anchor size sets for {len(strides)} levels")
+        self.strides = list(strides)
+        self.cell_anchors = []
+        for level_sizes in sizes:
+            half = np.asarray(level_sizes, np.float32).reshape(-1, 2) / 2.0
+            self.cell_anchors.append(np.concatenate([-half, half], axis=1))
+
+    @property
+    def num_anchors_per_location(self) -> List[int]:
+        return [len(c) for c in self.cell_anchors]
+
+    def __call__(self, grid_sizes, device=None) -> List[torch.Tensor]:
+        """grid_sizes: per-level (h, w). Returns per-level ``[h*w*A, 4]`` xyxy."""
+        out = []
+        for (gh, gw), stride, cell in zip(grid_sizes, self.strides, self.cell_anchors):
+            shift_x = (np.arange(gw, dtype=np.float32) + 0.5) * stride
+            shift_y = (np.arange(gh, dtype=np.float32) + 0.5) * stride
+            sx, sy = np.meshgrid(shift_x, shift_y)
+            shifts = np.stack([sx, sy, sx, sy], axis=-1).reshape(-1, 1, 4)
+            out.append(torch.from_numpy((shifts + cell[None]).reshape(-1, 4)).to(device))
+        return out
+
+
+def build_anchor_generator(cfg, strides: Sequence[int]):
     ag = cfg.MODEL.ANCHOR_GENERATOR
-    if ag.NAME != "DefaultAnchorGenerator":
-        raise NotImplementedError(f"anchor generator '{ag.NAME}' is not ported")
-    return DefaultAnchorGenerator(ag.SIZES, ag.ASPECT_RATIOS, strides)
+    if ag.NAME == "DefaultAnchorGenerator":
+        return DefaultAnchorGenerator(ag.SIZES, ag.ASPECT_RATIOS, strides)
+    if ag.NAME == "YOLOAnchorGenerator":
+        return YOLOAnchorGenerator(ag.SIZES, strides)
+    raise NotImplementedError(f"anchor generator '{ag.NAME}' is not ported")

@@ -152,6 +152,26 @@ class BatchNorm2d(nn.Module):
         return y.to(x.dtype)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """Flax's ``softplus``: ``logaddexp(x, 0)``, in ``x``'s dtype."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """``x * tanh(softplus(x))`` in ``x``'s dtype (the JAX package's lambda)."""
+    return x * torch.tanh(softplus(x))
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``x`` where ``x >= 0``, else ``0.1 * x`` (the JAX package's ``leaky_relu``,
+    slope 0.1)."""
+    return F.leaky_relu(x, 0.1)
+
+
+# The activations a Conv2d applies after its norm, by the config's name.
+ACTIVATIONS = {"relu": F.relu, "mish": mish, "leaky_relu": leaky_relu}
+
+
 def get_norm(norm: str, channels: int) -> Optional[nn.Module]:
     """The norm layer the config names: none, FrozenBN, BN (SyncBN is BN on
     one card) or GN."""
@@ -167,7 +187,8 @@ def get_norm(norm: str, channels: int) -> Optional[nn.Module]:
 
 
 class Conv2d(nn.Conv2d):
-    """Conv + optional norm + optional ReLU, with D2's padding rule.
+    """Conv + optional norm + optional activation (:data:`ACTIVATIONS`), with
+    D2's padding rule.
 
     ``bias`` defaults to "no norm => bias", the D2 convention. Padding is
     ``(k - 1) // 2 * dilation`` on every side: the same as "SAME" at stride
@@ -188,8 +209,9 @@ class Conv2d(nn.Conv2d):
             groups=groups, bias=bias,
         )
         self.norm = get_norm(norm, out_channels)
-        if activation not in ("", "relu"):
-            raise NotImplementedError(f"activation '{activation}' is not ported")
+        if activation not in ("",) + tuple(ACTIVATIONS):
+            raise NotImplementedError(f"activation '{activation}' is not ported "
+                                      f"(ported: {sorted(ACTIVATIONS)})")
         self.activation = activation
         self.fuse_residual = fuse_residual and fused_residual.epilogue_shape_supported(
             kernel_size, stride, groups, dilation, norm, bias)
@@ -208,8 +230,8 @@ class Conv2d(nn.Conv2d):
             x = self.norm(x)
         if residual is not None:
             return F.relu(x + residual)
-        if self.activation == "relu":
-            x = F.relu(x)
+        if self.activation:
+            x = ACTIVATIONS[self.activation](x)
         return x
 
 

@@ -14,7 +14,8 @@ import torch
 from torch import nn
 
 from ...structures import Instances
-from ..backbones.resnet import ResNet, build_resnet_backbone, output_shapes
+from ..backbones import darknet
+from ..backbones.resnet import build_resnet_backbone, output_shapes
 from ..layers import BatchNorm2d
 from ..necks.fpn import build_neck
 
@@ -44,13 +45,18 @@ class Detector(nn.Module):
         self.pixel_mean = list(m.PIXEL_MEAN)
         self.pixel_std = list(m.PIXEL_STD)
         self.input_format = m.INPUT_FORMAT
-        self.backbone, shapes = build_neck(cfg, build_resnet_backbone(cfg), output_shapes(cfg))
+        if m.BACKBONE.NAME == "DarkNet53":
+            trunk, trunk_shapes = darknet.build_darknet_backbone(cfg), darknet.output_shapes(cfg)
+        else:  # raises for a trunk that is not ported
+            trunk, trunk_shapes = build_resnet_backbone(cfg), output_shapes(cfg)
+        self.backbone, shapes = build_neck(cfg, trunk, trunk_shapes)
         self.feature_shapes = shapes
         return shapes
 
     @property
-    def trunk(self) -> ResNet:
-        """The ResNet trunk (``backbone.bottom_up`` with an FPN, else ``backbone``)."""
+    def trunk(self) -> nn.Module:
+        """The trunk, ``MODEL.BACKBONE.NAME``'s ResNet or DarkNet53
+        (``backbone.bottom_up`` under a neck, else ``backbone``)."""
         return getattr(self.backbone, "bottom_up", self.backbone)
 
     def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -404,9 +404,16 @@ _SMALL_INIT = {
     "head.bbox_pred": 0.01,
     "head.cate_pred": 0.01,
     "head.kernel_pred": 0.01,
+    "head.pred1": 0.01,
+    "head.pred2": 0.01,
+    "head.pred3": 0.01,
 }
-# RetinaNet's towers: normal(0.01) in the JAX package, variance-preserving for serving.
-_JAX_TOWERS = ("head.cls_subnet.", "head.bbox_subnet.")
+# RetinaNet's towers and YOLOv4's 3x3 head convs: normal(0.01) in the JAX package,
+# variance-preserving for serving.
+_JAX_TOWERS = ("head.cls_subnet.", "head.bbox_subnet.", "head.conv1", "head.conv2", "head.conv3")
+# The last norm of a residual branch, scaled by 0.2 for serving: a ResNet
+# bottleneck's conv3, a DarkNet block's conv2.
+_RESIDUAL_NORM = re.compile(r"(conv3|\.block_\d+\.conv2)\.norm$")
 # The JAX initializers' truncated normal keeps [-2, 2] standard deviations and rescales by
 # this factor so that the kept values have the asked variance.
 _TRUNC_STD = 0.87962566103423978
@@ -432,8 +439,9 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     variance ``2 / fan_out`` (``variance_scaling(2.0, "fan_out",
     "normal")``; RetinaNet's P6 and P7 too), the box head's FCs uniform with
     variance ``1 / fan_in``, the small normals of the RPN head, the
-    predictors, RetinaNet's head (every conv of it) and SOLOv2's
-    ``cate_pred`` and ``kernel_pred``, zero biases, GN
+    predictors, RetinaNet's head (every conv of it), SOLOv2's
+    ``cate_pred`` and ``kernel_pred`` and YOLOv4's head (every conv of it),
+    zero biases, GN
     and BN at identity with BN's running statistics at (0, 1) (FrozenBN
     keeps its identity buffers), a deformable conv's kernel as a conv's and
     its offset conv at zero (``DeformConv2D``'s initializers).
@@ -445,7 +453,7 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     else:
         raise ValueError(f"unknown init recipe {recipe!r} (known: {INIT_RECIPES})")
     head = getattr(model, "head", None)
-    if head is not None:
+    if hasattr(head, "prior_bias"):  # not YOLOv4's head, which has no prior
         with torch.no_grad():
             classifier = head.cate_pred if hasattr(head, "cate_pred") else head.cls_score
             classifier.bias.fill_(head.prior_bias)
@@ -490,11 +498,12 @@ def _init_for_serving(model: nn.Module, generator: torch.Generator) -> None:
 
     Convs and FCs are variance-preserving (He-normal over fan-in, with the
     JAX package's small normals for the RPN head, the predictors,
-    RetinaNet's classifier and box convs and SOLOv2's ``cate_pred`` and
-    ``kernel_pred``: the sigmoid scores start near the prior, unsaturated),
-    and
-    every bottleneck's last FrozenBN scales its branch by 0.2, so the
-    residual stream does not grow with depth. With zero biases the network
+    RetinaNet's classifier and box convs, SOLOv2's ``cate_pred`` and
+    ``kernel_pred`` and YOLOv4's predictors: the sigmoid scores start near
+    the prior, unsaturated, and YOLOv4's boxes near their anchors), and
+    every residual branch's last norm (a bottleneck's ``conv3``, a DarkNet
+    block's ``conv2``) scales it by 0.2, so the residual stream does not
+    grow with depth. With zero biases the network
     is linear in the input's scale up to the softmax; the stem's FrozenBN
     scales the raw pixels (std 1, values up to ~130) by 1/640, which keeps
     the class softmax unsaturated (scores near 1/81 at 80 classes) and the
@@ -524,5 +533,5 @@ def _init_for_serving(model: nn.Module, generator: torch.Generator) -> None:
             if hasattr(mod, "running_var"):
                 if name.endswith("stem.conv1.norm"):
                     mod.weight.fill_(1.0 / 640)
-                elif name.endswith("conv3.norm"):
+                elif _RESIDUAL_NORM.search(name):
                     mod.weight.fill_(0.2)

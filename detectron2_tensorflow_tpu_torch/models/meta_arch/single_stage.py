@@ -1,9 +1,10 @@
-"""SingleStageDetector: trunk, neck and a dense head (RetinaNet or SOLOv2).
+"""SingleStageDetector: trunk, neck and a dense head (RetinaNet, SOLOv2 or
+YOLOv4).
 
-Port of the RetinaNet and SOLOv2 branches of the JAX package's
-``models/meta_arch/single_stage.py``: the trunk and FPN of
-:class:`~.common.Detector`, then a dense head whose float32 outputs go to
-the losses or the inference of ``RetinaNet`` or ``SOLOv2``.
+Port of the JAX package's ``models/meta_arch/single_stage.py``: the trunk
+and neck of :class:`~.common.Detector`, then a dense head whose float32
+outputs go to the losses or the inference of ``RetinaNet``, ``SOLOv2`` or
+``YOLOv4``.
 
   * ``RetinaNetHead`` (over ``res3..res5``, with the ``P6P7`` top block):
     :class:`~..single_stage.retinanet.RetinaNetHead` on p3-p7. The EMA loss
@@ -14,8 +15,12 @@ the losses or the inference of ``RetinaNet`` or ``SOLOv2``.
   * ``SOLOv2Head`` (over ``res2..res5``, with the ``MAXPOOL`` top block):
     :class:`~..single_stage.solov2.SOLOv2Head` on p2-p6 and the mask
     features; ``predict`` gives whole-frame masks at stride 4.
-
-The YOLOv4 head and the DarkNet trunk raise ``NotImplementedError``.
+  * ``YOLOV4Head`` (over the CSP-DarkNet53 trunk's ``res3..res5`` and the
+    SPP/PAN neck): :class:`~..single_stage.yolov4.YOLOV4Head` on p3-p5;
+    ``predict`` gives bbox-only detections (no masks). Its training is a
+    later slice of the port: ``losses`` raises ``NotImplementedError``, and
+    ``build_model(cfg, training=True)`` raises it before any step
+    (``training_not_ported``).
 """
 
 from __future__ import annotations
@@ -27,17 +32,22 @@ import torch
 from ...structures import Instances
 from ..single_stage.retinanet import RetinaNet, RetinaNetHead
 from ..single_stage.solov2 import SOLOv2
+from ..single_stage.yolov4 import TRAINING_NOT_PORTED, YOLOv4
 from .common import Detector
 
 # The EMA loss normalizer's start (the JAX ``initial_state``).
 INITIAL_LOSS_NORMALIZER = 100.0
-HEADS = ("RetinaNetHead", "SOLOv2Head")
+HEADS = ("RetinaNetHead", "SOLOv2Head", "YOLOV4Head")
 
 
 class SingleStageDetector(Detector):
-    """RetinaNet or SOLOv2; ``predict(batch)`` is the serving entry point."""
+    """RetinaNet, SOLOv2 or YOLOv4; ``predict(batch)`` is the serving entry
+    point."""
 
     load_proposals = False
+    # Why the model cannot train yet (``build_model(..., training=True)``
+    # raises it), or None.
+    training_not_ported = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -50,8 +60,14 @@ class SingleStageDetector(Detector):
             raise NotImplementedError(f"single-stage head '{head_name}' is not ported "
                                       f"(ported: {HEADS})")
         self.mask_on = head_name == "SOLOv2Head"
+        self.yolo = head_name == "YOLOV4Head"
         shapes = self._build_backbone(cfg)
         head_in = [shapes[f] for f in m.SINGLE_STAGE_HEAD.IN_FEATURES]
+        if self.yolo:
+            self.yolov4 = YOLOv4(cfg, [s for _, s in head_in])
+            self.head = self.yolov4.build_head(cfg, [c for c, _ in head_in])
+            self.training_not_ported = TRAINING_NOT_PORTED
+            return
         if self.mask_on:
             self.solov2 = SOLOv2(cfg)
             self.head = self.solov2.build_head(cfg, head_in[0][0])
@@ -64,6 +80,8 @@ class SingleStageDetector(Detector):
 
     def _head_outputs(self, images: torch.Tensor):
         features = self.features(images)
+        if self.yolo:
+            return [p.float() for p in self.head([features[f] for f in self.yolov4.in_features])]
         if self.mask_on:
             cate, kernels, mask_features = self.head(features)
             return ([c.float() for c in cate], [k.float() for k in kernels],
@@ -76,6 +94,8 @@ class SingleStageDetector(Detector):
         ``Instances`` (``boxes``, ``scores``, ``pred_classes``, ``is_valid``
         and, from SOLOv2, ``pred_masks``; ``DETECTIONS_PER_IMAGE`` slots)."""
         outputs = self._head_outputs(batch["image"])
+        if self.yolo:
+            return self.yolov4.inference(outputs, batch["image_size"])
         if self.mask_on:
             return self.solov2.inference(*outputs)
         return self.retinanet.inference(*outputs, batch["image_size"])
@@ -89,7 +109,10 @@ class SingleStageDetector(Detector):
         divided by the updated ``loss_normalizer``; it samples nothing, so
         ``generator`` and ``noise`` are not read. SOLOv2: ``loss_ins`` and
         ``loss_cate``; the positive cap's uniform draws are ``noise["solo"]``
-        (``[B, cells]`` in [0, 0.5)) when given, else from ``generator``."""
+        (``[B, cells]`` in [0, 0.5)) when given, else from ``generator``.
+        YOLOv4 raises ``NotImplementedError`` (``training_not_ported``)."""
+        if self.training_not_ported:
+            raise NotImplementedError(self.training_not_ported)
         outputs = self._head_outputs(batch["image"])
         if self.mask_on:
             return self.solov2.losses(*outputs, batch, tuple(batch["image"].shape[1:3]),

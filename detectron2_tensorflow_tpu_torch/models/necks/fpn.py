@@ -27,6 +27,7 @@ from torch import nn
 
 from ..backbones.resnet import NORMS
 from ..layers import Conv2d, max_pool
+from .yolov4 import build_yolov4_neck
 
 # The ported top blocks and the levels each adds above the coarsest output.
 TOP_BLOCKS = {"MAXPOOL": 1, "P6P7": 2}
@@ -124,14 +125,17 @@ def output_strides(cfg, trunk_shapes: Dict[str, tuple]) -> Dict[str, int]:
 
 def build_neck(cfg, trunk: nn.Module,
                trunk_shapes: Dict[str, tuple]) -> Tuple[nn.Module, Dict[str, tuple]]:
-    """``(backbone, {feature: (channels, stride)})``: the FPN around the
-    trunk, or for ``NECK.NAME ""`` the trunk itself with its
+    """``(backbone, {feature: (channels, stride)})``: the FPN or the YOLOv4
+    neck around the trunk, or for ``NECK.NAME ""`` the trunk itself with its
     ``OUT_FEATURES`` (the JAX ``build_neck``)."""
     name = cfg.MODEL.NECK.NAME
     if name == "":
         return trunk, {f: trunk_shapes[f] for f in cfg.MODEL.RESNETS.OUT_FEATURES}
+    if name == "YOLOV4":
+        return build_yolov4_neck(cfg, trunk, trunk_shapes)
     if name != "FPN":
-        raise NotImplementedError(f"MODEL.NECK.NAME '{name}' is not ported (FPN and none are)")
+        raise NotImplementedError(f"MODEL.NECK.NAME '{name}' is not ported "
+                                  "(FPN, YOLOV4 and none are)")
     ch = cfg.MODEL.NECK.OUT_CHANNELS
     return (build_fpn(cfg, trunk, trunk_shapes),
             {f: (ch, s) for f, s in output_strides(cfg, trunk_shapes).items()})

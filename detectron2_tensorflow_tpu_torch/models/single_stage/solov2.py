@@ -32,7 +32,13 @@ per-image function:
     uniform draws from a ``torch.Generator`` or handed in as
     ``noise["solo"]``); their kernels against the mask features (one float32
     product), the GT masks pasted from the mini-masks at stride 4, the dice
-    loss (``dice+bce`` adds a saturation-safe BCE);
+    loss (``dice+bce`` adds a BCE, taken from the mask logits: the JAX
+    package takes it as ``-t log(p + 1e-6) - (1 - t) log(1 - p + 1e-6)``,
+    whose gradient vanishes once ``p`` falls below 1e-6, where the dice's
+    has vanished too, so a from-scratch run whose mask logits all sink
+    below -14 stalls for good; from the logits the gradient stays ``p - t``.
+    Where ``p`` lies well inside (1e-6, 1 - 1e-6) the two agree to ~1e-6
+    relative);
   * inference: point NMS (a 2x2 max pool padded with ``-inf`` on the top and
     left), a stable top-k over ``[cells x K]``, the dynamic conv in float32,
     the maskness rescore, a stable sort, :func:`~...ops.nms.matrix_nms`, a
@@ -321,7 +327,8 @@ class SOLOv2:
 
         # The dynamic conv: one float32 product per image.
         feat = mask_features.reshape(b, mask_features.shape[1], hm * wm)
-        pred = torch.sigmoid(torch.bmm(sel_kern, feat)).reshape(b, -1, hm, wm)
+        logits = torch.bmm(sel_kern, feat)  # [B, P, Hm * Wm]
+        pred = torch.sigmoid(logits).reshape(b, -1, hm, wm)
 
         # The GT masks at the mask features' resolution, from the mini-masks.
         g = gt["gt_boxes"].shape[1]
@@ -332,12 +339,11 @@ class SOLOv2:
         sel_masks = torch.gather(gt_masks, 1, sel_gt[..., None, None].expand(-1, -1, hm, wm))
         d = dice_loss(pred.reshape(-1, hm, wm), sel_masks.reshape(-1, hm, wm)).reshape(b, -1)
         if self.ins_loss_type == "dice+bce":
-            # A saturation-safe BCE keeps the mask gradient alive where the
-            # dice's dies (the JAX package's from-scratch variant).
-            eps = 1e-6
-            p = pred.reshape(b, pred.shape[1], -1)
+            # From the logits, so that the mask gradient stays alive where the
+            # dice's dies (module docstring: the JAX package's log(p + 1e-6)
+            # loses it below p = 1e-6).
             t = sel_masks.reshape(b, sel_masks.shape[1], -1)
-            d = d - (t * torch.log(p + eps) + (1.0 - t) * torch.log(1.0 - p + eps)).mean(-1)
+            d = d + F.binary_cross_entropy_with_logits(logits, t, reduction="none").mean(-1)
         ins_loss = torch.sum(d * sel_pos, 1) / torch.clamp(sel_pos.sum(1), min=1.0)
         num_pos = pos.float().sum()
         return {"loss_ins": self.ins_loss_weight * ins_loss.mean(),

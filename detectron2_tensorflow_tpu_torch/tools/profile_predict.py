@@ -6,8 +6,9 @@ Builds chip_smoke's model (Mask R-CNN R50-FPN, bf16, seeded random weights,
 ``SCORE_THRESH_TEST = 0``; with ``--config_file``, that YAML's model, for
 example ``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml`` or
 ``configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml``, in bf16 with the same
-threshold, RetinaNet's and SOLOv2's too), serves a random 800x1344 batch of each given
-size (default 2; a ``LOAD_PROPOSALS`` model gets ``engine.add_proposal_slots``'s
+threshold, RetinaNet's, SOLOv2's and YOLOv4's too), serves a random batch of each given
+size (default 2) at the config's first ``INPUT.PAD_BUCKETS`` entry (800x1344, or
+608x608 for ``configs/COCO-Detection/yolov4_D_53_PAN_1x.yaml``; a ``LOAD_PROPOSALS`` model gets ``engine.add_proposal_slots``'s
 proposals around ``make_train_batch``'s random boxes), and prints: images/s on the host clock around
 synchronized runs; from ``torch.profiler``, the device time per batch, the
 device's idle share (1 - device time / wall time), the device time by
@@ -18,7 +19,8 @@ head (``PanopticFPN``, ``SemanticSegmentor``) the head's own device time
 (its convs, GN, upsamples and the float32 logits) and the argmax's, on the
 served features, and for a ``PanopticFPN`` the device and wall time of
 ``panoptic_fusion`` on the served output; for SOLOv2 the head's, the
-inference's, the dynamic conv's and matrix NMS's device time. The full profiler table goes to
+inference's, the dynamic conv's and matrix NMS's device time; for YOLOv4 the
+head's and the inference's (decode, top-k, clip and NMS). The full profiler table goes to
 ``profile_predict[_<config>]_b<batch>[_fused].txt`` in ``main``'s output
 directory. Set ``D2TPU_ENABLE_FUSED_EPILOGUE=1`` to profile the model with
 the fused bottleneck tail (``_fused`` in the file name).
@@ -72,15 +74,26 @@ def yaml_cfg(config_file: str):
 
 def serving_cfg(config_file: Optional[str] = None):
     """``bench_cfg()``, or ``config_file``'s model in bf16, with
-    ``SCORE_THRESH_TEST = 0`` (the ROI heads', RetinaNet's and SOLOv2's, with
-    SOLOv2's ``UPDATE_SCORE_THRESH_TEST``) so that every
+    ``SCORE_THRESH_TEST = 0`` (the ROI heads', RetinaNet's, SOLOv2's, with
+    SOLOv2's ``UPDATE_SCORE_THRESH_TEST``, and YOLOv4's) so that every
     detection slot is real."""
     cfg = yaml_cfg(config_file) if config_file else bench_cfg()
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.SOLO.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.SOLO.UPDATE_SCORE_THRESH_TEST = 0.0
+    cfg.MODEL.YOLOV4.SCORE_THRESH_TEST = 0.0
     return cfg
+
+
+def serving_shape(cfg):
+    """``((H, W), (h, w))``: the first ``INPUT.PAD_BUCKETS`` entry and the
+    content of a landscape image the test resize fills it with, capped by
+    ``MIN_SIZE_TEST`` and ``MAX_SIZE_TEST`` (800x1333 in 800x1344; 608x608
+    for YOLOv4)."""
+    bh, bw = (int(v) for v in cfg.INPUT.PAD_BUCKETS[0])
+    r = cfg.TRANSFORM.RESIZE
+    return (bh, bw), (min(bh, int(r.MIN_SIZE_TEST)), min(bw, int(r.MAX_SIZE_TEST)))
 
 
 def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
@@ -88,11 +101,12 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
     cfg = serving_cfg(config_file)
     model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
-    image = torch.from_numpy(rng.uniform(0, 255, (batch, 800, 1344, 3)).astype(np.float32)).to(dev)
+    (bh, bw), content = serving_shape(cfg)
+    image = torch.from_numpy(rng.uniform(0, 255, (batch, bh, bw, 3)).astype(np.float32)).to(dev)
     inputs = {"image": image,
-              "image_size": torch.tensor([[800, 1333]] * batch, dtype=torch.int32, device=dev)}
+              "image_size": torch.tensor([content] * batch, dtype=torch.int32, device=dev)}
     if cfg.MODEL.LOAD_PROPOSALS:  # proposals around train_cfg's random GT boxes
-        gt = make_train_batch(cfg, 800, 1344)
+        gt = make_train_batch(cfg, bh, bw)
         slots = add_proposal_slots(cfg, {k: gt[k][:batch] for k in ("gt_boxes", "gt_valid",
                                                                      "image_size")},
                                    training=False)
@@ -108,7 +122,8 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
         model.predict(inputs)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / iters
-    print(f"batch {batch}: {batch / wall:.2f} img/s, {wall * 1000:.2f} ms/batch (host clock)")
+    print(f"batch {batch} at {bh}x{bw}: {batch / wall:.2f} img/s, {wall * 1000:.2f} ms/batch "
+          "(host clock)")
 
     profile(lambda: model.predict(inputs), 3, f"batch {batch}",
             out_dir / f"profile_predict{name_of(config_file)}_b{batch}{suffix()}.txt")
@@ -116,6 +131,25 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
         profile_semantic(cfg, model, inputs)
     if hasattr(model, "solov2"):
         profile_solov2(model, inputs)
+    if hasattr(model, "yolov4"):
+        profile_yolov4(model, inputs)
+
+
+def profile_yolov4(model, inputs) -> None:
+    """YOLOv4's head (the three 3x3 convs and predictors) and its inference
+    (decode, scores, the top 1000, clip, one class-agnostic NMS), each timed
+    on the served features."""
+    drv = model.yolov4
+    with torch.inference_mode():
+        feats = model.features(inputs["image"])
+        levels = [feats[f] for f in drv.in_features]
+        head = device_time(lambda: model.head(levels), 3)
+        maps = model._head_outputs(inputs["image"])
+        infer = device_time(lambda: drv.inference(maps, inputs["image_size"]), 3)
+    cands = sum(m.shape[2] * m.shape[3] for m in maps) * drv.num_anchors
+    print(f"  YOLOv4 head ({len(maps)} levels, {cands} candidates): device {head[0]:.3f} ms/call, "
+          f"wall {head[1]:.3f} ms; inference (decode, top-1000, NMS): device {infer[0]:.3f} "
+          f"ms/call, wall {infer[1]:.3f} ms, idle share {infer[2]:.3f}")
 
 
 def profile_solov2(model, inputs) -> None:

@@ -31,7 +31,8 @@ The JAX package's native (C++ JPEG) train loader is not ported: with
 ``DATALOADER.NATIVE_TRAIN_IO`` on, one line says so and ``build_dataloader``
 serves, as in the JAX CLI where the native loader is unusable. An
 ``AUGMENT.*`` augmentation the port does not have raises before any data
-is read.
+is read, and so does a model whose training is not ported yet (YOLOv4:
+``NotImplementedError`` from ``build_model``).
 """
 
 from __future__ import annotations
@@ -156,10 +157,11 @@ def main(argv=None):
         cfg.merge_from_list(args.opts)
     finalize(cfg, training=True, device=args.device)
 
-    dataset = build_train_dataset(cfg)
     seed = max(cfg.SEED, 0)
+    # First, so that a model that cannot train (YOLOv4) raises before any data is read.
     model = build_model(cfg, device=args.device, training=True, init="jax",
                         generator=torch.Generator().manual_seed(seed))
+    dataset = build_train_dataset(cfg)
     if cfg.DATALOADER.NATIVE_TRAIN_IO:
         logging.info("DATALOADER.NATIVE_TRAIN_IO: the native train loader is not ported; "
                      "build_dataloader serves")

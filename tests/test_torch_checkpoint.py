@@ -220,13 +220,14 @@ def test_load_pretrained_missing_file_trains_from_scratch(tmp_path, caplog):
 
 @pytest.mark.parametrize("key", ["BACKBONE", "MMDET", "DARKNET"])
 def test_load_pretrained_other_converters_wait(key, caplog):
-    """``BACKBONE`` and ``DARKNET`` wait for their converters; ``MMDET`` has
-    one (``convert_solo_weights``), so a missing file is skipped with the
-    warning, as the JAX package skips it (``tests/test_torch_solov2_eval.py``
-    loads a present one)."""
+    """``BACKBONE`` waits for its converters; ``MMDET`` and ``DARKNET`` have
+    one (``convert_solo_weights``, ``convert_darknet_weights``), so a missing
+    file is skipped with the warning, as the JAX package skips it
+    (``tests/test_torch_solov2_eval.py`` and ``tests/test_torch_yolov4_convert.py``
+    load present ones)."""
     _, tcfg, model = _narrow()
     tcfg.PRETRAINS[key] = "weights.bin"
-    if key == "MMDET":
+    if key in ("MMDET", "DARKNET"):
         with caplog.at_level(logging.WARNING):
             assert not load_pretrained(tcfg, model)
         assert "weights.bin not found" in caplog.text

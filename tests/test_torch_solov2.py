@@ -301,10 +301,13 @@ def jax_solo_noise(key, b, cells):
 def test_losses_and_their_gradients_match_jax(loss_type):
     """``loss_ins`` and ``loss_cate`` and their gradients with respect to every
     head output, from the same positive-cap noise. ``dice+bce`` on mask
-    logits of std ~0.6 (BCE_KERNEL_STD): where the sigmoid saturates, the
-    BCE's gradient through ``log(1 - p + 1e-6)`` is one float32 ulp of ``p``
-    times up to 1e6, rounding noise in either package (torch's sigmoid and
-    XLA's differ by an ulp in ~0.4% of values), not a quantity to compare."""
+    logits of std ~0.6 (BCE_KERNEL_STD), where the port's BCE from the
+    logits and the JAX package's through ``log(p + 1e-6)`` agree to ~1e-6:
+    where the sigmoid saturates, the JAX BCE's gradient through ``log(1 - p
+    + 1e-6)`` is one float32 ulp of ``p`` times up to 1e6, rounding noise
+    (torch's sigmoid and XLA's differ by an ulp in ~0.4% of values), and
+    below ``p`` = 1e-6 it vanishes
+    (``test_dice_bce_keeps_its_gradient_where_the_masks_saturate``)."""
     jcfg, tcfg = solo_cfgs(**{"MODEL.SOLO.INS_LOSS_TYPE": loss_type})
     jdrv, tdrv = JaxSOLOv2(jcfg, {}), SOLOv2(tcfg)
     rng = np.random.default_rng(2)
@@ -336,6 +339,38 @@ def test_losses_and_their_gradients_match_jax(loss_type):
     assert_rel_close(tm.grad.permute(0, 2, 3, 1).numpy(), np.asarray(grads[2]), HEAD_TOL,
                      "dmask")
     assert float(got["loss_ins"].detach()) > 0 and np.abs(np.asarray(grads[1][0])).max() > 0
+
+
+def test_dice_bce_keeps_its_gradient_where_the_masks_saturate():
+    """Every mask logit far below -14 (non-negative features, as after the
+    mask branch's ReLU, against negative kernels): the JAX ``dice+bce``
+    loses its gradient with respect to the kernels (``log(p + 1e-6)`` and the
+    dice are flat there), which stalls a from-scratch run for good; the
+    port's BCE, from the logits, pushes each positive pixel's logit up with
+    a gradient of ``p - t`` (module docstring of ``models/single_stage/solov2.py``)."""
+    jcfg, tcfg = solo_cfgs(**{"MODEL.SOLO.INS_LOSS_TYPE": "dice+bce"})
+    jdrv, tdrv = JaxSOLOv2(jcfg, {}), SOLOv2(tcfg)
+    rng = np.random.default_rng(2)
+    cate, kern, mask = head_outputs(rng, tdrv, kernel_std=BCE_KERNEL_STD)
+    mask = np.abs(mask) + 0.5
+    kern = [-np.abs(k) - 1.0 for k in kern]  # logits below -16 (32 channels of >= 0.5)
+    gt = random_gt(rng)
+    key = jax.random.PRNGKey(5)
+
+    def jloss(k):
+        return jdrv.losses(key, [jnp.asarray(c) for c in cate], k, jnp.asarray(mask),
+                           {kk: jnp.asarray(v) for kk, v in gt.items()}, (H, W))["loss_ins"]
+
+    jgrad = jax.jit(jax.grad(jloss))([jnp.asarray(k) for k in kern])
+    tk = [torch.from_numpy(k).requires_grad_(True) for k in kern]
+    got = tdrv.losses([torch.from_numpy(c) for c in cate], tk,
+                      torch.from_numpy(mask).permute(0, 3, 1, 2).contiguous(),
+                      {k: torch.from_numpy(v) for k, v in gt.items()}, (H, W),
+                      noise=jax_solo_noise(key, B, tdrv.num_cells()))
+    got["loss_ins"].backward()
+    want_max = max(float(np.abs(np.asarray(g)).max()) for g in jgrad)
+    got_max = max(float(k.grad.abs().max()) for k in tk)
+    assert got_max > 1e-3 and want_max < 1e-6 * got_max, (got_max, want_max)
 
 
 def test_losses_need_noise_or_a_generator():
