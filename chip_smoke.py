@@ -82,7 +82,7 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      ``TEST.EXPECTED_RESULTS`` ``[['bbox', 'AP', 88.0, 10.0], ['segm', 'AP',
      84.0, 12.0]]``; it prints the APs, the final loss, the train seconds,
      the seconds per iteration and the loader's host seconds per batch.
-     Beside (b) run the overfit gates of phases 9 to 14, eight
+     Beside (b) run the overfit gates of phases 9 to 16, ten
      ``tools.overfit_check`` subprocesses, and phase 13's panoptic workflow
      (host-bound, as (b) is). (a) runs in the phase; (b) (on a thread), the
      gates and the panoptic workflow start at its end and run on beside
@@ -245,19 +245,33 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      with img/s, device ms, idle share and peak memory. Its gate,
      ``tools.overfit_check 600 --arch solov2`` (bbox AP50 >= 90, segm AP no
      more than 10 below the JAX tool's), runs with the others;
- 16. yolov4: YOLOv4 serving (its training is a later slice). ``nms_keep``
-     bit-equal at its new shape, the class-agnostic top 1000 of 2 images
-     (clustered boxes in 608 x 608, IoU 0.5, ``max_keep`` 100); the narrow
-     float32 YOLOv4 (CSP-DarkNet53 stem 16, res2 32, neck 32, head 32, 5
-     classes, the predictors' objectness and class rows x10) held against
-     the CPU: valid slots and classes equal, boxes 1e-3, scores 1e-5; a
-     seeded darknet blob and manifest through ``load_pretrained`` onto the
-     card, every tensor bit-equal; ``yolov4_D_53_PAN_1x.yaml`` (bf16, seeded
-     random weights, ``YOLOV4.SCORE_THRESH_TEST`` 0) serving 2 x 608 x 608
-     with the switch off and on (100 valid, finite, clipped detections per
-     image, classes in [0, 80), scores in (0, 1]; per ``predict`` 1 / 0
-     ``nms_keep`` / ``roi_patch_fwd`` and 0 fused tails), with img/s,
-     device ms, idle share and peak memory;
+ 16. yolov4: YOLOv4 serving and training. ``nms_keep`` bit-equal at its
+     new shapes (checked early, with the later kernels): the class-agnostic
+     top 1000 of 2 images (clustered boxes in 608 x 608, IoU 0.5,
+     ``max_keep`` 100) and the overfit gate's evaluation, all 504 candidates
+     of 8 images at 64 x 128 (``max_keep`` 8); the narrow float32 YOLOv4
+     (CSP-DarkNet53 stem 16, res2 32, neck 32, head 32, 5 classes, the
+     predictors' objectness and class rows x10) held against the CPU: valid
+     slots and classes equal, boxes 1e-3, scores 1e-5; a narrow float32
+     train step card against CPU (every BN at scale 0.5, bias +-1:
+     ``kink_free``): ``box_loss``, ``conf_loss``, ``cls_loss`` 1e-4
+     relative, every gradient 1e-4 of its largest, the BN bias channels
+     whose gradient is zero in exact arithmetic held below 1e-4 of their
+     scale's; a seeded darknet blob and manifest through ``load_pretrained``
+     onto the card, every tensor bit-equal; ``yolov4_D_53_PAN_1x.yaml``
+     (bf16, seeded random weights, ``YOLOV4.SCORE_THRESH_TEST`` 0) serving 2
+     x 608 x 608 with the switch off and on (100 valid, finite, clipped
+     detections per image, classes in [0, 80), scores in (0, 1]; per
+     ``predict`` 1 / 0 ``nms_keep`` / ``roi_patch_fwd`` and 0 fused
+     tails), with img/s, device ms, idle share and peak memory; then
+     trained at 8 x 608 x 608 bf16 with 64 GT an image at the YAML's
+     ``FREEZE_AT 2``, 2 warm-up and 3 timed steps (finite losses; the
+     frozen stem and res1 bit-equal; every trainable parameter moved; every
+     BN running statistic of the neck and the head moved; 0 / 0 / 0
+     ``nms_keep`` / ``roi_patch_fwd`` / ``_bwd`` launches per step, 0 fused
+     tails), with img/s, device ms per step, idle share and peak memory.
+     Its gate, ``tools.overfit_check 600 --arch yolov4`` (bbox AP50 >= 90,
+     bbox AP no more than 10 below the JAX tool's), runs with the others;
  17. gates: waits for workflow (b), the panoptic workflow and the overfit
      gates started in phase 8, and checks them.
 
@@ -1350,7 +1364,7 @@ def tie_free(model) -> None:
 
 
 def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held=None,
-                            prepare=None):
+                            prepare=None, zero_bias=False):
     """Narrow float32 train step (``narrow_train_cfg()`` unless ``cfg``) on a
     2 x 128 x 160 batch: losses and gradients on the card (kernels) against
     the CPU (plain versions), from the same weights, sampler noise and
@@ -1360,7 +1374,11 @@ def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held
     are held (the others must be finite), on tie-free weights
     (:func:`tie_free`), for models whose normalized layers make the rest
     ill-conditioned; None holds every gradient. ``prepare(model)`` adjusts
-    the CPU model's weights first."""
+    the CPU model's weights first. ``zero_bias``: a BN bias channel whose
+    CPU gradient is below 1e-6 of its scale's largest (zero in exact
+    arithmetic: the channel reaches the loss only through other BNs) is
+    held below TRAIN_GRAD_TOL of that on the card instead, its other
+    channels as every gradient is."""
     cfg = cfg or narrow_train_cfg()
     with fused_switch(fused):
         cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED),
@@ -1426,8 +1444,22 @@ def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held
                 raise AssertionError(f"narrow train step: the zero gradient of {n} is "
                                      f"{float(got_g[n].abs().max()):.3g} on the card, "
                                      f"{float(w.abs().max()):.3g} on the CPU (bound {scale:.3g})")
+    zeros = 0
     for n, w in want_g.items():
-        diff = got_g[n] - w
+        g = got_g[n]
+        if zero_bias and n.endswith(".norm.bias"):
+            scale = float(want_g[n[:-4] + "weight"].abs().max())
+            zero = w.abs() <= 1e-6 * scale
+            if bool(zero.any()):
+                zeros += int(zero.sum())
+                if not float(g[zero].abs().max()) <= TRAIN_GRAD_TOL * scale:
+                    raise AssertionError(f"narrow train step: the zero gradient channels of {n} "
+                                         f"read {float(g[zero].abs().max()):.3g} on the card "
+                                         f"(bound {TRAIN_GRAD_TOL * scale:.3g})")
+                g, w = g[~zero], w[~zero]
+                if not w.numel():
+                    continue
+        diff = g - w
         rel = float(diff.abs().max()) / max(float(w.abs().max()), 1e-30)
         rel_norm = float(diff.norm()) / max(float(w.norm()), 1e-30)
         worst, worst_norm = max(worst, (rel, n)), max(worst_norm, (rel_norm, n))
@@ -1440,7 +1472,8 @@ def check_train_against_cpu(dev, fused: bool, cfg=None, label="train     ", held
         f"{k} {got_l[k]:.6f}/{v:.6f}" for k, v in want_l.items())
         + f"; {len(want_g)} gradients held{'' if held is None else f' ({held})'}, worst "
           f"max|err| / max|grad| {worst[0]:.3g} ({worst[1]}),"
-          f" worst |err| / |grad| {worst_norm[0]:.3g} ({worst_norm[1]})")
+          f" worst |err| / |grad| {worst_norm[0]:.3g} ({worst_norm[1]})"
+        + (f"; {zeros} BN bias channels with a zero gradient held below it" if zero_bias else ""))
 
 
 def run_train(dev):
@@ -1924,6 +1957,9 @@ OVERFIT_JAX_SEMANTIC_MIOU = 69.24
 # solov2 on the CPU: bbox AP 74.38, AP50 100.0, segm AP 70.65; PERF.md
 # section 6).
 OVERFIT_JAX_SOLOV2_SEGM_AP = 70.65
+# The yolov4 gate's bbox AP the same way (tools/overfit_check.py 600 --arch
+# yolov4 on the CPU: bbox AP 79.37, AP50 100.0; PERF.md section 6).
+OVERFIT_JAX_YOLOV4_BBOX_AP = 79.37
 OVERFIT_JAX_STEPS = 600
 OVERFIT_AP_BELOW = 10.0
 
@@ -2157,7 +2193,7 @@ def train_single_level(dev, name: str):
 
 
 OVERFIT_STEPS = {"c4": 1200, "rcnn": 600, "cls_agnostic": 600, "retinanet": 600, "cascade": 600,
-                 "keypoint": 600, "semantic": 600, "dconv": 600, "solov2": 600}
+                 "keypoint": 600, "semantic": 600, "dconv": 600, "solov2": 600, "yolov4": 600}
 
 
 def yield_cpu() -> None:
@@ -2171,7 +2207,8 @@ def start_overfit_gates(pano_root: str):
     """Start ``tools.overfit_check`` on c4 (1200 steps, evaluated at 600 as
     well), rcnn, (phase 10's family) cls_agnostic, (phase 11's) retinanet
     and cascade, (phase 12's) keypoint, (phase 13's) semantic, (phase 14's)
-    dconv and (phase 15's) solov2 (600 each), and ``tools.workflow_check_panoptic`` into
+    dconv, (phase 15's) solov2 and (phase 16's) yolov4 (600 each), and
+    ``tools.workflow_check_panoptic`` into
     ``pano_root``, as subprocesses at once (each is host-bound, and yields
     its CPU to this process); :func:`finish_overfit_gates` reads them."""
     procs = {"panoptic": subprocess.Popen(
@@ -2191,9 +2228,9 @@ def start_overfit_gates(pano_root: str):
 def finish_overfit_gates(procs):
     """Wait for the gates; each JSON line is logged, the last of each gates
     (bbox AP50 >= 90), c4's at step 600 (bbox AP no more than 10 below the
-    JAX package's), keypoint's keypoint AP, semantic's mIoU and solov2's
-    segm AP (each no more than 10 below the JAX package's). Returns each family's last
-    line. The panoptic workflow is read apart (``finish_panoptic_workflow``)."""
+    JAX package's), keypoint's keypoint AP, semantic's mIoU, solov2's
+    segm AP and yolov4's bbox AP (each no more than 10 below the JAX
+    package's). Returns each family's last line. The panoptic workflow is read apart (``finish_panoptic_workflow``)."""
     lines = {}
     for arch, proc in procs.items():
         t0 = time.perf_counter()
@@ -2241,6 +2278,11 @@ def finish_overfit_gates(procs):
         raise AssertionError(f"overfit --arch solov2: segm AP {solo.get('segm_ap')} more than "
                              f"{OVERFIT_AP_BELOW} below the JAX package's "
                              f"{OVERFIT_JAX_SOLOV2_SEGM_AP}")
+    yolo = lines["yolov4"][-1]
+    if not yolo["bbox_ap"] >= OVERFIT_JAX_YOLOV4_BBOX_AP - OVERFIT_AP_BELOW:
+        raise AssertionError(f"overfit --arch yolov4: bbox AP {yolo['bbox_ap']} more than "
+                             f"{OVERFIT_AP_BELOW} below the JAX package's "
+                             f"{OVERFIT_JAX_YOLOV4_BBOX_AP}")
     dc = lines["dconv"][-1]  # the deformable convs learned: every offset conv left its zero
     if not 0 < dc.get("conv_offsets_moved", 0) == dc.get("conv_offsets"):
         raise AssertionError(f"overfit --arch dconv: {dc.get('conv_offsets_moved')} of "
@@ -2535,6 +2577,22 @@ def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check
     return launches
 
 
+def below_resolution(state, trainable, unchanged):
+    """Of the ``unchanged`` trainable parameters, those whose last update was
+    below float32's resolution with a nonzero momentum: at the warm-up's
+    first learning rates a norm's scale of 1 takes updates of ~1e-8 against
+    a spacing of 6e-8."""
+    lr = state.optimizer.schedule(state.optimizer.count - 1)
+    buffers = state.optimizer.sgd.state
+    out = []
+    for n in unchanged:
+        step = float(buffers[trainable[n]]["momentum_buffer"].abs().max())
+        if 0 < step and lr * step < (0.5 * torch.finfo(torch.float32).eps
+                                     * float(trainable[n].detach().abs().max())):
+            out.append(n)
+    return out
+
+
 def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False,
                     check_model=None):
     """``name``'s YAML (bf16, float32 parameters, seeded random weights) on a
@@ -2578,14 +2636,7 @@ def train_two_stage(rng, dev, name: str, tag="two_stage ", profile=False,
     frozen = [n for n in params if n not in trainable]
     changed_frozen = [n for n in frozen if not torch.equal(params[n], start[n])]
     unchanged = [n for n, p in trainable.items() if torch.equal(p.detach(), start[n])]
-    # At the warm-up's first learning rates a norm's scale of 1 takes updates
-    # below float32's resolution there (1e-8 against a spacing of 6e-8); such
-    # a parameter must still have had a nonzero update in its momentum.
-    lr = state.optimizer.schedule(state.optimizer.count - 1)
-    buffers = state.optimizer.sgd.state
-    rounded = [n for n in unchanged if float(buffers[trainable[n]]["momentum_buffer"].abs().max()) > 0
-               and lr * float(buffers[trainable[n]]["momentum_buffer"].abs().max())
-               < 0.5 * torch.finfo(torch.float32).eps * float(trainable[n].detach().abs().max())]
+    rounded = below_resolution(state, trainable, unchanged)
     unchanged = [n for n in unchanged if n not in rounded and n not in ZERO_GRADS]
     if changed_frozen or unchanged or not frozen:
         raise AssertionError(f"{name}: frozen parameters changed: {changed_frozen}; trainable "
@@ -3467,9 +3518,16 @@ def run_solov2(rng, dev):
 YOLO = "yolov4    "  # the phase's log tag
 YOLO_YAML = "configs/COCO-Detection/yolov4_D_53_PAN_1x.yaml"
 # YOLOv4 serving: one class-agnostic NMS over the top 1000 of the three levels'
-# candidates per predict, no pooling; its training is a later slice.
-SPECS["yolov4"] = {"yaml": YOLO_YAML, "predict": {"nms_keep": 1, "roi_patch_fwd": 0}}
+# candidates per predict, no pooling; its training step (the YOLO matcher and
+# dense losses) launches no kernel.
+SPECS["yolov4"] = {"yaml": YOLO_YAML, "predict": {"nms_keep": 1, "roi_patch_fwd": 0},
+                   "step": {"nms_keep": 0, "roi_patch_fwd": 0, "roi_patch_bwd": 0}}
 YOLO_SIZE = 608  # Base-YOLO's pad bucket (608, 608)
+YOLO_TRAIN_STEPS = (2, 3)  # warm-up, timed
+# The overfit gate's evaluation: all 504 candidates of the 64 x 128 bucket
+# (3 anchors on 8 x 16, 4 x 8 and 2 x 4 cells) in one class-agnostic NMS per
+# image, 8 images a batch, TEST.DETECTIONS_PER_IMAGE 8.
+YOLO_GATE_NMS = (8, 504, 8)
 # The narrow predictors' objectness and class rows x10: the scores spread over
 # (0, 1) rather than within float32 rounding of each other (the CPU tests'
 # ``spread``).
@@ -3477,13 +3535,24 @@ YOLO_SPREAD = 10.0
 
 
 def check_yolov4_nms(rng, dev):
-    """``nms_keep`` bit-equal at YOLOv4's serving shape: per image the top
-    1000 candidates (class-agnostic, score-sorted, clipped to 608 x 608),
-    IoU 0.5, ``max_keep`` 100."""
+    """``nms_keep`` bit-equal at YOLOv4's serving shape (per image the top
+    1000 candidates, class-agnostic, score-sorted, clipped to 608 x 608,
+    IoU 0.5, ``max_keep`` 100) and at its overfit gate's evaluation
+    (``YOLO_GATE_NMS``: 8 images of all 504 candidates clipped to 64 x 128,
+    IoU 0.5, ``max_keep`` 8). Returns the two results."""
     boxes, valid = clustered_boxes(rng, 2, 1000, h=float(YOLO_SIZE), w=float(YOLO_SIZE),
                                    objects=100)
-    return nms_case(dev, "yolov4 class-agnostic 2x1000 iou=0.5 max_keep=100", boxes, valid,
-                    0.5, 100, plain=greedy_keep_reference_rows, reps=50, tag=f"{YOLO} nms_keep")
+    serving = nms_case(dev, "yolov4 class-agnostic 2x1000 iou=0.5 max_keep=100", boxes, valid,
+                       0.5, 100, plain=greedy_keep_reference_rows, reps=50,
+                       tag=f"{YOLO} nms_keep")
+    b, n, keep = YOLO_GATE_NMS
+    # Its own draws, so that the later phases' inputs stay as they were.
+    boxes, valid = clustered_boxes(np.random.default_rng(SEED + 16), b, n, h=64.0, w=128.0,
+                                   objects=3)
+    gate = nms_case(dev, f"yolov4 overfit eval {b}x{n} iou=0.5 max_keep={keep}", boxes, valid,
+                    0.5, keep, plain=greedy_keep_reference_rows, reps=50,
+                    tag=f"{YOLO} nms_keep")
+    return {"serving": serving, "gate": gate}
 
 
 def spread_yolo(model) -> None:
@@ -3522,6 +3591,96 @@ def check_yolo_serving(cfg, out, batch, label) -> None:
         f"{len(set(cls.flatten().tolist()))} classes")
 
 
+def kink_free(model) -> None:
+    """Every BN affine at scale 0.5 and bias +1 or -1 (a seeded sign per
+    channel; ``tests/test_torch_yolov4_train.py`` ``kink_free``): no leaky
+    ReLU input lies within rounding of its kink, and no BN input's mean
+    dwarfs its spread (the fast variance keeps its precision), so the
+    card's and the CPU's rounding decide no gradient."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm2d):
+                mod.weight.fill_(0.5)
+                signs = torch.randint(0, 2, mod.bias.shape, generator=gen) * 2.0 - 1.0
+                mod.bias.copy_(signs)
+
+
+def train_yolov4(dev):
+    """``yolov4_D_53_PAN_1x.yaml`` (bf16, float32 parameters, seeded random
+    weights, the YAML's ``FREEZE_AT 2``, switch off) on a seeded 8 x 608 x
+    608 batch with 64 GT an image: YOLO_TRAIN_STEPS warm-up and timed
+    steps; launches per step asserted (none), losses finite, the frozen stem
+    and res1 bit-equal, every trainable parameter moved (or, at the
+    warm-up's learning rate, took an update below float32's resolution with
+    a nonzero momentum), every BN running statistic of the neck and the
+    head moved. Logs img/s, the device ms per step and idle share under the
+    profiler and the peak memory. Returns the timed steps' launches."""
+    cfg = two_stage_cfg("yolov4", batch=8)
+    b = 8
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in make_train_batch(cfg, YOLO_SIZE, YOLO_SIZE).items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED),
+                        training=True, init="jax")
+    start = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    state = create_train_state(cfg, model, torch.Generator(device=dev).manual_seed(SEED))
+    step = build_train_step(cfg, state)
+    warm, timed = YOLO_TRAIN_STEPS
+    metrics = [step(batch) for _ in range(warm)]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        metrics.append(step(batch))
+    torch.cuda.synchronize()
+    img_s = b * timed / (time.perf_counter() - t0)
+    launches = read_launches()
+    for kernel, per in SPECS["yolov4"]["step"].items():
+        if launches[kernel] != per * timed:
+            raise AssertionError(f"yolov4: {launches[kernel]} {kernel} launches in {timed} "
+                                 f"steps, expected {per} per step")
+    if launches["fused_residual"] or fused_tails(model):
+        raise AssertionError("yolov4: fused tails in training")
+    device_ms, _, idle, _ = profile_predict.device_time(lambda: step(batch), 2, host_ops=False)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if set(values[0]) != {"total_loss", "box_loss", "conf_loss", "cls_loss"} or not all(
+            np.isfinite(v) for m in values for v in m.values()):
+        raise AssertionError(f"yolov4: losses {values}")
+    trainable = trainable_parameters(model, cfg.MODEL.BACKBONE.FREEZE_AT)
+    params = dict(model.named_parameters())
+    frozen = [n for n in params if n not in trainable]
+    if not frozen or any(not n.startswith(("backbone.bottom_up.stem.",
+                                           "backbone.bottom_up.res1.")) for n in frozen):
+        raise AssertionError(f"yolov4: unexpected frozen parameters {frozen}")
+    changed_frozen = [n for n in frozen if not torch.equal(params[n], start[n])]
+    unchanged = [n for n, p in trainable.items() if torch.equal(p.detach(), start[n])]
+    rounded = below_resolution(state, trainable, unchanged)
+    unchanged = [n for n in unchanged if n not in rounded]
+    if changed_frozen or unchanged:
+        raise AssertionError(f"yolov4: frozen parameters changed: {changed_frozen}; trainable "
+                             f"unchanged: {unchanged}")
+    stats = {f"{m}.{k}": t for m, mod in model.named_modules() if isinstance(mod, BatchNorm2d)
+             for k, t in mod.named_buffers()}
+    still = [n for n, t in stats.items() if torch.equal(t, start[n])]
+    if still or not stats or any(n.startswith("backbone.bottom_up.") for n in stats):
+        raise AssertionError(f"yolov4: BN statistics that did not move: {still}")
+    log(f"{YOLO} train {warm} + {timed} steps of batch {b} at {YOLO_SIZE}x{YOLO_SIZE} bf16 "
+        f"(64 GT an image, FREEZE_AT {cfg.MODEL.BACKBONE.FREEZE_AT}): {img_s:.2f} img/s (host "
+        f"clock, timed steps), device ms per step under the profiler {device_ms:.2f} (idle share "
+        f"{idle:.3f}), peak memory {peak:.2f} GiB; launches {launches}; first "
+        + ", ".join(f"{k} {v:.4f}" for k, v in values[0].items())
+        + f"; last total_loss {values[-1]['total_loss']:.4f}; {len(frozen)} frozen parameters "
+          f"(stem, res1) bit-equal, all {len(trainable)} trainable parameters changed (or, "
+          f"{len(rounded)} of them, took updates below float32's resolution at the warm-up's "
+          f"learning rate), all {len(stats)} BN running statistics of the neck and the head "
+          f"moved")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def check_darknet_load(dev) -> None:
     """``PRETRAINS.DARKNET`` on the card's machine: the narrow float32 model's
     seeded CPU weights written as a darknet blob and manifest into a temp
@@ -3550,15 +3709,19 @@ def check_darknet_load(dev) -> None:
 
 
 def run_yolov4(rng, dev, nms):
-    """Phase 16: YOLOv4 serving. The new ``nms_keep`` shape (``nms``, checked
-    earlier); the narrow float32 model card against CPU; the darknet blob
-    loaded on the card; ``yolov4_D_53_PAN_1x.yaml`` served 2 x 608 x 608
-    bf16 (switch off and on: 1 / 0 ``nms_keep`` / ``roi_patch_fwd`` per
-    ``predict``, 0 fused tails), with img/s, device ms, idle share and peak
-    memory. Returns the NMS result and the serving run's launches."""
+    """Phase 16: YOLOv4 serving and training. The new ``nms_keep`` shapes
+    (``nms``, checked earlier); the narrow float32 model and train step
+    card against CPU; the darknet blob loaded on the card;
+    ``yolov4_D_53_PAN_1x.yaml`` served 2 x 608 x 608 bf16 (switch off and
+    on: 1 / 0 ``nms_keep`` / ``roi_patch_fwd`` per ``predict``, 0 fused
+    tails), with img/s, device ms, idle share and peak memory, then trained
+    at 8 x 608 x 608 (:func:`train_yolov4`). Returns the NMS results and
+    the serving and training runs' launches."""
     with phase_seconds("yolov4.narrow"):
         check_small_against_cpu(rng, dev, False, two_stage_cfg("yolov4", narrow=True),
                                 label=f"{YOLO} narrow", prepare=spread_yolo)
+        check_train_against_cpu(dev, False, two_stage_cfg("yolov4", narrow=True, batch=2),
+                                label=YOLO, prepare=kink_free, zero_bias=True)
         check_darknet_load(dev)
     with phase_seconds("yolov4.full"):
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3566,7 +3729,9 @@ def run_yolov4(rng, dev, nms):
                                   check=check_yolo_serving)
         log(f"{YOLO} serving peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
             "(both models, batch 2 at 608x608 bf16)")
-    return {"nms": nms, "serving": serving}
+    with phase_seconds("yolov4.train"):
+        training = train_yolov4(dev)
+    return {"nms": nms, "serving": serving, "training": training}
 
 
 def probe():
@@ -3660,7 +3825,7 @@ def main() -> None:
     with phase_seconds("yolov4"), fused_switch(False):
         yolo = run_yolov4(rng, dev, later["yolov4"])
     with phase_seconds("gates"):
-        finish_workflow(pending)
+        gates = finish_workflow(pending)
     probe()
     log(f"seconds    total {time.perf_counter() - START:.1f}")
 
@@ -3689,9 +3854,14 @@ def main() -> None:
                     ssc["serving"]["retinanet"]["nms_keep"], ssc["nms"], ssc["nms"]["err"]),
         *keypoint_lines(kp),
         *dconv_lines(dc),
-        kernel_line("nms_keep@" + case_label("yolov4", yolo["nms"]["case"]), NMS_SRC,
+        kernel_line("nms_keep@" + case_label("yolov4", yolo["nms"]["serving"]["case"]), NMS_SRC,
+                    tpu_kernel("*/ops/pallas/nms_keep.py", 161), yolo["serving"]["nms_keep"],
+                    yolo["nms"]["serving"], yolo["nms"]["serving"]["err"]),
+        # launches: the yolov4 gate's run (its evaluations: a batch of 8 and 8 of 1)
+        kernel_line("nms_keep@" + case_label("yolov4", yolo["nms"]["gate"]["case"]), NMS_SRC,
                     tpu_kernel("*/ops/pallas/nms_keep.py", 161),
-                    yolo["serving"]["nms_keep"], yolo["nms"], yolo["nms"]["err"]),
+                    gates["yolov4"]["launches"]["nms_keep"], yolo["nms"]["gate"],
+                    yolo["nms"]["gate"]["err"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,15 @@ stride ``2 ** i``: at 608x608, ``res3`` / ``res4`` / ``res5`` are 76 / 38 /
 
 The trunk reads the ``MODEL.RESNETS`` block, as the JAX package's does
 (``STEM_OUT_CHANNELS``, ``RES2_OUT_CHANNELS``, ``OUT_FEATURES``, ``NORM``,
-``ACTIVATION``; ``MODEL.BACKBONE.FREEZE_AT``: the stem's and the first
-stages' outputs are detached, the JAX ``stop_gradient``). Module names are
+``ACTIVATION``; ``MODEL.BACKBONE.FREEZE_AT``: the stem's output is
+detached from 1 on and ``res{i}``'s from ``i + 1`` on, the JAX
+``stop_gradient``). The optimizer freezes exactly those modules
+(:meth:`DarkNet53.frozen_modules`: the stem and ``res1`` at the YAML's
+``FREEZE_AT 2``), so ``res2`` trains. The JAX solver's
+``trainable_mask`` freezes ``stem`` and ``res2`` by the ResNet's names
+instead, and ``optax.masked`` hands a masked leaf its raw gradient as its
+update: JAX's ``res2`` climbs its gradient, and its ``res1`` takes weight
+decay and momentum on a zero gradient. The port does not copy that. Module names are
 the JAX package's (``stem``, ``res1.preconv``, ``res1.block_1.conv1``,
 ``res1.final``), so ``convert.py`` carries its weights by name. The ResNet
 trunk's other keys (``REMAT``, ``DEFORM_ON_PER_STAGE``, ``RES5_DILATION``,
@@ -27,7 +34,7 @@ set, and no block takes the fused bottleneck tail: a DarkNet block ends in a
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 from torch import nn
@@ -103,6 +110,13 @@ class DarkNet53(nn.Module):
                                                activation=activation))
             self.stage_names.append(name)
             in_ch, out_ch = out_ch, out_ch * 2
+
+    @staticmethod
+    def frozen_modules(freeze_at: int) -> List[str]:
+        """The children whose outputs the forward detaches at ``freeze_at``,
+        which the optimizer leaves out: the stem from 1 on, then res1 ..
+        res{freeze_at - 1}."""
+        return ["stem"] * (freeze_at >= 1) + [f"res{i}" for i in range(1, freeze_at)]
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.stem(x)

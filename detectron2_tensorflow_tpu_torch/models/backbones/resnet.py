@@ -201,6 +201,12 @@ class ResNet(nn.Module):
             out_ch *= 2
             bott *= 2
 
+    @staticmethod
+    def frozen_modules(freeze_at: int) -> List[str]:
+        """The children the optimizer leaves out at ``freeze_at``: the stem
+        and res2 .. res{freeze_at}, the JAX ``trainable_mask``'s stages."""
+        return ["stem"] + [f"res{i}" for i in range(2, freeze_at + 1)]
+
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.stem(x)
         if self.freeze_at >= 1:

@@ -17,10 +17,13 @@ outputs go to the losses or the inference of ``RetinaNet``, ``SOLOv2`` or
     features; ``predict`` gives whole-frame masks at stride 4.
   * ``YOLOV4Head`` (over the CSP-DarkNet53 trunk's ``res3..res5`` and the
     SPP/PAN neck): :class:`~..single_stage.yolov4.YOLOV4Head` on p3-p5;
-    ``predict`` gives bbox-only detections (no masks). Its training is a
-    later slice of the port: ``losses`` raises ``NotImplementedError``, and
-    ``build_model(cfg, training=True)`` raises it before any step
-    (``training_not_ported``).
+    ``predict`` gives bbox-only detections (no masks); ``losses`` are the
+    YOLO matcher's ``box_loss``, ``conf_loss`` and ``cls_loss``.
+
+In training every BN layer (YOLOv4's neck and head, and a trunk or FPN with
+``NORM BN``) normalizes with its batch moments and moves its running
+statistics once per ``losses`` call, as the JAX ``StatsTape`` keeps them
+for these one-apply models.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 from ...structures import Instances
 from ..single_stage.retinanet import RetinaNet, RetinaNetHead
 from ..single_stage.solov2 import SOLOv2
-from ..single_stage.yolov4 import TRAINING_NOT_PORTED, YOLOv4
+from ..single_stage.yolov4 import YOLOv4
 from .common import Detector
 
 # The EMA loss normalizer's start (the JAX ``initial_state``).
@@ -45,9 +48,6 @@ class SingleStageDetector(Detector):
     point."""
 
     load_proposals = False
-    # Why the model cannot train yet (``build_model(..., training=True)``
-    # raises it), or None.
-    training_not_ported = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -66,7 +66,6 @@ class SingleStageDetector(Detector):
         if self.yolo:
             self.yolov4 = YOLOv4(cfg, [s for _, s in head_in])
             self.head = self.yolov4.build_head(cfg, [c for c, _ in head_in])
-            self.training_not_ported = TRAINING_NOT_PORTED
             return
         if self.mask_on:
             self.solov2 = SOLOv2(cfg)
@@ -110,10 +109,11 @@ class SingleStageDetector(Detector):
         ``generator`` and ``noise`` are not read. SOLOv2: ``loss_ins`` and
         ``loss_cate``; the positive cap's uniform draws are ``noise["solo"]``
         (``[B, cells]`` in [0, 0.5)) when given, else from ``generator``.
-        YOLOv4 raises ``NotImplementedError`` (``training_not_ported``)."""
-        if self.training_not_ported:
-            raise NotImplementedError(self.training_not_ported)
+        YOLOv4: ``box_loss``, ``conf_loss`` and ``cls_loss`` (``gt_is_crowd``
+        too when the batch has it); it samples nothing either."""
         outputs = self._head_outputs(batch["image"])
+        if self.yolo:
+            return self.yolov4.losses(outputs, batch)
         if self.mask_on:
             return self.solov2.losses(*outputs, batch, tuple(batch["image"].shape[1:3]),
                                       generator, (noise or {}).get("solo"))

@@ -69,13 +69,15 @@ def param_group(name: str) -> str:
 
 
 def trainable_parameters(model: nn.Module, freeze_at: int) -> Dict[str, nn.Parameter]:
-    """Parameters outside the frozen trunk stages (the stem and res2 ..
-    ``res{freeze_at}`` of ``model.trunk``, wherever the neck puts it), by
-    name. As the JAX ``trainable_mask`` keys on the trunk's own stage names,
-    the C4 ROI head's ``res5`` trains."""
+    """Parameters outside the frozen trunk stages, by name: those the trunk
+    (``model.trunk``, wherever the neck puts it) names in its
+    ``frozen_modules(freeze_at)``. A ResNet's are the stem and res2 ..
+    ``res{freeze_at}``, the JAX ``trainable_mask``'s; as that keys on the
+    trunk's own stage names, the C4 ROI head's ``res5`` trains. A DarkNet's
+    are the modules its forward detaches (``models/backbones/darknet.py``)."""
     trunk = model.trunk
-    frozen = ["stem"] + [f"res{i}" for i in range(2, freeze_at + 1)]
-    skip = {id(p) for f in frozen if hasattr(trunk, f) for p in getattr(trunk, f).parameters()}
+    skip = {id(p) for f in trunk.frozen_modules(freeze_at) if hasattr(trunk, f)
+            for p in getattr(trunk, f).parameters()}
     return {n: p for n, p in model.named_parameters() if id(p) not in skip}
 
 

@@ -1,7 +1,7 @@
 """Learning check: overfit a small detector on 8 synthetic images and report AP.
 
     python -m detectron2_tensorflow_tpu_torch.tools.overfit_check [STEPS]
-        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint|semantic|dconv|solov2]
+        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint|semantic|dconv|solov2|yolov4]
         [--eval_at N[,N...]]
         [--device cpu] [KEY VALUE ...]
 
@@ -27,7 +27,14 @@ and buckets; no anchors; the JAX recipe also sets
 ``MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST`` 0.2, which SOLOv2 never
 reads: it keeps ``MODEL.SOLO.SCORE_THRESH_TEST`` 0.1, and so does this one;
 it takes the small configuration's ``TRANSFORM``, whose mini-masks are the
-only targets SOLOv2's loss reads) families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
+only targets SOLOv2's loss reads) and ``yolov4`` (``yolov4_D_53_PAN_1x.yaml``, 3
+classes, its 3 x 3 anchor ladder scaled ~1/5 for 10-30 px boxes: ``[[3, 3],
+[4, 8], [8, 6]]``, ``[[8, 15], [15, 11], [14, 29]]``, ``[[28, 22], [38, 49],
+[92, 82]]``; the recipe's ``NORM GN`` makes the CSP-DarkNet53 trunk GN while
+the neck and the head keep BN; the JAX recipe's
+``MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST`` 0.2 is read by no YOLOv4 code,
+which keeps ``MODEL.YOLOV4.SCORE_THRESH_TEST`` 0.05, and so does this one)
+families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
 ``config.small_cfg()``, anchors scaled to 10-30 px boxes, ResNet-18 with GN trained from the JAX
 package's initializers (``FREEZE_AT 0``), 3 classes, 64 ROIs per image, 8
 images per step, LR 0.01 after 100 warm-up steps. It trains STEPS (default
@@ -48,7 +55,9 @@ The last line of stdout is one JSON object: ``arch``, ``steps``,
 masks, ``segm_ap``, ``segm_ap50``, with keypoints ``keypoints_ap``, with
 deformable convs ``conv_offsets`` and ``conv_offsets_moved``; for
 ``semantic`` ``miou`` and ``macc`` (``evaluate_sem_seg`` on the same
-images) in place of the APs.
+images) in place of the APs. Every arch but ``semantic`` adds ``launches``:
+each hand-written kernel's launches since the run began (training and the
+evaluations).
 ``--eval_at`` also evaluates after each
 of those earlier step counts and prints the same object for it (``steps`` =
 N) on a line of its own; training goes on from there unchanged. It gates
@@ -71,6 +80,7 @@ from ..data.transforms import resize_image
 from ..engine import build_train_step, create_train_state, to_device
 from ..engine.evaluator import evaluate, evaluate_sem_seg
 from ..models import build_model
+from .train import KERNELS
 
 REPO_CONFIGS = {
     "rcnn": "configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml",
@@ -82,10 +92,17 @@ REPO_CONFIGS = {
     "semantic": "configs/COCO-SemanticSegmentation/semantic_R_50_FPN_1x.yaml",
     "dconv": "configs/Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml",
     "solov2": "configs/COCO-InstanceSegmentation/solo_v2_R_50_FPN_1x.yaml",
+    "yolov4": "configs/COCO-Detection/yolov4_D_53_PAN_1x.yaml",
 }
 # The archs trained on 194x306 images of 30-70 px boxes in the 128x256 /
 # 256x128 buckets (a stride-4 head needs targets of more than a few cells).
 LARGE_INPUT_ARCHS = ("semantic", "solov2")
+# The archs whose anchors become one size per FPN level for 10-30 px boxes (C4
+# has one level; YOLOv4 keeps its own scaled ladder, ``get_cfg_for``).
+FPN_ANCHOR_ARCHS = ("rcnn", "cls_agnostic", "retinanet", "cascade", "keypoint", "dconv")
+# YOLOv4's anchor (w, h) ladder scaled ~1/5 of the 608 px one, per level.
+YOLO_OVERFIT_ANCHORS = [[[3, 3], [4, 8], [8, 6]], [[8, 15], [15, 11], [14, 29]],
+                        [[28, 22], [38, 49], [92, 82]]]
 
 
 def report_thresh(arch: str) -> float:
@@ -118,6 +135,10 @@ def get_cfg_for(arch: str):
         cfg.MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST = 0.2  # read by no model (module doc)
         cfg.MODEL.SOLO.NUM_GRIDS = [24, 20, 16, 12, 8]  # fewer cells at the small input
         cfg.MODEL.SOLO.INS_LOSS_TYPE = "dice+bce"  # pure dice collapses from scratch
+    elif arch == "yolov4":
+        cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES = 3
+        cfg.MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST = 0.2  # read by no model (module doc)
+        cfg.MODEL.ANCHOR_GENERATOR.SIZES = YOLO_OVERFIT_ANCHORS
     return cfg
 
 
@@ -130,7 +151,7 @@ def overfit_cfg(arch: str):
     cfg.TRANSFORM.RESIZE.MINI_MASK_SIZE = 28
     if arch == "c4":  # one feature level: one set of sizes
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8, 16, 32, 64, 128]]
-    elif arch not in LARGE_INPUT_ARCHS:  # anchors for 10-30 px boxes, one size per FPN level
+    elif arch in FPN_ANCHOR_ARCHS:  # anchors for 10-30 px boxes, one size per FPN level
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = [[8], [16], [32], [64], [128]]
     # The JAX recipe's ResNet-18, but a deformable trunk needs bottleneck blocks.
     cfg.MODEL.RESNETS.DEPTH = 50 if arch == "dconv" else 18
@@ -272,6 +293,7 @@ def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: 
     if offsets:
         out["conv_offsets"] = len(offsets)
         out["conv_offsets_moved"] = sum(bool(w.detach().abs().max() > 0) for w in offsets)
+    out["launches"] = {k: fn.launches for k, fn in KERNELS.items()}
     print(json.dumps(out), flush=True)
     return out
 
@@ -288,6 +310,8 @@ def main(argv=None):
     state = create_train_state(cfg, model, torch.Generator(device=device).manual_seed(0))
     step = build_train_step(cfg, state)
     train_iter = build_dataloader(cfg, ds, training=True, seed=0)
+    for fn in KERNELS.values():
+        fn.launches = 0
 
     train_s = 0.0
     last_loss = None

@@ -6,13 +6,15 @@ Builds chip_smoke's training state (Mask R-CNN R50-FPN at ``train_cfg``:
 bf16, float32 parameters, seeded random weights; with ``--config_file``,
 that YAML's model in bf16 with ``batch`` images per step and at most 64 GT
 instances per image, as ``train_cfg``), steps on a seeded
-800x1344 ``make_train_batch`` of each given size (default 8), and prints:
+``make_train_batch`` of each given size (default 8) at the config's first
+``INPUT.PAD_BUCKETS`` entry (800x1344, or 608x608 for
+``configs/COCO-Detection/yolov4_D_53_PAN_1x.yaml``), and prints:
 images/s on the host clock around synchronized steps, the peak device
 memory, and from ``torch.profiler`` the device time per step, the device's
 idle share, the device time by category (as ``profile_predict``) and the top
 kernels; for a model with a semantic head, the device ms of that head's
 forward, ``sem_seg_loss`` and backward on the step's features, and for
-SOLOv2 its head's forward, losses and backward. The full
+SOLOv2 and YOLOv4 the head's forward, losses and backward. The full
 profiler table goes to
 ``profile_train[_<config>]_b<batch>[_fused].txt`` beside
 ``profile_predict``'s (``D2TPU_ENABLE_FUSED_EPILOGUE=1``: the fused
@@ -58,7 +60,7 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
                         training=True)
     state = create_train_state(cfg, model, torch.Generator(device=dev).manual_seed(0))
     step = build_train_step(cfg, state)
-    data = make_train_batch(cfg)
+    data = make_train_batch(cfg, *profile_predict.serving_shape(cfg)[0])
     if cfg.MODEL.LOAD_PROPOSALS:
         data = add_proposal_slots(cfg, data, training=True)
     data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
@@ -111,6 +113,34 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
         model.zero_grad(set_to_none=True)
         print(f"  SOLOv2 head forward + losses + backward: device {ms[0]:.3f} ms/step, wall "
               f"{ms[1]:.3f} ms")
+    if hasattr(model, "yolov4"):
+        profile_yolov4(model, data)
+
+
+def profile_yolov4(model, data) -> None:
+    """YOLOv4's head (the three 3x3 convs and predictors), its losses (decode,
+    the matcher with its ``[B, G, R]`` CIoU, the three losses) and their
+    backward to the features, on the step's features; then the losses alone
+    on the head's maps."""
+    drv = model.yolov4
+    with torch.no_grad():
+        feats = model.features(data["image"])
+    levels = [feats[f].detach().requires_grad_(True) for f in drv.in_features]
+
+    def yolo_step():
+        maps = [p.float() for p in model.head(levels)]
+        sum(drv.losses(maps, data).values()).backward()
+
+    ms = profile_predict.device_time(yolo_step, 3)
+    with torch.no_grad():
+        maps = [p.float() for p in model.head(levels)]
+    loss_ms = profile_predict.device_time(lambda: drv.losses(maps, data), 3)
+    model.zero_grad(set_to_none=True)
+    g = data["gt_boxes"].shape[1]
+    cands = sum(m.shape[2] * m.shape[3] for m in maps) * drv.num_anchors
+    print(f"  YOLOv4 head forward + losses + backward ({cands} candidates, {g} GT slots): "
+          f"device {ms[0]:.3f} ms/step, wall {ms[1]:.3f} ms; losses alone (no gradient): "
+          f"device {loss_ms[0]:.3f} ms, wall {loss_ms[1]:.3f} ms")
 
 
 def main(argv) -> None:

@@ -31,8 +31,7 @@ The JAX package's native (C++ JPEG) train loader is not ported: with
 ``DATALOADER.NATIVE_TRAIN_IO`` on, one line says so and ``build_dataloader``
 serves, as in the JAX CLI where the native loader is unusable. An
 ``AUGMENT.*`` augmentation the port does not have raises before any data
-is read, and so does a model whose training is not ported yet (YOLOv4:
-``NotImplementedError`` from ``build_model``).
+is read.
 """
 
 from __future__ import annotations
@@ -158,7 +157,6 @@ def main(argv=None):
     finalize(cfg, training=True, device=args.device)
 
     seed = max(cfg.SEED, 0)
-    # First, so that a model that cannot train (YOLOv4) raises before any data is read.
     model = build_model(cfg, device=args.device, training=True, init="jax",
                         generator=torch.Generator().manual_seed(seed))
     dataset = build_train_dataset(cfg)

@@ -523,14 +523,9 @@ def test_unported_families_raise_by_name(path, match):
             assert meta_architecture(tcfg)(tcfg) is not None
         tcfg.MODEL.SOLO.MASK_KERNEL_SIZE = 3
         match = "MASK_KERNEL_SIZE"
-    if "yolov4" in path:  # YOLOv4 serves now (tests/test_torch_yolov4.py); its training raises
-        with torch.device("meta"):
-            model = meta_architecture(tcfg)(tcfg)
-        with pytest.raises(NotImplementedError, match=match):
-            model.losses({"image": torch.zeros((1, 64, 64, 3), device="meta")})
-        with pytest.raises(NotImplementedError, match=match), torch.device("meta"):
-            build_model(tcfg, device="cpu", training=True)
-        return
+    if "yolov4" in path:  # YOLOv4 serves and trains now (tests/test_torch_yolov4_train.py);
+        assert build_model(tcfg, device="cpu", training=True).training  # an option the
+        tcfg.MODEL.RESNETS.REMAT = True  # DarkNet53 trunk does not read raises
     with pytest.raises(NotImplementedError, match=match), torch.device("meta"):
         meta_architecture(tcfg)(tcfg)
 

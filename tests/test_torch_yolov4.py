@@ -332,7 +332,7 @@ def test_fused_switch_fuses_no_darknet_tail(monkeypatch):
     assert sum(bool(getattr(m, "fuse_residual", False)) for m in model.modules()) == 0
 
 
-# -- the YAMLs, the options the trunk does not read, training -----------------------------
+# -- the YAMLs, the options the trunk does not read ---------------------------------------
 
 @pytest.mark.parametrize("path", YOLO_YAMLS)
 def test_yolo_yaml_builds_the_jax_tree(path):
@@ -359,3 +359,70 @@ def test_darknet_raises_on_what_it_does_not_read(opts, match):
     _, tcfg = yolo_cfgs(**{opts[0]: opts[1]})
     with pytest.raises(NotImplementedError, match=match), torch.device("meta"):
         meta_architecture(tcfg)(tcfg)
+
+
+# -- the numpy oracles ------------------------------------------------------------------
+
+def test_port_passes_the_yolov4_pipeline_oracle():
+    """``tests/test_pipeline_oracle.py``'s YOLOv4 oracle (grid decode, the
+    sigmoid product, the top 1000, clip, one class-agnostic greedy NMS, in
+    numpy on the JAX head's maps; its config from this repo's YAML) holds
+    the port's ``predict``."""
+    from test_torch_c4 import repo_configs
+    from test_torch_gn import port_in
+    from tests import test_pipeline_oracle as oracle
+
+    with repo_configs(), port_in(oracle):
+        oracle.test_yolov4_inference_matches_numpy_oracle()
+
+
+class PortDarkNet:
+    """Stands in for the JAX DarkNet module in ``tests/test_trunk_oracle.py``:
+    ``init`` is the JAX module's, ``apply`` runs the port's trunk (its
+    config carried over, BN on the running statistics) on the converted
+    variables, NHWC in and out."""
+
+    def __init__(self, jcfg, jmodule):
+        self.jcfg, self.jmodule = jcfg, jmodule
+
+    def init(self, *args, **kwargs):
+        return self.jmodule.init(*args, **kwargs)
+
+    def apply(self, variables, x, train=False):
+        from test_torch_gn import port_cfg_from
+
+        from detectron2_tensorflow_tpu_torch.models.backbones.darknet import (
+            build_darknet_backbone as build_port_darknet,
+        )
+
+        assert not train
+        sd = convert_variables({k: {"backbone": jax.tree_util.tree_map(np.asarray, v)}
+                                for k, v in variables.items()})
+        trunk = build_port_darknet(port_cfg_from(self.jcfg)).eval()
+        trunk.load_state_dict({k[len("backbone."):]: v for k, v in sd.items()})
+        with torch.no_grad():
+            out = trunk(nchw(x))
+        return {k: nhwc(v) for k, v in out.items()}
+
+
+def test_port_darknet_passes_the_numpy_trunk_oracle(monkeypatch):
+    """``tests/test_trunk_oracle.py``'s CSP-DarkNet53 oracle (stem, five CSP
+    stages of BN and mish on perturbed running statistics, in float64
+    numpy from the weights) holds the port's trunk: the JAX constructor it
+    imports is swapped for one whose module applies the port, and its
+    ``jax.jit`` leaves that apply unjitted."""
+    import types
+
+    from detectron2_tensorflow_tpu.models.backbones import darknet as jax_darknet
+    from tests import test_trunk_oracle as oracle
+
+    def build(cfg, dtype=jnp.float32):
+        module, shapes = jax_build_darknet(cfg, dtype=dtype)
+        return PortDarkNet(cfg, module), shapes
+
+    fake_jax = types.SimpleNamespace(**{k: getattr(jax, k) for k in dir(jax)
+                                        if not k.startswith("__")})
+    fake_jax.jit = lambda fn, **kwargs: fn
+    monkeypatch.setattr(jax_darknet, "build_darknet_backbone", build)
+    monkeypatch.setattr(oracle, "jax", fake_jax)
+    oracle.test_csp_darknet_trunk_matches_numpy_oracle()

@@ -1,5 +1,5 @@
-"""YOLOv4's darknet converter, ``PRETRAINS.DARKNET``, evaluation and the
-training that waits, against the JAX package.
+"""YOLOv4's darknet converter, ``PRETRAINS.DARKNET``, evaluation and
+training from the YAML, against the JAX package.
 
 The converter: a seeded blob read through the manifest of the narrow
 ``yolov4_D_53_PAN_1x`` model (``test_torch_yolov4.YOLO_NARROW``) gives the
@@ -9,9 +9,10 @@ port, tensor for tensor, what the JAX converter gives carried across by
 loads a blob written from a model's own weights (``write_darknet_weights``,
 the converter's inverse) into another, bit for bit. The evaluation runs a
 narrow YOLOv4 through ``run_evaluation`` and ``tools.eval`` on synthetic
-COCO images (``tools.make_synthetic_coco``), bbox AP only. Training raises
-``NotImplementedError`` by name: ``losses``, ``build_model(...,
-training=True)`` and ``tools.train`` before it reads any data.
+COCO images (``tools.make_synthetic_coco``), bbox AP only. Training runs:
+``losses``, ``build_model(..., training=True)`` and ``tools.train`` from the
+YAML (the losses themselves are held against the JAX package in
+``test_torch_yolov4_train.py``).
 """
 
 import json
@@ -221,27 +222,41 @@ def test_tools_eval_loads_the_darknet_blob(coco_root, tmp_path, caplog):
     assert "bbox/AP" in metrics and not any(k.startswith("segm") for k in metrics)
 
 
-# -- training waits -----------------------------------------------------------------------
+# -- training ------------------------------------------------------------------------------
 
-def test_yolov4_training_raises_by_name(tmp_path):
-    """``losses`` and ``build_model(..., training=True)`` raise
-    ``NotImplementedError`` naming YOLOv4 training; ``tools.train`` raises it
-    before it reads any data (its ``DATASETS.ROOT_DIR`` holds none)."""
+# The synthetic training images at the small bucket, two a step.
+TRAIN_SMALL = {"TRANSFORM.RESIZE.MIN_SIZE_TRAIN": (128,), "TRANSFORM.RESIZE.MAX_SIZE_TRAIN": 160,
+               "SOLVER.IMS_PER_BATCH": 2, "INPUT.MAX_GT_INSTANCES": 8}
+
+
+def test_yolov4_training_raises_by_name(coco_root, tmp_path):
+    """YOLOv4 trains: ``build_model(..., training=True)`` builds, ``losses``
+    gives finite ``box_loss``, ``conf_loss`` and ``cls_loss`` (crowd slots
+    included), and ``tools.train --config_file`` the YOLO YAML takes 2 steps
+    on the CPU from synthetic COCO images at narrow widths, writing its
+    checkpoint and its summary."""
     _, tcfg = yolo_cfgs()
-    model = build_model(tcfg, device="cpu")
-    batch = {"image": torch.zeros((1, 64, 64, 3)), "image_size": torch.tensor([[64, 64]]),
-             "gt_boxes": torch.zeros((1, 1, 4)), "gt_classes": torch.zeros((1, 1)),
-             "gt_valid": torch.ones((1, 1), dtype=torch.bool)}
-    match = "YOLOv4 training .* later slice"
-    with pytest.raises(NotImplementedError, match=match):
-        model.losses(batch)
-    with pytest.raises(NotImplementedError, match=match):
-        model.yolov4.losses([], batch)
-    with pytest.raises(NotImplementedError, match=match):
-        build_model(tcfg, device="cpu", training=True)
-    opts = [str(x) for kv in YOLO_NARROW.items() for x in kv]
-    with pytest.raises(NotImplementedError, match=match):
-        tools_train.main(["--device", "cpu", "--max_iter", "1", "--config_file",
-                          os.path.join(REPO, YOLO_YAML), "DATASETS.ROOT_DIR",
-                          str(tmp_path / "absent"), "LOGS.ROOT_DIR", str(tmp_path), *opts])
-    assert os.listdir(tmp_path) == []
+    model = build_model(tcfg, device="cpu", training=True, init="jax")
+    assert model.training
+    rng = np.random.default_rng(0)
+    boxes = np.zeros((2, 3, 4), np.float32)
+    boxes[..., :2] = rng.uniform(0, 80, (2, 3, 2))
+    boxes[..., 2:] = boxes[..., :2] + rng.uniform(10, 40, (2, 3, 2))
+    batch = {"image": torch.from_numpy(rng.uniform(0, 255, (2, 128, 160, 3)).astype(np.float32)),
+             "image_size": torch.tensor([[128, 160], [128, 150]]),
+             "gt_boxes": torch.from_numpy(boxes), "gt_classes": torch.tensor([[0, 1, 3], [2, 2, 0]]),
+             "gt_valid": torch.tensor([[True, True, False], [True, True, True]]),
+             "gt_is_crowd": torch.tensor([[False, False, False], [False, True, False]])}
+    losses = model.losses(batch)
+    assert set(losses) == {"box_loss", "conf_loss", "cls_loss"}
+    assert all(bool(torch.isfinite(v)) and float(v.detach()) > 0 for v in losses.values())
+    sum(losses.values()).backward()
+    opts = [str(x) for kv in {**YOLO_NARROW, **EVAL_SMALL, **TRAIN_SMALL}.items() for x in kv]
+    summary = tools_train.main(["--device", "cpu", "--max_iter", "2", "--config_file",
+                                os.path.join(REPO, YOLO_YAML), "DATASETS.ROOT_DIR",
+                                str(coco_root), "LOGS.ROOT_DIR", str(tmp_path), *opts])
+    assert summary["steps"] == 2 and summary["step"] == 2
+    assert set(summary["final_losses"]) == {"total_loss", "box_loss", "conf_loss", "cls_loss"}
+    assert all(np.isfinite(v) for v in summary["final_losses"].values())
+    assert summary["launches"] == {k: 0 for k in summary["launches"]}
+    assert os.listdir(summary["checkpoint_dir"])
