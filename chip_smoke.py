@@ -86,7 +86,7 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      ``tools.overfit_check`` subprocesses, and phase 13's panoptic workflow
      (host-bound, as (b) is). (a) runs in the phase; (b) (on a thread), the
      gates and the panoptic workflow start at its end and run on beside
-     phases 9-16, and the last phase, ``gates``, waits for them and checks
+     phases 9-17, and the last phase, ``gates``, waits for them and checks
      them (this keeps the script inside its time limit);
   9. single_level: the C4 (``Res5ROIHeads``) and DC5 (dilated res5)
      families. Each kernel at their shapes against its plain version, timed
@@ -272,7 +272,25 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      tails), with img/s, device ms per step, idle share and peak memory.
      Its gate, ``tools.overfit_check 600 --arch yolov4`` (bbox AP50 >= 90,
      bbox AP no more than 10 below the JAX tool's), runs with the others;
- 17. gates: waits for workflow (b), the panoptic workflow and the overfit
+ 17. relation: Relation Networks serving. No kernel shape is new (the RPN's
+     NMS and the box pool are R50-FPN's; the relation head and the learned
+     duplicate removal launch no kernel). The narrow float32 relation models
+     (16 groups of key dim 64 over FC 64) held against the CPU: the YAML as
+     it is (class-aware NMS), the duplicate removal with its five IoU heads
+     combined by mean and by max, and ``MASK_ON`` on the removal's
+     detections, each from the CPU model's proposals and duplicate-removal
+     candidates, with the geometry weights off the clamp before ``log(wg)``
+     (``geometry_kink_free``; valid slots and classes equal across score
+     ties as ``tie_order`` matches them, boxes, scores and masks to the
+     standing tolerances, the removal's scores to ``RELATION_TOL``'s 5e-5). ``relation_rcnn_R_50_FPN_1x.yaml`` (bf16, seeded random
+     weights, ``SCORE_THRESH_TEST`` 0) serves 2 x 800 x 1344 as it is and
+     with ``DUPLICATE_REMOVAL_ON``, the switch off and on in turns (100
+     valid, finite, clipped detections per image, classes in [0, 80),
+     scores in (0, 1]; per ``predict`` 2 / 1 ``nms_keep`` / ``roi_patch_fwd``
+     as it is and 1 / 1 with the removal, 16 fused tails on), with img/s,
+     device ms and idle share, the relation head's and the removal's device
+     ms, and the peak memory of a predict at batch 2 and at batch 8;
+ 18. gates: waits for workflow (b), the panoptic workflow and the overfit
      gates started in phase 8, and checks them.
 
 Each phase's seconds are printed on a line of their own; phase 14's parts
@@ -347,6 +365,7 @@ from detectron2_tensorflow_tpu_torch.models.poolers import (
     roi_patch_interpolate_reference,
     skip_tier_class,
 )
+from detectron2_tensorflow_tpu_torch.models.roi_heads import relation
 from detectron2_tensorflow_tpu_torch.models.sampling import draw_noise
 from detectron2_tensorflow_tpu_torch.models.single_stage.solov2 import SOLOv2
 from detectron2_tensorflow_tpu_torch.ops import fused_residual
@@ -1020,13 +1039,20 @@ def narrow_cfg():
 
 
 def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
-                            prepare=None):
+                            prepare=None, same_proposals=False, tol=None):
     """Narrow float32 model (``narrow_cfg()`` unless ``cfg``) on a 2 x 128 x
     160 input: the card's output (kernels) against the CPU's (plain
     versions), same weights (``prepare(model)`` adjusts the CPU model's
     first), with the fused tail switched off or on for both. A
     ``LOAD_PROPOSALS`` model reads proposals around random boxes
-    (``engine.add_proposal_slots``)."""
+    (``engine.add_proposal_slots``); with ``same_proposals`` the card's
+    model serves from the CPU model's RPN proposals (``given_proposals``)
+    and, with a duplicate removal, from its candidates (``cpu_candidates``:
+    the removal's rank embedding follows the candidates' class-score order,
+    and at random weights hundreds of class scores sit within rounding of
+    each other, so two that trade places on the card trade their keep
+    scores, by up to 0.11 over 30 inputs on an H100 80GB HBM3 at 700 W).
+    ``tol``: :func:`hold_detections`' tolerances (``SMALL_TOL``)."""
     cfg = cfg or narrow_cfg()
     with fused_switch(fused):
         cpu_model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
@@ -1040,8 +1066,18 @@ def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
     batch = {"image": torch.from_numpy(image), "image_size": torch.from_numpy(sizes)}
     if cfg.MODEL.LOAD_PROPOSALS:
         batch.update(small_proposals(cfg, sizes))
-    want = cpu_model.predict(batch)
-    got = gpu_model.predict({k: v.to(dev) for k, v in batch.items()})
+    with cpu_candidates(same_proposals, dev) as replay:
+        want = cpu_model.predict(batch)
+    proposals = None
+    if same_proposals:
+        with torch.inference_mode():
+            feats = cpu_model.features(batch["image"])
+            rpn = cpu_model.proposal_generator
+            found = rpn.proposals(*rpn.rpn_head([feats[f] for f in rpn.in_features]),
+                                  batch["image_size"])
+        proposals = Instances(**{k: v.to(dev) for k, v in found.get_fields().items()})
+    with given_proposals(gpu_model, proposals), replay():
+        got = gpu_model.predict({k: v.to(dev) for k, v in batch.items()})
     got = {k: v.cpu() for k, v in got.get_fields().items()}
     if not torch.equal(got["is_valid"], want.is_valid):
         raise AssertionError("small input: valid slots differ between the card and the CPU")
@@ -1049,7 +1085,7 @@ def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
     if isinstance(cpu_model, SemanticSegmentor):
         log(f"{label} small f32 input, fused tail {'on' if fused else 'off'}, card vs CPU{sem}")
         return
-    errs, swapped = hold_detections(got, want.get_fields())
+    errs, swapped = hold_detections(got, want.get_fields(), tol)
     if "sem_seg" in got:
         sem += check_fusion_small(cfg, dev, want)
     log(f"{label} small f32 input, fused tail {'on' if fused else 'off'}, card vs CPU: "
@@ -1058,12 +1094,46 @@ def check_small_against_cpu(rng, dev, fused: bool, cfg=None, label="model     ",
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + sem)
 
 
-def hold_detections(got, want):
+@contextlib.contextmanager
+def cpu_candidates(on: bool, dev):
+    """Record the duplicate-removal candidates that the models' calls in the
+    block build (``relation.build_duplicate_removal_candidates``); yields a
+    context in which the same calls get those candidates, on ``dev``,
+    instead. ``on`` False: neither."""
+    built = []
+    if not on:
+        yield contextlib.nullcontext
+        return
+    real = relation.build_duplicate_removal_candidates
+
+    def record(*args, **kwargs):
+        built.append(real(*args, **kwargs))
+        return built[-1]
+
+    @contextlib.contextmanager
+    def replay():
+        calls = iter(built)
+        relation.build_duplicate_removal_candidates = lambda *a, **k: tuple(
+            t.to(dev) for t in next(calls))
+        try:
+            yield
+        finally:
+            relation.build_duplicate_removal_candidates = real
+
+    relation.build_duplicate_removal_candidates = record
+    try:
+        yield replay
+    finally:
+        relation.build_duplicate_removal_candidates = real
+
+
+def hold_detections(got, want, tolerances=None):
     """The card's detections ``got`` against the CPU's ``want`` (field dicts on
     the CPU): classes equal, each slot (or its partner across a score tie,
-    :func:`tie_order`) within ``SMALL_TOL``, keypoints within
+    :func:`tie_order`) within ``tolerances`` (``SMALL_TOL``), keypoints within
     ``KEYPOINT_TOL``. Returns the largest errors and the swapped slots."""
-    order = tie_order(got, want)
+    tolerances = tolerances or SMALL_TOL
+    order = tie_order(got, want, tolerances)
     classes = torch.gather(got["pred_classes"], 1, order)
     if not torch.equal(classes, want["pred_classes"]):
         i, j = (int(v) for v in torch.nonzero(classes != want["pred_classes"])[0])
@@ -1073,7 +1143,7 @@ def hold_detections(got, want):
                              f"{int(want['pred_classes'][i, j])} "
                              f"({float(want['scores'][i, j]):.9g})")
     errs = {}
-    for k, tol in SMALL_TOL.items():
+    for k, tol in tolerances.items():
         if k not in got:
             continue
         slots = order.reshape(order.shape + (1,) * (got[k].dim() - 2)).expand_as(got[k])
@@ -1170,18 +1240,19 @@ def small_proposals(cfg, sizes, seed=SEED):
     return {k: torch.from_numpy(v) for k, v in slots.items() if k.startswith("proposal_")}
 
 
-def tie_order(got, want):
+def tie_order(got, want, tolerances=None):
     """``[B, D]``: the card's slot that holds each CPU slot's detection: the
     same slot, or, where the boxes or classes differ, another slot whose CPU
-    score lies within ``SMALL_TOL["scores"]`` of this one's and whose card
-    box and class match. At random weights the scores of the detections
+    score lies within ``tolerances["scores"]`` (``SMALL_TOL``'s) of this
+    one's and whose card box and class match. At random weights the scores of the detections
     sit ~1e-7 apart, as close as the card and the CPU round them, so two
     such detections (of one class or of two) may take their slots in the
     other order; every slot is still held to the tolerances, and the order
     stays a permutation."""
     b, n = want["scores"].shape
     order = torch.arange(n).repeat(b, 1)
-    tol, stol = SMALL_TOL["boxes"], SMALL_TOL["scores"]
+    tolerances = tolerances or SMALL_TOL
+    tol, stol = tolerances["boxes"], tolerances["scores"]
 
     def holds(i, k, j):  # the card's slot k holds the CPU's detection j
         return (got["pred_classes"][i, k] == want["pred_classes"][i, j]
@@ -2401,6 +2472,7 @@ def two_stage_cfg(name: str, narrow: bool = False, batch: int = 0):
     YOLOv4's) or narrow float32, ``batch`` > 0 for training."""
     cfg = get_cfg()
     cfg.merge_from_file(str(ROOT / SPECS[name]["yaml"]))
+    cfg.merge_from_list(list(SPECS[name].get("opts", ())))
     cfg.MODEL.DTYPE = "bfloat16"
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
@@ -2512,14 +2584,16 @@ def check_proposal_outputs(cfg, out, b: int, label: str) -> str:
 
 
 def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check=None,
-                    weights=None):
-    """``name``'s YAML (bf16, seeded random weights) serving 2 images at its
+                    weights=None, probe_model=None):
+    """``name``'s YAML (bf16, seeded random weights; ``SPECS[name]["opts"]``
+    over it) serving 2 images at its
     first pad bucket (800 x 1344; YOLOv4's 608 x 608, ``profile_predict.serving_shape``),
     with the fused tail off and on in ``turns``: launches per ``predict``
     asserted (no fused tail but on FrozenBN trunks), outputs checked (by
     ``check(cfg, out, batch, label)`` when given), img/s and device ms per
-    call with the idle share. ``weights``: a state dict in place of the
-    seeded draw. Returns the launches."""
+    call with the idle share; ``probe_model(model, batch)`` then looks
+    further into the first turn's model. ``weights``: a state dict in place
+    of the seeded draw. Returns the launches."""
     spec = SPECS[name]
     cfg = two_stage_cfg(name)
     models = {}
@@ -2572,6 +2646,8 @@ def serve_two_stage(rng, dev, name: str, turns=(False,), tag="two_stage ", check
             f"switch {'on' if f else 'off'} {np.median(rates[f]):.2f} img/s, device ms per "
             f"predict {timing[f][0]:.2f} (idle share {timing[f][2]:.3f})" for f in models)
         + f"; launches {launches}")
+    if probe_model is not None:
+        probe_model(models[turns[0]], batch)
     del models
     torch.cuda.empty_cache()
     return launches
@@ -3734,6 +3810,124 @@ def run_yolov4(rng, dev, nms):
     return {"nms": nms, "serving": serving, "training": training}
 
 
+# -- phase 17: relation ------------------------------------------------------------------
+
+REL = "relation  "  # the phase's log tag
+RELATION_YAML = "configs/Misc/relation_rcnn_R_50_FPN_1x.yaml"
+DUP_ON = ("MODEL.ROI_BOX_RELATION_HEAD.DUPLICATE_REMOVAL_ON", "True")
+# Relation Networks serving: the RPN's NMS and one box pool per predict, plus
+# the box head's class-aware NMS as the YAML is; with the learned duplicate
+# removal (five IoU heads, the YAML's) that NMS is gone (attention, sigmoids
+# and a top-k, no kernel). The relation head itself launches no kernel.
+SPECS["relation"] = {"yaml": RELATION_YAML, "predict": {"nms_keep": 2, "roi_patch_fwd": 1}}
+SPECS["relation_dup"] = {"yaml": RELATION_YAML, "opts": DUP_ON,
+                         "predict": {"nms_keep": 1, "roi_patch_fwd": 1}}
+# The narrow float32 models held card against CPU, each from the CPU model's
+# proposals and candidates (``same_proposals``) and with ``geometry_kink_free``
+# weights: the
+# YAML as it is, the removal combining its heads by mean and by max, and the
+# mask head on the removal's detections.
+RELATION_SMALL = {
+    "nms": (),
+    "dup_mean": DUP_ON,
+    "dup_max": DUP_ON + ("MODEL.ROI_BOX_RELATION_HEAD.DUPLICATE_REMOVAL_COMBINE", "max"),
+    "dup_mask": DUP_ON + ("MODEL.MASK_ON", "True"),
+}
+RELATION_PEAK_BATCH = 8
+# The duplicate removal's scores, and the window in which ``tie_order``
+# matches two slots across a score tie: from the same proposals, candidates
+# and weights the removal's mean of five unsaturated sigmoids still carries
+# the geometry's rounding, card against CPU, up to 1.76e-5 over 30 inputs
+# (measured on an H100 80GB HBM3 at 700 W; the max rule 0, the box head
+# alone 1.07e-6 within SMALL_TOL).
+RELATION_TOL = {**SMALL_TOL, "scores": 5e-5}
+# ``geometry_kink_free``: each relation module's geometry weight scaled by
+# this, its bias set to 1.
+GEOMETRY_WEIGHT_SCALE = 0.1
+
+
+def geometry_kink_free(model) -> None:
+    """Each relation module's ``geometry_weight`` x GEOMETRY_WEIGHT_SCALE with
+    bias 1, so that its output wg (~1 +- 0.1) stays far from the 1e-6 clamp
+    before ``log(wg)``. At random weights wg is ~N(0, 1), and log(wg) near
+    the clamp turns the ulp by which the card's and the CPU's boxes differ
+    into another attention: the box head's scores moved by up to 4.6e-5
+    over 20 inputs, 2.2e-6 with these weights (measured on an H100 80GB HBM3
+    at 700 W), as ``kink_free`` keeps BN outputs off the leaky ReLU's kink."""
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if name.endswith(".geometry_weight"):
+                mod.weight.mul_(GEOMETRY_WEIGHT_SCALE)
+                mod.bias.fill_(1.0)
+
+
+def check_relation_serving(cfg, out, batch, label) -> None:
+    """``check_outputs`` (100 valid, finite detections per image, boxes
+    clipped to the image), then classes of the 80 and scores in (0, 1]."""
+    check_outputs(cfg, out, batch, 2, 800, 1344, label, phase=REL)
+    cls, s = out.pred_classes, out.scores
+    if bool((cls < 0).any()) or bool((cls >= cfg.MODEL.ROI_HEADS.NUM_CLASSES).any()):
+        raise AssertionError(f"{label}: classes out of range")
+    if not (float(s.min()) > 0.0 and float(s.max()) <= 1.0):
+        raise AssertionError(f"{label}: scores outside (0, 1]")
+
+
+def peak_gib(model, batch) -> float:
+    """Peak device memory of one ``predict`` of ``batch`` (weights included)."""
+    dev = batch["image"].device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model.predict(batch)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def relation_probe(model, batch) -> None:
+    """Log the relation head's and the duplicate removal's device ms on the
+    served proposals (``profile_predict.relation_times``), one predict's peak
+    memory, then at batch RELATION_PEAK_BATCH (the first image repeated)
+    the peak memory and device ms."""
+    t = profile_predict.relation_times(model, batch)
+    removal = (f", duplicate removal {t['removal_ms']:.3f} ms" if "removal_ms" in t
+               else ", no duplicate removal")
+    log(f"{REL} relation box head on {t['rois'][0]} x {t['rois'][1]} ROIs: device "
+        f"{t['head_ms']:.3f} ms a call (geometry embedding alone {t['geometry_ms']:.3f} ms)"
+        + removal + f"; peak memory of a predict {peak_gib(model, batch):.2f} GiB (one model)")
+    b = RELATION_PEAK_BATCH
+    big = {k: v[:1].expand((b,) + v.shape[1:]).contiguous() for k, v in batch.items()}
+    peak = peak_gib(model, big)
+    device_ms, _, idle, _ = profile_predict.device_time(lambda: model.predict(big), 2,
+                                                        host_ops=False)
+    log(f"{REL} predict at batch {b}: peak memory {peak:.2f} GiB (one model), device ms "
+        f"{device_ms:.2f} (idle share {idle:.3f})")
+
+
+def run_relation(rng, dev):
+    """Phase 17: Relation Networks serving. The narrow float32 relation
+    models (RELATION_SMALL) on the card against the CPU;
+    ``relation_rcnn_R_50_FPN_1x.yaml`` (bf16, seeded random weights,
+    ``SCORE_THRESH_TEST`` 0) serving 2 x 800 x 1344 as it is and with
+    ``DUPLICATE_REMOVAL_ON``, each with the switch off and on in turns
+    (launches per ``predict`` asserted, 16 fused tails on), with img/s,
+    device ms, idle share, the relation head's and the removal's device ms
+    and the peak memory at batch 2 and 8 (``relation_probe``). Returns the
+    serving runs' launches."""
+    with phase_seconds("relation.narrow"):
+        for name, opts in RELATION_SMALL.items():
+            cfg = two_stage_cfg("relation", narrow=True)
+            cfg.merge_from_list(list(opts))
+            check_small_against_cpu(rng, dev, False, cfg, label=f"{REL} narrow {name}",
+                                    prepare=geometry_kink_free, same_proposals=True,
+                                    tol=RELATION_TOL if opts else None)
+    serving = {}
+    with phase_seconds("relation.full"):
+        for name in ("relation", "relation_dup"):
+            serving[name] = serve_two_stage(rng, dev, name, turns=(False, True), tag=REL,
+                                            check=check_relation_serving,
+                                            probe_model=relation_probe)
+    return serving
+
+
 def probe():
     """What the card's machine offers a JPEG route (decides nothing here).
     Each module is imported in a child interpreter, so this one imports none."""
@@ -3824,6 +4018,8 @@ def main() -> None:
         run_solov2(rng, dev)
     with phase_seconds("yolov4"), fused_switch(False):
         yolo = run_yolov4(rng, dev, later["yolov4"])
+    with phase_seconds("relation"), fused_switch(False):
+        run_relation(rng, dev)
     with phase_seconds("gates"):
         gates = finish_workflow(pending)
     probe()

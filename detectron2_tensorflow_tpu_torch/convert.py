@@ -93,6 +93,7 @@ _PREFIX = {
     "box_predictors_0": "roi_heads.box_predictor",
     "mask_head": "roi_heads.mask_head",
     "keypoint_head": "roi_heads.keypoint_head",
+    "duplicate_removal": "roi_heads.duplicate_removal",
     "sem_seg_head": "sem_seg_head",
 }
 _FROZEN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}

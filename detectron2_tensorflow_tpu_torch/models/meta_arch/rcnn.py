@@ -31,6 +31,14 @@ re-match their refined boxes without sampling again and the mask head pools
 the stage-0 sample; in serving the mask head pools the detections of the
 averaged stages.
 
+``RelationROIHeads`` (Relation Networks, ``models/roi_heads/relation.py``)
+follows the JAX relation branches: the box head attends over each image's
+proposals (their boxes and validity go in with the pooled features), and
+with ``ROI_BOX_RELATION_HEAD.DUPLICATE_REMOVAL_ON`` the learned duplicate
+removal on the head's appearance features replaces the class-aware NMS. Its
+training is a later slice of the port: ``losses`` and ``build_model(...,
+training=True)`` raise ``NotImplementedError`` (``training_not_ported``).
+
 With ``MODEL.LOAD_PROPOSALS`` (Fast R-CNN) the model has no RPN, not even
 its parameters: the proposals come from the batch (``proposal_boxes``,
 ``proposal_scores``, ``proposal_valid``, the loader's fixed top-k slots), in
@@ -72,6 +80,7 @@ from ...structures import Instances
 from ..deform_conv import OFFSET_CONV, DeformConv2d
 from ..layers import BatchNorm2d
 from ..roi_heads.cascade import CascadeROIHeads
+from ..roi_heads.relation import DuplicateRemovalModule, RelationBoxHead, RelationROIHeads
 from ..roi_heads.roi_heads import Res5ROIHeads, StandardROIHeads
 from ..rpn import RPN, add_ground_truth_to_proposals
 from ..sampling import draw_noise
@@ -80,7 +89,12 @@ from .common import Detector, norms_in_eval
 from .single_stage import SingleStageDetector
 
 ROI_HEADS = {"StandardROIHeads": StandardROIHeads, "Res5ROIHeads": Res5ROIHeads,
-             "CascadeROIHeads": CascadeROIHeads}
+             "CascadeROIHeads": CascadeROIHeads, "RelationROIHeads": RelationROIHeads}
+# Why a model cannot train yet (``build_model(..., training=True)`` and
+# ``losses`` raise it).
+RELATION_TRAINING_NOT_PORTED = (
+    "RelationROIHeads training (the duplicate-removal targets and loss_dup) is not ported "
+    "yet: a Relation Networks model serves and evaluates only")
 
 
 def batch_proposals(batch: Dict[str, torch.Tensor]) -> Instances:
@@ -96,6 +110,9 @@ class GeneralizedRCNN(Detector):
     serving entry point."""
 
     meta_architecture = "GeneralizedRCNN"
+    # Why the model cannot train yet (``build_model(..., training=True)``
+    # and ``losses`` raise it), or None.
+    training_not_ported = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -105,9 +122,11 @@ class GeneralizedRCNN(Detector):
                                       f"by {type(self).__name__}")
         if m.ROI_HEADS.NAME not in ROI_HEADS:
             raise NotImplementedError(
-                f"ROI heads '{m.ROI_HEADS.NAME}': only Faster, Mask, Keypoint and Fast R-CNN "
-                f"with {', '.join(ROI_HEADS)} are ported"
+                f"ROI heads '{m.ROI_HEADS.NAME}': only Faster, Mask, Keypoint, Cascade, Fast "
+                f"R-CNN and Relation Networks with {', '.join(ROI_HEADS)} are ported"
             )
+        if m.ROI_HEADS.NAME == "RelationROIHeads":
+            self.training_not_ported = RELATION_TRAINING_NOT_PORTED
         self.load_proposals = m.LOAD_PROPOSALS
         ported = [] if self.load_proposals else [("PROPOSAL_GENERATOR.NAME", "RPN")]
         if m.ROI_HEADS.NAME in ("StandardROIHeads", "CascadeROIHeads"):
@@ -195,8 +214,11 @@ class GeneralizedRCNN(Detector):
         first, unless ``noise = {"rpn": (pos, neg), "roi": (pos, neg)}``
         hands the draws in (``[B, anchors]`` and ``[B, proposals]``). With
         ``LOAD_PROPOSALS`` the batch holds the ``proposal_*`` slots and the
-        RPN draw is neither made nor read.
+        RPN draw is neither made nor read. A Relation Networks model raises
+        ``NotImplementedError`` (``training_not_ported``).
         """
+        if self.training_not_ported:
+            raise NotImplementedError(self.training_not_ported)
         return self._losses(batch, self.features(batch["image"]), generator, noise)
 
     def _losses(self, batch, features, generator, noise) -> Dict[str, torch.Tensor]:
@@ -444,7 +466,10 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     zero biases, GN
     and BN at identity with BN's running statistics at (0, 1) (FrozenBN
     keeps its identity buffers), a deformable conv's kernel as a conv's and
-    its offset conv at zero (``DeformConv2D``'s initializers).
+    its offset conv at zero (``DeformConv2D``'s initializers), and the
+    Relation Networks layers (the relation box head's FCs and attention, the
+    duplicate removal) the JAX ``Dense`` layer's default: a truncated normal
+    with variance ``1 / fan_in`` (``lecun_normal``).
     """
     if recipe == "jax":
         _init_like_jax(model, generator)
@@ -463,7 +488,18 @@ def _is_offset_conv(name: str) -> bool:
     return name.rsplit(".", 1)[-1] == OFFSET_CONV
 
 
+def _trunc_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
+    """The JAX initializers' truncated normal: [-2, 2] of ``std`` /
+    ``_TRUNC_STD``, so that the kept values have variance ``std ** 2``."""
+    std = std / _TRUNC_STD
+    t = torch.empty(shape)
+    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+    return t
+
+
 def _init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
+    lecun = {id(m) for top in model.modules()
+             if isinstance(top, (RelationBoxHead, DuplicateRemovalModule)) for m in top.modules()}
     with torch.no_grad():
         for name, mod in model.named_modules():
             if _is_offset_conv(name):
@@ -474,15 +510,15 @@ def _init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
                 small = _small_std(name, jax_recipe=True)
                 if small is not None:
                     w.copy_(torch.randn(w.shape, generator=generator) * small)
+                elif id(mod) in lecun:
+                    w.copy_(_trunc_normal(w.shape, math.sqrt(1.0 / w.shape[1]), generator))
                 elif isinstance(mod, nn.Linear):
                     limit = math.sqrt(3.0 / w.shape[1])
                     w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * limit)
                 else:
                     out = w.shape[1] if isinstance(mod, nn.ConvTranspose2d) else w.shape[0]
-                    std = math.sqrt(2.0 / (out * w[0, 0].numel())) / _TRUNC_STD
-                    t = torch.empty(w.shape)
-                    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
-                    w.copy_(t)
+                    w.copy_(_trunc_normal(w.shape, math.sqrt(2.0 / (out * w[0, 0].numel())),
+                                          generator))
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
             elif isinstance(mod, (nn.GroupNorm, BatchNorm2d)):

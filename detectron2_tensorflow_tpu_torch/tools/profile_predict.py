@@ -1,6 +1,7 @@
 """Where the time of one ``predict`` goes on the card.
 
     python -m detectron2_tensorflow_tpu_torch.tools.profile_predict [--config_file CFG] [batch ...]
+        [KEY VALUE ...]
 
 Builds chip_smoke's model (Mask R-CNN R50-FPN, bf16, seeded random weights,
 ``SCORE_THRESH_TEST = 0``; with ``--config_file``, that YAML's model, for
@@ -20,7 +21,12 @@ head (``PanopticFPN``, ``SemanticSegmentor``) the head's own device time
 served features, and for a ``PanopticFPN`` the device and wall time of
 ``panoptic_fusion`` on the served output; for SOLOv2 the head's, the
 inference's, the dynamic conv's and matrix NMS's device time; for YOLOv4 the
-head's and the inference's (decode, top-k, clip and NMS). The full profiler table goes to
+head's and the inference's (decode, top-k, clip and NMS); for Relation Networks
+(``configs/Misc/relation_rcnn_R_50_FPN_1x.yaml``) the relation box head's (its
+geometry embedding apart) and, with ``DUPLICATE_REMOVAL_ON`` (for example
+``MODEL.ROI_BOX_RELATION_HEAD.DUPLICATE_REMOVAL_ON True`` after the batch
+sizes: ``KEY VALUE`` pairs there override the config), the learned
+duplicate removal's (candidates, keep logits, top-k). The full profiler table goes to
 ``profile_predict[_<config>]_b<batch>[_fused].txt`` in ``main``'s output
 directory. Set ``D2TPU_ENABLE_FUSED_EPILOGUE=1`` to profile the model with
 the fused bottleneck tail (``_fused`` in the file name).
@@ -41,6 +47,10 @@ from torch.profiler import profile as profile_ctx
 
 from detectron2_tensorflow_tpu_torch import bench_cfg, build_model, get_cfg
 from detectron2_tensorflow_tpu_torch.engine import add_proposal_slots, make_train_batch
+from detectron2_tensorflow_tpu_torch.models.roi_heads.relation import (
+    RelationROIHeads,
+    geometry_embeddings,
+)
 from detectron2_tensorflow_tpu_torch.ops.fused_residual import fused_epilogue_enabled
 
 CATEGORIES = (
@@ -64,20 +74,22 @@ def category(name: str) -> str:
     return "other elementwise / copies"
 
 
-def yaml_cfg(config_file: str):
-    """``config_file``'s model in bf16 (the full default tree under it)."""
+def yaml_cfg(config_file: str, opts=()):
+    """``config_file``'s model, with the ``KEY VALUE`` overrides ``opts``, in
+    bf16 (the full default tree under it)."""
     cfg = get_cfg()
     cfg.merge_from_file(config_file)
+    cfg.merge_from_list(list(opts))
     cfg.MODEL.DTYPE = "bfloat16"
     return cfg
 
 
-def serving_cfg(config_file: Optional[str] = None):
+def serving_cfg(config_file: Optional[str] = None, opts=()):
     """``bench_cfg()``, or ``config_file``'s model in bf16, with
     ``SCORE_THRESH_TEST = 0`` (the ROI heads', RetinaNet's, SOLOv2's, with
     SOLOv2's ``UPDATE_SCORE_THRESH_TEST``, and YOLOv4's) so that every
     detection slot is real."""
-    cfg = yaml_cfg(config_file) if config_file else bench_cfg()
+    cfg = yaml_cfg(config_file, opts) if config_file else bench_cfg()
     cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.RETINANET.SCORE_THRESH_TEST = 0.0
     cfg.MODEL.SOLO.SCORE_THRESH_TEST = 0.0
@@ -96,9 +108,9 @@ def serving_shape(cfg):
     return (bh, bw), (min(bh, int(r.MIN_SIZE_TEST)), min(bw, int(r.MAX_SIZE_TEST)))
 
 
-def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
+def run(batch: int, out_dir: Path, config_file: Optional[str] = None, opts=()) -> None:
     dev = torch.device("cuda", 0)
-    cfg = serving_cfg(config_file)
+    cfg = serving_cfg(config_file, opts)
     model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     (bh, bw), content = serving_shape(cfg)
@@ -133,6 +145,42 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
         profile_solov2(model, inputs)
     if hasattr(model, "yolov4"):
         profile_yolov4(model, inputs)
+    if isinstance(getattr(model, "roi_heads", None), RelationROIHeads):
+        profile_relation(model, inputs)
+
+
+def relation_times(model, inputs) -> dict:
+    """Device ms per call, on the served proposals and features, of the
+    relation box head (fc1, relation1, fc2, relation2), of its ``[B, R, R,
+    64]`` geometry embedding alone and, when the model has it, of the
+    learned duplicate removal (``dup_removal_inference``: candidates, the
+    keep logits, the top-k)."""
+    heads, rpn = model.roi_heads, model.proposal_generator
+    with torch.inference_mode():
+        feats = model.features(inputs["image"])
+        props = rpn.proposals(*rpn.rpn_head([feats[f] for f in rpn.in_features]),
+                              inputs["image_size"])
+        boxes, valid = props.proposal_boxes, props.is_valid
+        pooled = heads.pool_box_features(boxes, heads.pooling_storage(feats), valid=valid)
+        out = {"rois": tuple(boxes.shape[:2]),
+               "head_ms": device_time(lambda: heads.box_head(pooled, boxes, valid), 3)[0],
+               "geometry_ms": device_time(lambda: geometry_embeddings(
+                   boxes, heads.box_head.geometry_dim), 3)[0]}
+        if heads.duplicate_removal is not None:
+            scores, deltas, app = heads.box_outputs(pooled, boxes, valid)
+            out["removal_ms"] = device_time(lambda: heads.dup_removal_inference(
+                scores.float(), deltas.float(), props, app, inputs["image_size"]), 3)[0]
+    return out
+
+
+def profile_relation(model, inputs) -> None:
+    t = relation_times(model, inputs)
+    removal = (f"; duplicate removal (top {4 * model.roi_heads.detections_per_image} "
+               f"candidates, keep logits, top-k): device {t['removal_ms']:.3f} ms/call"
+               if "removal_ms" in t else "; no duplicate removal (class-aware NMS)")
+    print(f"  relation box head ({t['rois'][0]} x {t['rois'][1]} ROIs): device "
+          f"{t['head_ms']:.3f} ms/call, of which the geometry embedding {t['geometry_ms']:.3f} "
+          f"ms" + removal)
 
 
 def profile_yolov4(model, inputs) -> None:
@@ -265,8 +313,9 @@ def profile(fn, runs: int, label: str, out_file: Path) -> None:
 
 
 def main(argv, run_batch=run, default_batch: int = 2) -> None:
-    """``run_batch(batch, out_dir, config_file)`` for each batch size in
-    ``argv`` (``--config_file CFG`` anywhere in it names the YAML)."""
+    """``run_batch(batch, out_dir, config_file, opts)`` for each batch size
+    in ``argv`` (``--config_file CFG`` anywhere in it names the YAML; the
+    ``KEY VALUE`` pairs after the batch sizes, ``opts``, override it)."""
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     argv = list(argv)
@@ -277,8 +326,13 @@ def main(argv, run_batch=run, default_batch: int = 2) -> None:
         del argv[i: i + 2]
     print(torch.cuda.get_device_name(0), torch.__version__, config_file or "bench_cfg()",
           f"fused bottleneck tail {'on' if fused_epilogue_enabled() else 'off'}")
-    for batch in [int(a) for a in argv] or [default_batch]:
-        run_batch(batch, Path("chiprun_out"), config_file)
+    sizes = [a for a in argv if a.isdigit()]
+    opts = argv[len(sizes):]
+    if argv[:len(sizes)] != sizes or len(opts) % 2 or opts and not config_file:
+        raise SystemExit("usage: [--config_file CFG] [batch ...] [KEY VALUE ...] (overrides "
+                         "need --config_file)")
+    for batch in [int(a) for a in sizes] or [default_batch]:
+        run_batch(batch, Path("chiprun_out"), config_file, opts)
 
 
 if __name__ == "__main__":

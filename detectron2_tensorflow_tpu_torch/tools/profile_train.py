@@ -1,6 +1,7 @@
 """Where the time of one training step goes on the card.
 
     python -m detectron2_tensorflow_tpu_torch.tools.profile_train [--config_file CFG] [batch ...]
+        [KEY VALUE ...]
 
 Builds chip_smoke's training state (Mask R-CNN R50-FPN at ``train_cfg``:
 bf16, float32 parameters, seeded random weights; with ``--config_file``,
@@ -40,22 +41,22 @@ from detectron2_tensorflow_tpu_torch.engine import (
 from detectron2_tensorflow_tpu_torch.tools import profile_predict
 
 
-def training_cfg(batch: int, config_file: Optional[str] = None):
-    """``train_cfg(batch)``, or ``config_file``'s model in bf16 with
+def training_cfg(batch: int, config_file: Optional[str] = None, opts=()):
+    """``train_cfg(batch)``, or ``config_file``'s model (``opts`` over it) in bf16 with
     ``batch`` images per step, no LR auto-scaling and ``train_cfg``'s 64 GT
     slots per image."""
     if not config_file:
         return train_cfg(batch)
-    cfg = profile_predict.yaml_cfg(config_file)
+    cfg = profile_predict.yaml_cfg(config_file, opts)
     cfg.SOLVER.IMS_PER_BATCH = batch
     cfg.SOLVER.AUTO_SCALE_LR_SCHEDULE = False
     cfg.INPUT.MAX_GT_INSTANCES = 64
     return cfg
 
 
-def run(batch: int, out_dir: Path, config_file: Optional[str] = None) -> None:
+def run(batch: int, out_dir: Path, config_file: Optional[str] = None, opts=()) -> None:
     dev = torch.device("cuda", 0)
-    cfg = training_cfg(batch, config_file)
+    cfg = training_cfg(batch, config_file, opts)
     model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(0),
                         training=True)
     state = create_train_state(cfg, model, torch.Generator(device=dev).manual_seed(0))

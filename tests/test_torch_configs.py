@@ -272,7 +272,8 @@ def test_jax_cfgnode_and_port_cfgnode_agree_on_construction():
 # GN and SyncBN, the R18-GN overfit config; the RPN-only ProposalNetwork;
 # RetinaNet; Keypoint R-CNN; PanopticFPN and the SemanticSegmentor, the R18-GN
 # panoptic overfit config; the deformable trunks of the four Misc dconv
-# files; SOLOv2; YOLOv4's CSP-DarkNet53 and SPP/PAN neck); every other file must
+# files; SOLOv2; YOLOv4's CSP-DarkNet53 and SPP/PAN neck; Relation Networks'
+# RelationROIHeads); every other file must
 # raise NotImplementedError on a key the port does not read yet, never build
 # while ignoring one.
 BUILDS = {
@@ -353,6 +354,7 @@ BUILDS = {
     "configs/COCO-InstanceSegmentation/solo_v2_R_50_FPN_1x.yaml",
     "configs/Base-YOLO.yaml",
     "configs/COCO-Detection/yolov4_D_53_PAN_1x.yaml",
+    "configs/Misc/relation_rcnn_R_50_FPN_1x.yaml",
 }
 
 

@@ -52,7 +52,7 @@ for m in ("config.yaml_subset", "data.loader", "engine.checkpoint", "engine.eval
           "tools.build_records", "tools.train", "tools.eval", "tools.workflow_check",
           "tools.overfit_check", "tools.workflow_check_panoptic", "data.panoptic",
           "models.sem_seg", "evaluation.panoptic_eval", "evaluation.sem_seg_eval",
-          "models.deform_conv", "engine.tta"):
+          "models.deform_conv", "engine.tta", "models.roi_heads.relation"):
     assert pkg.__name__ + "." + m in sys.modules, m
 assert "PIL" not in sys.modules  # imported at the first decode or encode only
 print("ok")
