@@ -29,14 +29,10 @@ def build_model(cfg, device="cuda", generator: torch.Generator | None = None,
     float32 parameters. The FrozenBN buffers stay float32, as the JAX
     package folds them in float32, and so do BN's running statistics and
     RetinaNet's ``loss_normalizer``. On CUDA the weights are put in ``channels_last`` layout.
-    A model whose training is not ported (Relation Networks) raises
-    ``NotImplementedError`` for ``training``.
     """
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to build on the CPU")
     model = meta_architecture(cfg)(cfg)
-    if training and getattr(model, "training_not_ported", None):
-        raise NotImplementedError(model.training_not_ported)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:

@@ -35,9 +35,8 @@ averaged stages.
 follows the JAX relation branches: the box head attends over each image's
 proposals (their boxes and validity go in with the pooled features), and
 with ``ROI_BOX_RELATION_HEAD.DUPLICATE_REMOVAL_ON`` the learned duplicate
-removal on the head's appearance features replaces the class-aware NMS. Its
-training is a later slice of the port: ``losses`` and ``build_model(...,
-training=True)`` raise ``NotImplementedError`` (``training_not_ported``).
+removal on the head's appearance features replaces the class-aware NMS in
+serving and adds ``loss_dup`` in training, after ``loss_box_reg``.
 
 With ``MODEL.LOAD_PROPOSALS`` (Fast R-CNN) the model has no RPN, not even
 its parameters: the proposals come from the batch (``proposal_boxes``,
@@ -90,11 +89,6 @@ from .single_stage import SingleStageDetector
 
 ROI_HEADS = {"StandardROIHeads": StandardROIHeads, "Res5ROIHeads": Res5ROIHeads,
              "CascadeROIHeads": CascadeROIHeads, "RelationROIHeads": RelationROIHeads}
-# Why a model cannot train yet (``build_model(..., training=True)`` and
-# ``losses`` raise it).
-RELATION_TRAINING_NOT_PORTED = (
-    "RelationROIHeads training (the duplicate-removal targets and loss_dup) is not ported "
-    "yet: a Relation Networks model serves and evaluates only")
 
 
 def batch_proposals(batch: Dict[str, torch.Tensor]) -> Instances:
@@ -110,9 +104,6 @@ class GeneralizedRCNN(Detector):
     serving entry point."""
 
     meta_architecture = "GeneralizedRCNN"
-    # Why the model cannot train yet (``build_model(..., training=True)``
-    # and ``losses`` raise it), or None.
-    training_not_ported = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -125,8 +116,6 @@ class GeneralizedRCNN(Detector):
                 f"ROI heads '{m.ROI_HEADS.NAME}': only Faster, Mask, Keypoint, Cascade, Fast "
                 f"R-CNN and Relation Networks with {', '.join(ROI_HEADS)} are ported"
             )
-        if m.ROI_HEADS.NAME == "RelationROIHeads":
-            self.training_not_ported = RELATION_TRAINING_NOT_PORTED
         self.load_proposals = m.LOAD_PROPOSALS
         ported = [] if self.load_proposals else [("PROPOSAL_GENERATOR.NAME", "RPN")]
         if m.ROI_HEADS.NAME in ("StandardROIHeads", "CascadeROIHeads"):
@@ -202,6 +191,7 @@ class GeneralizedRCNN(Detector):
                ) -> Dict[str, torch.Tensor]:
         """The training losses of one batch: ``loss_rpn_cls``, ``loss_rpn_loc``
         (not with ``LOAD_PROPOSALS``), ``loss_cls``, ``loss_box_reg``, with
+        the Relation Networks duplicate removal ``loss_dup``, with
         ``MASK_ON`` ``loss_mask`` and with ``KEYPOINT_ON`` ``loss_keypoint``
         (float32 scalars).
 
@@ -214,11 +204,8 @@ class GeneralizedRCNN(Detector):
         first, unless ``noise = {"rpn": (pos, neg), "roi": (pos, neg)}``
         hands the draws in (``[B, anchors]`` and ``[B, proposals]``). With
         ``LOAD_PROPOSALS`` the batch holds the ``proposal_*`` slots and the
-        RPN draw is neither made nor read. A Relation Networks model raises
-        ``NotImplementedError`` (``training_not_ported``).
+        RPN draw is neither made nor read.
         """
-        if self.training_not_ported:
-            raise NotImplementedError(self.training_not_ported)
         return self._losses(batch, self.features(batch["image"]), generator, noise)
 
     def _losses(self, batch, features, generator, noise) -> Dict[str, torch.Tensor]:

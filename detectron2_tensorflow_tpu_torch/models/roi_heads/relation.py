@@ -1,13 +1,14 @@
-"""Relation Networks (Hu et al., CVPR 2018) in serving: ROI-to-ROI attention
-in the box head and the learned duplicate removal that replaces the box
-head's NMS.
+"""Relation Networks (Hu et al., CVPR 2018): ROI-to-ROI attention in the box
+head and the learned duplicate removal that replaces the box head's NMS, in
+serving and in training.
 
 Port of the JAX package's ``models/roi_heads/relation.py``
 (``sinusoid_embedding``, ``geometry_embeddings``, ``ObjectRelationModule``,
 ``RelationBoxHead``, ``build_duplicate_removal_candidates``,
-``DuplicateRemovalModule``) and of the ``RelationROIHeads`` wiring of its
-``models/meta_arch/rcnn.py`` (``box`` with the proposal boxes,
-``dup_removal_inference``). Module names are the JAX ones
+``duplicate_removal_targets_multi``, ``DuplicateRemovalModule``) and of the
+``RelationROIHeads`` wiring of its ``models/meta_arch/rcnn.py`` (``box``
+with the proposal boxes, ``dup_removal_inference``, ``dup_removal_loss``).
+Module names are the JAX ones
 (``roi_heads.box_head.{fc1, relation1, fc2, relation2}``,
 ``roi_heads.duplicate_removal.{appearance_proj, rank_proj, relation,
 logit}``, each relation module's ``geometry_weight``, ``query``, ``key``,
@@ -23,14 +24,21 @@ relation modules read it (the JAX modules each compute the same tensor). The
 attention keeps the JAX order of operations in the model dtype:
 ``max(wg, 1e-6)``, ``q.k / sqrt(key_dim) + log(wg)``, invalid keys at -1e9,
 the softmax over the keys by ``jax.nn.softmax``'s formula, ``x +
-output(...)``; it stays within each image. Training (the duplicate-removal
-targets and ``loss_dup``) is a later slice of the port.
+output(...)``; it stays within each image.
+
+In training the box head attends over each image's sampled ROIs, and with
+the duplicate removal every sampled slot is a candidate: ``loss_dup`` is
+the BCE of its final score (class score x sigmoid of each keep logit)
+against one-positive-per-GT targets, one column per IoU threshold. Nothing
+is detached: the loss reaches the class logits through the candidates'
+scores, the box deltas through their decoded boxes' geometry, and the box
+head through the appearance features.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +48,7 @@ from ...ops.topk import top_k
 from ...structures import Instances, boxes as box_ops
 from ..layers import Linear
 from .fast_rcnn import FastRCNNOutputLayers
-from .roi_heads import StandardROIHeads
+from .roi_heads import SampledProposals, StandardROIHeads
 
 # The keep-logit combinations of ``DUPLICATE_REMOVAL_COMBINE``.
 COMBINE = ("mean", "max")
@@ -79,7 +87,7 @@ def geometry_embeddings(boxes: torch.Tensor, embedding_dim: int = 64) -> torch.T
 def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``jax.nn.softmax``'s formula in ``x``'s dtype (PyTorch's softmax
     computes a bf16 input in float32, and its CPU exp rounds otherwise)."""
-    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True).detach())  # the shift cancels
     return e / e.sum(dim=dim, keepdim=True)
 
 
@@ -171,6 +179,31 @@ def build_duplicate_removal_candidates(class_logits, deltas, proposal_boxes, val
             torch.gather(valid, 1, idx) & (top_s > 0), idx)
 
 
+def duplicate_removal_targets(cand_boxes, cand_classes, cand_scores, cand_valid, gt_boxes,
+                              gt_classes, gt_valid, iou_threshs) -> torch.Tensor:
+    """One-positive-per-GT targets ``[B, N, T]`` (float32), one column per
+    IoU threshold: a candidate ``[B, N, ...]`` is eligible for a GT ``[B, G,
+    ...]`` when both are valid, their classes match and their IoU is at least
+    the threshold, and each GT marks the eligible candidate of the highest
+    score positive, the earlier one at a tie (the JAX
+    ``duplicate_removal_targets_multi``, batched over images). One ``[N, G]``
+    IoU serves every threshold."""
+    n = cand_boxes.shape[-2]
+    iou = box_ops.pairwise_iou(cand_boxes, gt_boxes)  # [B, N, G]
+    base = ((cand_classes[..., :, None] == gt_classes[..., None, :])
+            & cand_valid[..., :, None] & gt_valid[..., None, :])
+    rows = torch.arange(n, device=cand_boxes.device)[:, None]
+    scores = cand_scores[..., None].expand(iou.shape)
+    cols = []
+    for t in iou_threshs:
+        eligible = base & (iou >= t)
+        masked = torch.where(eligible, scores, torch.full_like(scores, float("-inf")))
+        winner = torch.argmax(masked, dim=-2)  # [B, G], the first maximum as jnp.argmax
+        onehot = (rows == winner[..., None, :]) & eligible.any(dim=-2)[..., None, :]
+        cols.append(onehot.any(dim=-1).float())
+    return torch.stack(cols, dim=-1)
+
+
 class DuplicateRemovalModule(nn.Module):
     """The learned NMS: score-ranked candidates' appearance features plus
     their rank's embedding, one relation module, and a keep logit per
@@ -210,6 +243,8 @@ class RelationROIHeads(StandardROIHeads):
             raise ValueError(f"MODEL.ROI_BOX_RELATION_HEAD.DUPLICATE_REMOVAL_COMBINE must be "
                              f"one of {COMBINE}, got {rel.DUPLICATE_REMOVAL_COMBINE!r}")
         self.dup_combine = rel.DUPLICATE_REMOVAL_COMBINE
+        # One keep-logit head and target column per IoU threshold.
+        self.dup_ious = tuple(rel.DUPLICATE_REMOVAL_IOUS) or (rel.DUPLICATE_REMOVAL_IOU,)
         self.box_head = RelationBoxHead(bh.POOLER_RESOLUTION ** 2 * in_channels, bh.FC_DIM,
                                         rel.NUM_GROUPS, rel.KEY_DIM, rel.GEOMETRY_EMBEDDING_DIM)
         self.box_predictor = FastRCNNOutputLayers(bh.FC_DIM, self.num_classes,
@@ -218,8 +253,7 @@ class RelationROIHeads(StandardROIHeads):
         if rel.DUPLICATE_REMOVAL_ON:
             self.duplicate_removal = DuplicateRemovalModule(
                 bh.FC_DIM, rel.NMS_NUM_GROUP, rel.KEY_DIM, rel.GEOMETRY_EMBEDDING_DIM,
-                rel.RANK_EMBEDDING_DIM,
-                len(tuple(rel.DUPLICATE_REMOVAL_IOUS) or (rel.DUPLICATE_REMOVAL_IOU,)))
+                rel.RANK_EMBEDDING_DIM, len(self.dup_ious))
         return in_channels
 
     def box_outputs(self, pooled: torch.Tensor, boxes: torch.Tensor,
@@ -229,6 +263,49 @@ class RelationROIHeads(StandardROIHeads):
         x = self.box_head(pooled, boxes, valid)
         scores, deltas = self.box_predictor(x)
         return scores, deltas, x
+
+    def sample_box_losses(self, pooled: torch.Tensor, sampled: SampledProposals,
+                          gt: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The relation box head over each image's sampled ROIs (their boxes
+        and validity), ``loss_cls`` and ``loss_box_reg``, then with the
+        duplicate removal ``loss_dup`` (the JAX ``loss_fn``'s order)."""
+        scores, deltas, app = self.box_outputs(pooled, sampled.boxes, sampled.valid)
+        scores, deltas = scores.float(), deltas.float()
+        losses = self.box_losses(scores, deltas, sampled)
+        if self.duplicate_removal is not None:
+            losses["loss_dup"] = self.dup_removal_loss(scores, deltas, app, sampled, gt)
+        return losses
+
+    def dup_removal_loss(self, class_logits, deltas, appearance: torch.Tensor,
+                         sampled: SampledProposals, gt: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The duplicate removal's BCE (the JAX ``dup_removal_loss``): every
+        sampled slot is a candidate (``build_duplicate_removal_candidates``
+        with ``topk`` = the sample size), its appearance features gathered by
+        the candidate's slot, final score = class score x sigmoid of each
+        float32 keep logit, clipped to [1e-6, 1 - 1e-6], against
+        :func:`duplicate_removal_targets` from the GT (``gt_valid`` and not
+        ``gt_is_crowd``); summed over valid candidates and divided by
+        ``max(valid candidates x thresholds, 1)``. A positive whose final
+        score is below 1e-6 sits on the clip and gets no gradient, as in the
+        JAX package."""
+        b, s = sampled.boxes.shape[:2]
+        cs, cc, cb, cv, idx = build_duplicate_removal_candidates(
+            class_logits.reshape(b, s, -1), deltas.reshape(b, s, -1), sampled.boxes,
+            sampled.valid, gt["image_size"], self.box2box, self.num_classes,
+            self.cls_agnostic_bbox_reg, s)
+        app = appearance.reshape(b, s, -1)
+        app = torch.gather(app, 1, idx[..., None].expand(-1, -1, app.shape[-1]))
+        keep = self.duplicate_removal(app, cs, cb, cv).float()  # [B, S, T]
+        final = cs[..., None] * torch.sigmoid(keep)
+        gt_valid = gt["gt_valid"]
+        if "gt_is_crowd" in gt:
+            gt_valid = gt_valid & ~gt["gt_is_crowd"]
+        targets = duplicate_removal_targets(cb.detach(), cc, cs.detach(), cv, gt["gt_boxes"],
+                                            gt["gt_classes"], gt_valid, self.dup_ious)
+        prob = torch.clamp(final, 1e-6, 1.0 - 1e-6)
+        bce = -(targets * torch.log(prob) + (1 - targets) * torch.log1p(-prob))
+        cvf = cv.float()[..., None]
+        return torch.sum(bce * cvf) / torch.clamp(torch.sum(cvf) * len(self.dup_ious), min=1.0)
 
     def box_detections(self, proposals: Instances, storage_pack, image_sizes) -> Instances:
         """Pool every proposal slot, the relation box head over each image's

@@ -284,9 +284,15 @@ class StandardROIHeads(nn.Module):
             + [(pooler, sampled.boxes[:, :m], sampled.valid[:, :m]) for _, pooler in heads],
             storage_pack,
         )
-        scores, deltas, _ = self.box_outputs(pooled[0])
-        return (self.box_losses(scores.float(), deltas.float(), sampled),
+        return (self.sample_box_losses(pooled[0], sampled, gt),
                 {name: x for (name, _), x in zip(heads, pooled[1:])})
+
+    def sample_box_losses(self, pooled: torch.Tensor, sampled: SampledProposals,
+                          gt: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The box head on the sample's pooled ROIs ``[B*S, S, S, C]`` and
+        its losses."""
+        scores, deltas, _ = self.box_outputs(pooled)
+        return self.box_losses(scores.float(), deltas.float(), sampled)
 
     def box_detections(self, proposals: Instances, storage_pack, image_sizes) -> Instances:
         """Serving's box branch: pool every proposal slot, box head, then

@@ -1,8 +1,8 @@
 """Learning check: overfit a small detector on 8 synthetic images and report AP.
 
     python -m detectron2_tensorflow_tpu_torch.tools.overfit_check [STEPS]
-        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint|semantic|dconv|solov2|yolov4]
-        [--eval_at N[,N...]]
+        [--arch rcnn|c4|cls_agnostic|retinanet|cascade|keypoint|semantic|dconv|solov2|yolov4|relation]
+        [--no-dup] [--dup-max] [--eval_at N[,N...]] [--seed S]
         [--device cpu] [KEY VALUE ...]
 
 The port's counterpart of the repo's ``tools/overfit_check.py`` for its
@@ -34,6 +34,10 @@ classes, its 3 x 3 anchor ladder scaled ~1/5 for 10-30 px boxes: ``[[3, 3],
 the neck and the head keep BN; the JAX recipe's
 ``MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST`` 0.2 is read by no YOLOv4 code,
 which keeps ``MODEL.YOLOV4.SCORE_THRESH_TEST`` 0.05, and so does this one)
+and ``relation`` (``Misc/relation_rcnn_R_50_FPN_1x.yaml``: the relation box
+head with the learned duplicate removal and its five IoU heads, which
+``--no-dup`` turns off for the class-aware NMS and ``--dup-max`` combines
+by ``max``; the JAX tool's flags)
 families, with that tool's recipe (``overfit_cfg``): the tiny inputs of
 ``config.small_cfg()``, anchors scaled to 10-30 px boxes, ResNet-18 with GN trained from the JAX
 package's initializers (``FREEZE_AT 0``), 3 classes, 64 ROIs per image, 8
@@ -60,7 +64,9 @@ each hand-written kernel's launches since the run began (training and the
 evaluations).
 ``--eval_at`` also evaluates after each
 of those earlier step counts and prints the same object for it (``steps`` =
-N) on a line of its own; training goes on from there unchanged. It gates
+N) on a line of its own; training goes on from there unchanged. ``--seed``
+(default 0, the JAX tool's) seeds the initial weights, the samplers' draws
+and the training loader's order; the JSON line then adds ``seed``. It gates
 nothing itself: a caller reads the APs.
 """
 
@@ -93,13 +99,15 @@ REPO_CONFIGS = {
     "dconv": "configs/Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml",
     "solov2": "configs/COCO-InstanceSegmentation/solo_v2_R_50_FPN_1x.yaml",
     "yolov4": "configs/COCO-Detection/yolov4_D_53_PAN_1x.yaml",
+    "relation": "configs/Misc/relation_rcnn_R_50_FPN_1x.yaml",
 }
 # The archs trained on 194x306 images of 30-70 px boxes in the 128x256 /
 # 256x128 buckets (a stride-4 head needs targets of more than a few cells).
 LARGE_INPUT_ARCHS = ("semantic", "solov2")
 # The archs whose anchors become one size per FPN level for 10-30 px boxes (C4
 # has one level; YOLOv4 keeps its own scaled ladder, ``get_cfg_for``).
-FPN_ANCHOR_ARCHS = ("rcnn", "cls_agnostic", "retinanet", "cascade", "keypoint", "dconv")
+FPN_ANCHOR_ARCHS = ("rcnn", "cls_agnostic", "retinanet", "cascade", "keypoint", "dconv",
+                    "relation")
 # YOLOv4's anchor (w, h) ladder scaled ~1/5 of the 608 px one, per level.
 YOLO_OVERFIT_ANCHORS = [[[3, 3], [4, 8], [8, 6]], [[8, 15], [15, 11], [14, 29]],
                         [[28, 22], [38, 49], [92, 82]]]
@@ -111,8 +119,10 @@ def report_thresh(arch: str) -> float:
     return 0.5 if arch == "rcnn" else 0.25
 
 
-def get_cfg_for(arch: str):
-    """The family's YAML (relative to the repo root) in the full default tree."""
+def get_cfg_for(arch: str, dup: bool = True, dup_max: bool = False):
+    """The family's YAML (relative to the repo root) in the full default tree;
+    for ``relation`` the learned duplicate removal on unless ``dup`` is
+    false, combining its heads by ``max`` with ``dup_max``."""
     from .workflow_check import REPO
 
     if arch not in REPO_CONFIGS:
@@ -139,12 +149,16 @@ def get_cfg_for(arch: str):
         cfg.MODEL.SINGLE_STAGE_HEAD.NUM_CLASSES = 3
         cfg.MODEL.SINGLE_STAGE_HEAD.SCORE_THRESH_TEST = 0.2  # read by no model (module doc)
         cfg.MODEL.ANCHOR_GENERATOR.SIZES = YOLO_OVERFIT_ANCHORS
+    elif arch == "relation":
+        cfg.MODEL.ROI_BOX_RELATION_HEAD.DUPLICATE_REMOVAL_ON = dup
+        if dup_max:
+            cfg.MODEL.ROI_BOX_RELATION_HEAD.DUPLICATE_REMOVAL_COMBINE = "max"
     return cfg
 
 
-def overfit_cfg(arch: str):
-    """The JAX tool's recipe on ``arch``'s YAML."""
-    cfg = get_cfg_for(arch)
+def overfit_cfg(arch: str, dup: bool = True, dup_max: bool = False):
+    """The JAX tool's recipe on ``arch``'s YAML (``get_cfg_for``'s flags)."""
+    cfg = get_cfg_for(arch, dup, dup_max)
     tiny = small_cfg()
     cfg.TRANSFORM = tiny.TRANSFORM
     cfg.INPUT = tiny.INPUT
@@ -196,9 +210,17 @@ def parse_args(argv=None):
     p.add_argument("--eval_at", default="",
                    help="comma-separated step counts below STEPS to evaluate after as well")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    p.add_argument("--no-dup", dest="dup", action="store_false",
+                   help="relation: the class-aware NMS in place of the duplicate removal")
+    p.add_argument("--dup-max", action="store_true",
+                   help="relation: combine the removal's IoU heads by max, not mean")
+    p.add_argument("--seed", type=int, default=0,
+                   help="the initial weights', the samplers' and the loader's seed (default 0)")
     args, opts = p.parse_known_args(argv)
     if any(o.startswith("--") for o in opts):
         p.error(f"unknown options {opts}")
+    if args.arch != "relation" and (args.dup_max or not args.dup):
+        p.error("--no-dup and --dup-max apply to --arch relation only")
     args.eval_at = sorted({int(n) for n in args.eval_at.split(",") if n})
     if any(not 0 < n < args.steps for n in args.eval_at):
         p.error(f"--eval_at {args.eval_at}: each must lie in [1, STEPS)")
@@ -261,15 +283,18 @@ def box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return inter / np.maximum(area_a[:, None] + area_b[None, :] - inter, 1e-6)
 
 
-def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: float):
-    """Evaluate ``model`` on ``ds`` and print the JSON line of ``steps``."""
+def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: float,
+           seed: int = 0):
+    """Evaluate ``model`` on ``ds`` and print the JSON line of ``steps`` (with
+    ``seed`` when it is not 0)."""
     model.eval()
+    tag = {"seed": seed} if seed else {}
     if arch == "semantic":
         results = evaluate_sem_seg(cfg, model, ds, build_dataloader(cfg, ds, training=False,
                                                                      seed=0))
         out = {"arch": arch, "steps": steps, "train_seconds": round(train_s, 1),
                "final_loss": loss, "miou": round(float(results["sem_seg/mIoU"]), 2),
-               "macc": round(float(results["sem_seg/mACC"]), 2)}
+               "macc": round(float(results["sem_seg/mACC"]), 2), **tag}
         print(json.dumps(out), flush=True)
         return out
     results = evaluate(cfg, model, ds, build_dataloader(cfg, ds, training=False, seed=0))
@@ -278,6 +303,7 @@ def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: 
           f"{report_thresh(arch)}", file=sys.stderr)
     out = {
         "arch": arch,
+        **tag,
         "steps": steps,
         "train_seconds": round(train_s, 1),
         "final_loss": loss,
@@ -300,16 +326,17 @@ def report(cfg, model, ds, device, arch: str, steps: int, train_s: float, loss: 
 
 def main(argv=None):
     args = parse_args(argv)
-    cfg = overfit_cfg(args.arch)
+    cfg = overfit_cfg(args.arch, args.dup, args.dup_max)
     ds = overfit_inputs(cfg, args.arch)
     if args.opts:
         cfg.merge_from_list(args.opts)
     device = torch.device(args.device)
     model = build_model(cfg, device=device, training=True, init="jax",
-                        generator=torch.Generator().manual_seed(0))
-    state = create_train_state(cfg, model, torch.Generator(device=device).manual_seed(0))
+                        generator=torch.Generator().manual_seed(args.seed))
+    state = create_train_state(cfg, model,
+                               torch.Generator(device=device).manual_seed(args.seed))
     step = build_train_step(cfg, state)
-    train_iter = build_dataloader(cfg, ds, training=True, seed=0)
+    train_iter = build_dataloader(cfg, ds, training=True, seed=args.seed)
     for fn in KERNELS.values():
         fn.launches = 0
 
@@ -323,10 +350,11 @@ def main(argv=None):
             print(f"step {i}: total_loss={last_loss:.4f}", file=sys.stderr)
         train_s += time.time() - t0
         if i + 1 in args.eval_at:
-            report(cfg, model, ds, device, args.arch, i + 1, train_s, last_loss)
+            report(cfg, model, ds, device, args.arch, i + 1, train_s, last_loss, args.seed)
             model.train()
     train_iter.close()
-    return report(cfg, model, ds, device, args.arch, args.steps, train_s, last_loss)
+    return report(cfg, model, ds, device, args.arch, args.steps, train_s, last_loss,
+                  args.seed)
 
 
 if __name__ == "__main__":

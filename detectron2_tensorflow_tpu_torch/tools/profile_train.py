@@ -14,8 +14,11 @@ images/s on the host clock around synchronized steps, the peak device
 memory, and from ``torch.profiler`` the device time per step, the device's
 idle share, the device time by category (as ``profile_predict``) and the top
 kernels; for a model with a semantic head, the device ms of that head's
-forward, ``sem_seg_loss`` and backward on the step's features, and for
-SOLOv2 and YOLOv4 the head's forward, losses and backward. The full
+forward, ``sem_seg_loss`` and backward on the step's features, for
+SOLOv2 and YOLOv4 the head's forward, losses and backward, and for
+Relation Networks (``configs/Misc/relation_rcnn_R_50_FPN_1x.yaml``) the
+relation box head's forward and backward on the step's sampled ROIs and,
+with the duplicate removal, ``loss_dup``'s. The full
 profiler table goes to
 ``profile_train[_<config>]_b<batch>[_fused].txt`` beside
 ``profile_predict``'s (``D2TPU_ENABLE_FUSED_EPILOGUE=1``: the fused
@@ -38,6 +41,9 @@ from detectron2_tensorflow_tpu_torch.engine import (
     create_train_state,
     make_train_batch,
 )
+from detectron2_tensorflow_tpu_torch.models.roi_heads.relation import RelationROIHeads
+from detectron2_tensorflow_tpu_torch.models.rpn import add_ground_truth_to_proposals
+from detectron2_tensorflow_tpu_torch.models.sampling import draw_noise
 from detectron2_tensorflow_tpu_torch.tools import profile_predict
 
 
@@ -116,6 +122,50 @@ def run(batch: int, out_dir: Path, config_file: Optional[str] = None, opts=()) -
               f"{ms[1]:.3f} ms")
     if hasattr(model, "yolov4"):
         profile_yolov4(model, data)
+    if isinstance(getattr(model, "roi_heads", None), RelationROIHeads):
+        t = relation_train_times(model, data)
+        dup = (f"; loss_dup forward + backward (every sampled slot a candidate, "
+               f"{len(model.roi_heads.dup_ious)} IoU heads): device {t['dup_ms']:.3f} ms/step"
+               if "dup_ms" in t else "; no duplicate removal")
+        print(f"  relation box head forward + backward ({t['rois'][0]} x {t['rois'][1]} sampled "
+              f"ROIs): device {t['head_ms']:.3f} ms/step" + dup)
+
+
+def relation_train_times(model, data) -> dict:
+    """Device ms per step, on the step's sampled ROIs (the training
+    proposals, the GT appended, one seeded draw of the sampler), of the
+    relation box head's forward and backward (fc1, relation1, fc2,
+    relation2 from the pooled ROIs) and, when the model has the duplicate
+    removal, of ``loss_dup``'s (candidates, keep logits, targets, BCE) on
+    the head's outputs."""
+    heads, rpn = model.roi_heads, model.proposal_generator
+    dev = data["image"].device
+    with torch.no_grad():
+        feats = model.features(data["image"])
+        props = rpn.proposals(*rpn.rpn_head([feats[f] for f in rpn.in_features]),
+                              data["image_size"], training=True)
+        props = add_ground_truth_to_proposals(props, data)
+        noise = draw_noise(torch.Generator(device=dev).manual_seed(0), props.is_valid.shape, dev)
+        sampled = heads.label_and_sample_proposals(props, data, noise)
+        pooled = heads.pool_box_features(sampled.boxes, heads.pooling_storage(feats),
+                                         valid=sampled.valid)
+    pooled.requires_grad_(True)
+
+    def head_step():
+        x = heads.box_head(pooled, sampled.boxes, sampled.valid)
+        x.float().square().mean().backward()
+
+    out = {"rois": tuple(sampled.boxes.shape[:2]),
+           "head_ms": profile_predict.device_time(head_step, 3)[0]}
+    if heads.duplicate_removal is not None:
+        with torch.no_grad():
+            outs = [x.detach() for x in heads.box_outputs(pooled, sampled.boxes, sampled.valid)]
+        scores, deltas, app = [x.requires_grad_(True) for x in
+                               (outs[0].float(), outs[1].float(), outs[2])]
+        out["dup_ms"] = profile_predict.device_time(
+            lambda: heads.dup_removal_loss(scores, deltas, app, sampled, data).backward(), 3)[0]
+    model.zero_grad(set_to_none=True)
+    return out
 
 
 def profile_yolov4(model, data) -> None:

@@ -15,8 +15,9 @@ when there are fewer candidates than detection slots). Then the paper checks
 of ``tests/test_relation_paper.py`` with that file's scalar numpy
 transcriptions, the relation oracle of ``tests/test_pipeline_oracle.py`` on
 the port's ``predict``, the YAML's narrow parameter tree against
-``convert_variables``, the JAX init recipe's moments, and the training that
-waits (``NotImplementedError`` by name). Tolerances are stated at each
+``convert_variables``, the JAX init recipe's moments, and that the YAML
+trains through ``build_model``, ``losses`` and ``tools.train``
+(``test_torch_relation_train.py`` holds the training against JAX). Tolerances are stated at each
 check with the worst case measured on this host.
 """
 
@@ -519,26 +520,42 @@ def test_jax_init_recipe_draws_lecun_normal_for_the_relation_layers():
                                rtol=0.1)
 
 
-# -- training waits -------------------------------------------------------------------------
+# -- training -------------------------------------------------------------------------------
 
-def test_relation_training_raises_by_name(tmp_path):
-    """``build_model(..., training=True)`` and ``losses`` raise
-    ``NotImplementedError`` naming RelationROIHeads training; ``tools.train``
-    raises it before it reads any data (its ``DATASETS.ROOT_DIR`` holds
-    none)."""
-    _, tcfg = relation_cfgs(**DUP_ON)
-    match = "RelationROIHeads training .* not ported"
-    with pytest.raises(NotImplementedError, match=match):
-        build_model(tcfg, device="cpu", training=True)
-    model = build_model(tcfg, device="cpu")
-    batch = {"image": torch.zeros((1, 64, 64, 3)), "image_size": torch.tensor([[64, 64]]),
-             "gt_boxes": torch.zeros((1, 1, 4)), "gt_classes": torch.zeros((1, 1)),
-             "gt_valid": torch.ones((1, 1), dtype=torch.bool)}
-    with pytest.raises(NotImplementedError, match=match):
-        model.losses(batch)
-    opts = [str(x) for kv in RELATION_NARROW.items() for x in kv]
-    with pytest.raises(NotImplementedError, match=match):
-        tools_train.main(["--device", "cpu", "--max_iter", "1", "--config_file",
-                          os.path.join(REPO, RELATION_YAML), "DATASETS.ROOT_DIR",
-                          str(tmp_path / "absent"), "LOGS.ROOT_DIR", str(tmp_path), *opts])
-    assert os.listdir(tmp_path) == []
+def test_relation_yaml_trains_through_build_model_losses_and_tools_train(tmp_path):
+    """Relation Networks train (nothing raises any more): ``build_model(...,
+    training=True)`` builds the YAML with the duplicate removal, ``losses``
+    gives finite ``loss_cls``, ``loss_box_reg`` and ``loss_dup`` whose
+    backward reaches the relation modules and the removal, and ``tools.train
+    --config_file`` the relation YAML takes 2 steps on the CPU from synthetic
+    COCO images at narrow widths, writing its checkpoint and its summary."""
+    from detectron2_tensorflow_tpu_torch.engine import make_train_batch
+    from detectron2_tensorflow_tpu_torch.tools import make_synthetic_coco
+
+    few = {"MODEL.RPN.PRE_NMS_TOPK_TRAIN": 200, "MODEL.RPN.POST_NMS_TOPK_TRAIN": 100,
+           "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE": 64}  # the CPU's NMS is slow
+    _, tcfg = relation_cfgs(**DUP_ON, **few, **{"INPUT.MAX_GT_INSTANCES": 5})
+    model = build_model(tcfg, device="cpu", training=True)
+    assert model.training
+    batch = {k: torch.from_numpy(v) for k, v in make_train_batch(tcfg, 128, 160).items()}
+    losses = model.losses(batch, generator=torch.Generator().manual_seed(0))
+    assert tuple(losses)[2:] == ("loss_cls", "loss_box_reg", "loss_dup")
+    assert all(bool(torch.isfinite(v)) and float(v.detach()) > 0 for v in losses.values())
+    sum(losses.values()).backward()
+    for name in ("roi_heads.box_head.relation1.query.weight",
+                 "roi_heads.duplicate_removal.logit.weight"):
+        assert float(dict(model.named_parameters())[name].grad.abs().max()) > 0, name
+    root = tmp_path / "coco"
+    make_synthetic_coco.main([str(root), "2", "3"])
+    small = {"TRANSFORM.RESIZE.MIN_SIZE_TRAIN": (128,), "TRANSFORM.RESIZE.MAX_SIZE_TRAIN": 160,
+             "INPUT.PAD_BUCKETS": ((128, 160), (160, 128)), "SOLVER.IMS_PER_BATCH": 2,
+             "INPUT.MAX_GT_INSTANCES": 8, "MODEL.ROI_HEADS.NUM_CLASSES": 3}
+    opts = [str(x) for kv in {**RELATION_NARROW, **DUP_ON, **few, **small}.items() for x in kv]
+    summary = tools_train.main(["--device", "cpu", "--max_iter", "2", "--config_file",
+                                os.path.join(REPO, RELATION_YAML), "DATASETS.ROOT_DIR",
+                                str(root), "LOGS.ROOT_DIR", str(tmp_path / "logs"), *opts])
+    assert summary["steps"] == 2 and summary["step"] == 2
+    assert "loss_dup" in summary["final_losses"]
+    assert all(np.isfinite(v) for v in summary["final_losses"].values())
+    assert summary["launches"] == {k: 0 for k in summary["launches"]}
+    assert os.listdir(summary["checkpoint_dir"])
