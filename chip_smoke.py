@@ -21,7 +21,7 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      are bit-equal at serving's RPN (10 x 1000, and stacked with p6's 819
      rows padded to 1000), the box head (2 x 2000, ``max_keep`` 100) and
      training's stacked RPN (40 x 2000, ``max_keep`` 1000);
-     The kernel checks of phases 9-16 at their shapes run next, in a phase
+     The kernel checks of phases 9-18 at their shapes run next, in a phase
      of their own (``later_kernels``): from phase 8 on, the gates' processes
      share the card, which would distort the timings;
   4. variants: the ROI forward's seven ablations at the ROI tool's shapes
@@ -60,7 +60,8 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      synthetic 480x640 images into a temporary checkpoint directory; a new
      model resumes there at step 4 (the restored state bit-equal to the
      saved one) and trains to step 6; ``run_evaluation`` evaluates 8 other
-     images (COCO bbox and segm). Losses and metrics must be finite (an
+     images (COCO bbox and segm, and the Pascal VOC mask metrics ``voc_segm``
+     and ``voc_segm_weighted``). Losses and metrics must be finite (an
      area range without GT gives NaN), each step must launch ``nms_keep``
      once and each ``predict`` twice. It prints the seconds per iteration
      and the host seconds of data loading per batch;
@@ -87,7 +88,7 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      seed), and phase 13's panoptic workflow
      (host-bound, as (b) is). (a) runs in the phase; (b) (on a thread), the
      gates and the panoptic workflow start at its end and run on beside
-     phases 9-17, and the last phase, ``gates``, waits for them and checks
+     phases 9-18, and the last phase, ``gates``, waits for them and checks
      them (this keeps the script inside its time limit);
   9. single_level: the C4 (``Res5ROIHeads``) and DC5 (dilated res5)
      families. Each kernel at their shapes against its plain version, timed
@@ -121,8 +122,9 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      kernel: RPN losses only) and ``evaluate`` over 8 synthetic images
      (``box_proposals/AR@100``, ``AR@1000``); Fast R-CNN
      (``fast_rcnn_R_50_FPN_1x.yaml``) through the CLIs in a temporary
-     directory: ``tools.make_synthetic_coco``, a Detectron2 proposal pickle
-     per split (``data.write_proposal_file``), ``tools.train`` 2 steps at
+     directory: synthetic COCO (``tools.make_synthetic_coco``'s ``main`` in
+     this process), a Detectron2 proposal pickle per split
+     (``data.write_proposal_file``), ``tools.train`` 2 steps at
      800 x 1344 with ``DATASETS.PROPOSAL_FILES_TRAIN`` (per step 0
      ``nms_keep``, 1 ``roi_patch_fwd``, 1 ``roi_patch_bwd``) and
      ``tools.eval`` with ``PROPOSAL_FILES_TEST``; the GN and SyncBN Mask
@@ -316,7 +318,28 @@ Needs one CUDA card and ``nvcc``; imports nothing of JAX. Phases, in order
      S = 0 .. 5 (the removal on; over the six, the mean bbox AP at step 600
      no more than 10 below the JAX tool's on the same recipe and step count,
      and the mean bbox AP50 at step 800 at least 90), runs with the others;
- 18. gates: waits for workflow (b), the panoptic workflow and the overfit
+ 18. voc: ``configs/PascalVOC-Detection/faster_rcnn_R_50_FPN.yaml`` on the
+     user's path at full width. ``get_cfg()`` merges it at bf16 with 8
+     images per step at the YAML's 480-800 scales, every ``AUGMENT.*`` on
+     (the crop, both flips, rotations in both directions, the pixel scale,
+     ``DISTORT_COLOR``, box jitter), ``WarmupCosineLR`` (over 16 steps:
+     ``MAX_ITER`` 8 scaled by the batch) and ``PRETRAINS.BACKBONE`` naming a
+     seeded MSRA-layout ``R-50.pkl`` written in the phase: every trunk
+     tensor on the card bit-equal to its converted blob. The loader's host
+     seconds per batch; ``train()`` takes 4 steps from it over 16 synthetic
+     480 x 640 images, each step's LR equal to the schedule's (read by an
+     ``eval_fn`` every step) and, past the warmup, to the cosine's, per step
+     1 / 1 / 1 ``nms_keep`` / ``roi_patch_fwd`` / ``_bwd``; ``run_evaluation``
+     with ``pascal_voc_detection_metrics`` and the weighted one over 8 other
+     images (``voc_bbox/mAP``, ``CorLoc`` finite; 2 / 1 launches per
+     ``predict``). A seeded torchvision ``resnet50.pth`` loads into the
+     ``STRIDE_IN_1X1 False`` R50 (RGB, ImageNet's std), its trunk bit-equal,
+     and serves one 2 x 800 x 1344 ``predict``. The kernels at the path's
+     new shapes are checked early, with the later kernels: the box head's
+     ``nms_keep`` over 8 x 2000 class-offset candidates of 20 classes, and
+     the training box pool at 8 x 512 over boxes inside 480 x 720, forward
+     and backward;
+ 19. gates: waits for workflow (b), the panoptic workflow and the overfit
      gates started in phase 8, and checks them.
 
 Each phase's seconds are printed on a line of their own; phase 14's parts
@@ -330,9 +353,11 @@ and power limit, a ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -347,7 +372,11 @@ import torch
 from detectron2_tensorflow_tpu_torch import bench_cfg, kernels, train_cfg
 from detectron2_tensorflow_tpu_torch.config import finalize, get_cfg
 from detectron2_tensorflow_tpu_torch.convert import (
+    convert_caffe2_backbone,
+    convert_torchvision_backbone,
     emit_manifest,
+    load_caffe2_pickle,
+    load_state_dict,
     read_darknet_blob,
     write_darknet_weights,
 )
@@ -404,10 +433,16 @@ from detectron2_tensorflow_tpu_torch.ops.nms import (
     greedy_keep,
     greedy_keep_reference,
 )
-from detectron2_tensorflow_tpu_torch.solver import trainable_parameters
+from detectron2_tensorflow_tpu_torch.solver import (
+    build_lr_schedule,
+    lr_scale,
+    scaled_max_iter,
+    trainable_parameters,
+)
 from detectron2_tensorflow_tpu_torch.structures import Instances
 from detectron2_tensorflow_tpu_torch.tools import (
     exp_roi_variants,
+    make_synthetic_coco,
     profile_predict,
     profile_train,
     workflow_check,
@@ -553,6 +588,8 @@ def phase_seconds(name: str):
 # Cycles per second of torch.cuda._sleep's spin loop: the H100's top SM clock
 # (1.98 GHz). A slower clock only makes the hold below longer.
 SPIN_CYCLES_PER_S = 1.98e9
+# Seconds of one call from which cuda_ms times the calls without a hold.
+DIRECT_CALL_S = 0.01
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -561,9 +598,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     A spin kernel holds the stream while the host enqueues the calls, so
     the events time the calls' device work back to back, not the host's
     launch cost between them (which exceeds a small kernel's run time).
-    If the hold ended before the last call was enqueued (a call that
-    synchronizes, as a plain version may), it is retried longer, and after
-    three tries the time is taken as it comes, host gaps included.
+    If the hold ended before the last call was enqueued, it is retried
+    longer, and after three tries the time is taken as it comes, host gaps
+    included. A call of DIRECT_CALL_S or more is timed as it comes at once:
+    the gaps between such calls are noise beside them, and a plain version
+    that slow synchronizes (a loop over rows), which no hold outlasts.
     """
     for _ in range(warmup):
         fn()
@@ -571,10 +610,12 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    hold = 2 * (time.perf_counter() - t0) * reps + 1e-3  # an upper bound of the enqueue time
+    one = time.perf_counter() - t0
+    hold = 2 * one * reps + 1e-3  # an upper bound of the enqueue time
+    holds = [] if one >= DIRECT_CALL_S else [hold, 4 * hold, 16 * hold]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for attempt in range(4):
-        if attempt < 3:
+    for hold in holds + [0.0]:
+        if hold:
             torch.cuda._sleep(int(hold * SPIN_CYCLES_PER_S))
         start.record()
         for _ in range(reps):
@@ -584,7 +625,6 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         if not late:
             break
-        hold *= 4
     return start.elapsed_time(end) / reps
 
 
@@ -692,16 +732,18 @@ def nms_case(dev, name, boxes, valid, thr, mk, plain=greedy_keep_reference, reps
 
 
 def roi_inputs(rng, dev, dtype, n, s, valid_frac=0.9, objects=None, b=2, ratio=0,
-               size=(800, 1344)):
+               size=(800, 1344), content=None):
     """A real storage plane (p2-p5 of ``b`` images of ``size``, 800x1344 by
     default, C=256, with the extent-tier aliases, the patch of the models'
     1333-px images) and a plan for ``n`` random boxes per image spread over
-    the image, jittered copies of ``objects`` objects (default ``n // 4``),
-    at sampling ratio ``ratio`` (0: D2's adaptive rule)."""
+    the image (its top-left ``content`` (h, w) if given), jittered copies of
+    ``objects`` objects (default ``n // 4``), at sampling ratio ``ratio``
+    (0: D2's adaptive rule)."""
     c, (h, w) = 256, size
     feats = [card_normal(rng, (b, h // st, w // st, c), dev, dtype) for st in (4, 8, 16, 32)]
     storage, meta = build_storage(feats, [4, 8, 16, 32], plan_patch(1333, 32))
-    boxes, _ = clustered_boxes(rng, b, n, h=h, w=w - 11, objects=objects or max(n // 4, 8))
+    bh, bw = content or (h, w - 11)
+    boxes, _ = clustered_boxes(rng, b, n, h=bh, w=bw, objects=objects or max(n // 4, 8))
     valid = torch.from_numpy(rng.uniform(0, 1, (b, n)) < valid_frac).to(dev)
     starts, wy, wx = plan_rois(meta, torch.from_numpy(boxes).to(dev), s, ratio, 224, 4,
                                valid=valid)
@@ -1675,6 +1717,10 @@ LOOP_OPTS = ["MODEL.DTYPE", "bfloat16", "SOLVER.IMS_PER_GPU", "8",
              "SOLVER.SHORT_TERM_SAVE_STEPS", "2", "SOLVER.SHORT_TERM_NUM_STEPS", "4",
              "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0"]
 LOOP_STEPS, LOOP_RESUMED_STEPS = 4, 6
+# The evaluation's metrics: COCO's bbox and segm, and the Pascal VOC mask metrics.
+LOOP_METRICS = ("coco_detection_metrics", "coco_instance_segmentation_metrics",
+                "pascal_voc_instance_segmentation_metrics",
+                "weighted_pascal_voc_instance_segmentation_metrics")
 
 
 class TimedBatches:
@@ -1692,6 +1738,18 @@ class TimedBatches:
         batch = next(self.batches)
         self.seconds.append(time.perf_counter() - t0)
         return batch
+
+
+def loader_seconds_per_batch(cfg, ds, batches: int) -> float:
+    """Host seconds per training batch of ``cfg``'s loader over ``ds``, the
+    loader alone (no model waiting for it)."""
+    loader = build_dataloader(cfg, ds, training=True, seed=SEED)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(loader)
+    seconds = (time.perf_counter() - t0) / batches
+    loader.close()
+    return seconds
 
 
 def loop_snapshot(state) -> dict:
@@ -1777,13 +1835,9 @@ def run_loop():
         f"data 16 train + 8 val images of 480x640; model built in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    loader = build_dataloader(cfg, train_ds, training=True, seed=SEED)
-    t0 = time.perf_counter()
-    for _ in range(LOOP_STEPS):
-        next(loader)
-    loader.close()
-    log(f"loop       the loader alone: {(time.perf_counter() - t0) / LOOP_STEPS:.3f} host s per "
-        f"batch of {cfg.SOLVER.IMS_PER_BATCH} ({cfg.DATALOADER.NUM_READERS} reader threads)")
+    log(f"loop       the loader alone: {loader_seconds_per_batch(cfg, train_ds, LOOP_STEPS):.3f} "
+        f"host s per batch of {cfg.SOLVER.IMS_PER_BATCH} ({cfg.DATALOADER.NUM_READERS} reader "
+        f"threads)")
 
     with tempfile.TemporaryDirectory() as ckpt:
         batches = TimedBatches(build_dataloader(cfg, train_ds, training=True, seed=SEED))
@@ -1836,18 +1890,26 @@ def run_loop():
     t0 = time.perf_counter()
     batches = list(build_dataloader(cfg, val_ds, training=False))
     load_s = time.perf_counter() - t0
+    eval_cfg = cfg.clone()
+    eval_cfg.defrost()
+    eval_cfg.EVAL.METRICS = LOOP_METRICS
+    eval_cfg.freeze()
     t0 = time.perf_counter()
-    metrics = run_evaluation(cfg, final.model, val_ds, batches)
+    metrics = run_evaluation(eval_cfg, final.model, val_ds, batches)
     eval_s = time.perf_counter() - t0
     launches = read_launches()
     if launches["nms_keep"] != NMS_PER_PREDICT * len(batches):
         raise AssertionError(f"loop eval: {launches['nms_keep']} nms_keep launches in "
                              f"{len(batches)} predict calls")
     check_metrics(metrics, val_ds)
+    voc = {k: v for k, v in metrics.items() if k.startswith("voc_segm")}
+    if sorted(voc) != [f"{p}/{k}" for p in ("voc_segm", "voc_segm_weighted")
+                       for k in ("CorLoc", "mAP")] or not all(map(math.isfinite, voc.values())):
+        raise AssertionError(f"loop eval: the VOC mask metrics {voc}")
     log(f"loop       run_evaluation over {len(val_ds)} images in {len(batches)} batch(es): "
         f"{eval_s:.2f} s (loading {load_s:.2f} s); {NMS_PER_PREDICT} nms_keep launches per "
         f"predict; launches {launches}")
-    for kind in ("bbox", "segm"):
+    for kind in ("bbox", "segm", "voc_segm", "voc_segm_weighted"):
         log(f"loop       {kind} " + json.dumps(
             {k.split("/")[1]: v for k, v in metrics.items() if k.startswith(kind + "/")}))
 
@@ -2867,8 +2929,9 @@ FAST_OPTS = ["MODEL.DTYPE", "bfloat16", "SOLVER.IMS_PER_GPU", "8",
 
 def run_fast_rcnn_clis():
     """Fast R-CNN through the CLIs as subprocesses in a temporary directory:
-    synthetic COCO (8 train, 4 val), a proposal pickle per split by the JAX
-    test's recipe, ``tools.train`` FAST_STEPS steps at the YAML's 800x1344 bucket
+    synthetic COCO (8 train, 4 val; ``make_synthetic_coco.main`` in this
+    process, which workflow (a) runs as a subprocess), a proposal pickle per
+    split by the JAX test's recipe, ``tools.train`` FAST_STEPS steps at the YAML's 800x1344 bucket
     (launches from its summary line), ``tools.eval`` with the val
     proposals. Returns the train summary."""
     run_step = workflow_check.run_step
@@ -2878,7 +2941,8 @@ def run_fast_rcnn_clis():
         common = ["--config_file", FAST_YAML, "DATASETS.ROOT_DIR", root,
                   "LOGS.ROOT_DIR", os.path.join(root, "logs"), *FAST_OPTS]
         t0 = time.perf_counter()
-        run_step("make_synthetic_coco", [root, "8", "4"], echo=False)
+        with contextlib.redirect_stdout(io.StringIO()):  # its one JSON line
+            make_synthetic_coco.main([root, "8", "4"])
         counts = [write_proposal_file(os.path.join(root, f"{split}.json"),
                                       os.path.join(root, f"{split}_proposals.pkl"), seed)
                   for split, seed in (("train", SEED), ("val", SEED + 1))]
@@ -3403,7 +3467,7 @@ def run_tta(rng, dev):
 
 
 def check_later_kernels(rng, dev):
-    """The kernel checks of phases 9-16 at their shapes, before phase 8
+    """The kernel checks of phases 9-18 at their shapes, before phase 8
     starts the host-bound gates, whose processes would share the card with
     the timings."""
     return {"single_level": check_single_level_kernels(rng, dev),
@@ -3411,7 +3475,7 @@ def check_later_kernels(rng, dev):
             "single_stage_cascade": check_retinanet_nms(rng, dev),
             "keypoint": check_keypoint_kernels(rng, dev),
             "dconv": check_dconv_kernels(rng, dev), "deform": check_deform_conv(rng, dev),
-            "yolov4": check_yolov4_nms(rng, dev)}
+            "yolov4": check_yolov4_nms(rng, dev), "voc": check_voc_kernels(rng, dev)}
 
 
 def run_dconv(rng, dev, kernels_):
@@ -4173,6 +4237,277 @@ def run_relation(rng, dev):
     return {"serving": serving, "training": training}
 
 
+# -- phase 18: voc ---------------------------------------------------------------------
+
+VOC = "voc       "  # the phase's log tag
+VOC_YAML = "configs/PascalVOC-Detection/faster_rcnn_R_50_FPN.yaml"
+VOC_MSRA = "ImageNetPretrained/MSRA/R-50.pkl"
+VOC_TORCHVISION = "ImageNetPretrained/torchvision/resnet50.pth"
+VOC_METRICS = ("pascal_voc_detection_metrics", "weighted_pascal_voc_detection_metrics")
+VOC_OPTS = [
+    "MODEL.DTYPE", "bfloat16", "SOLVER.IMS_PER_GPU", "8",
+    "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0", "EVAL.METRICS", repr(VOC_METRICS),
+    # The cosine schedule over 16 steps (8 scaled by the batch of 8), so that
+    # four steps read its warmup and its decay; eval_fn every step reads the LR.
+    "SOLVER.LR_SCHEDULER_NAME", "WarmupCosineLR", "SOLVER.MAX_ITER", "8",
+    "SOLVER.WARMUP_ITERS", "2", "TEST.EVAL_PERIOD", "1",
+    # Every augmentation of the AUGMENT table (DISTORT_COLOR holds the
+    # brightness, saturation, hue and contrast changes).
+    "AUGMENT.CROP.ENABLED", "True", "AUGMENT.HORIZONTAL_FLIP", "True",
+    "AUGMENT.VERTICAL_FLIP", "True", "AUGMENT.ROTATE", "True",
+    "AUGMENT.ROTATE_BOTH_DIRECTION", "True", "AUGMENT.PIXEL_VALUE_SCALE.ENABLED", "True",
+    "AUGMENT.DISTORT_COLOR.ENABLED", "True", "AUGMENT.JITTER_BOX.ENABLED", "True",
+]
+# torchvision's ResNets: the stride in the 3x3, RGB with ImageNet's std.
+TORCHVISION_OPTS = ["MODEL.RESNETS.STRIDE_IN_1X1", "False", "MODEL.INPUT_FORMAT", "RGB",
+                    "MODEL.PIXEL_STD", "(58.395, 57.120, 57.375)"]
+VOC_STEPS = 4
+VOC_ROI_PER_STEP = 1  # Faster R-CNN: the box pool alone, forward and backward
+VOC_NMS_CLASSES = 20
+CAFFE2_BRANCH = {"conv1": "branch2a", "conv2": "branch2b", "conv3": "branch2c",
+                 "shortcut": "branch1"}
+
+
+def voc_cfg(root: str, backbone: str = VOC_MSRA, extra=(), device="cuda"):
+    """The VOC YAML with VOC_OPTS (and ``extra``), ``PRETRAINS.BACKBONE``
+    ``backbone`` under ``root``, finalized on ``device``."""
+    cfg = get_cfg()
+    cfg.merge_from_file(str(ROOT / VOC_YAML))
+    cfg.merge_from_list(VOC_OPTS + ["PRETRAINS.ROOT", root, "PRETRAINS.BACKBONE", backbone,
+                                    *extra])
+    return finalize(cfg, device=device)
+
+
+def trunk_of(model):
+    """``(name, module)`` of ``model.trunk``."""
+    return next((n, m) for n, m in model.named_modules() if m is model.trunk)
+
+
+def trunk_convs(model) -> dict:
+    """``{"stem.conv1": kernel shape, "res2.0.conv1": ..., ...}``."""
+    _, trunk = trunk_of(model)
+    return {k[:-len(".weight")]: tuple(v.shape) for k, v in trunk.state_dict().items()
+            if k.endswith(".weight") and ".norm." not in k}
+
+
+def imagenet_trunk(rng, model, layout: str) -> dict:
+    """A seeded ImageNet ResNet for ``model``'s trunk in the public file's
+    layout: ``msra`` (caffe2 blobs, each BN folded into ``_bn_s`` /
+    ``_bn_b``, with ``fc1000``) or ``torchvision`` (a ``resnet50``
+    ``state_dict``: ``conv1`` / ``bn1``, ``layer{L}.{b}.conv{i}`` / ``bn{i}``
+    / ``downsample``, ``fc``). He-scaled kernels; the stem's BN scale 1/640
+    and each block's last 0.2, so that activations stay near 1."""
+    out = {}
+    for module, shape in trunk_convs(model).items():
+        w = (rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))).astype(np.float32)
+        s = rng.uniform(0.5, 1.5, shape[0]) * (
+            1 / 640 if module == "stem.conv1" else 0.2 if module.endswith("conv3") else 1.0)
+        b = rng.standard_normal(shape[0]) * 0.1
+        if layout == "msra":
+            if module == "stem.conv1":
+                conv, bn = "conv1", "res_conv1_bn"
+            else:
+                stage, block, name = module.split(".")
+                conv = f"{stage}_{block}_{CAFFE2_BRANCH[name]}"
+                bn = conv + "_bn"
+            out.update({conv + "_w": w, bn + "_s": s.astype(np.float32),
+                        bn + "_b": b.astype(np.float32)})
+            continue
+        if module == "stem.conv1":
+            conv, bn = "conv1", "bn1"
+        else:
+            stage, block, name = module.split(".")
+            layer = f"layer{int(stage[3:]) - 1}.{block}"
+            conv, bn = ((f"{layer}.downsample.0", f"{layer}.downsample.1")
+                        if name == "shortcut" else (f"{layer}.{name}", f"{layer}.bn{name[-1]}"))
+        out.update({f"{conv}.weight": w, f"{bn}.weight": s.astype(np.float32),
+                    f"{bn}.bias": b.astype(np.float32),
+                    f"{bn}.running_mean": (rng.standard_normal(shape[0]) * 0.1).astype(np.float32),
+                    f"{bn}.running_var": rng.uniform(0.5, 2.0, shape[0]).astype(np.float32)})
+    if layout == "msra":
+        out.update({"fc1000_w": rng.standard_normal((1000, 2048)).astype(np.float32),
+                    "fc1000_b": np.zeros(1000, np.float32)})
+    else:
+        out.update({"fc.weight": rng.standard_normal((1000, 2048)).astype(np.float32),
+                    "fc.bias": np.zeros(1000, np.float32)})
+    return out
+
+
+def write_imagenet_trunk(rng, model, root: str, path: str) -> str:
+    """Write ``imagenet_trunk`` for ``model`` at ``root/path`` (a ``.pkl`` is
+    an MSRA pickle ``{"blobs": ...}``, anything else a torchvision
+    ``state_dict`` by ``torch.save``)."""
+    full = os.path.join(root, path)
+    os.makedirs(os.path.dirname(full), exist_ok=True)
+    if path.endswith(".pkl"):
+        with open(full, "wb") as f:
+            pickle.dump({"blobs": imagenet_trunk(rng, model, "msra")}, f)
+    else:
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    imagenet_trunk(rng, model, "torchvision").items()}, full)
+    return full
+
+
+def check_trunk_loaded(cfg, model, path: str, label: str) -> int:
+    """``load_pretrained`` loads ``path`` into ``model`` on the card: every
+    trunk tensor bit-equal to its converted blob (the file read and
+    converted again on the host, by the converter of its layout) in the
+    tensor's dtype (a serving model keeps bf16 kernels)."""
+    if not load_pretrained(cfg, model):
+        raise AssertionError(f"{label}: load_pretrained loaded nothing")
+    name, _ = trunk_of(model)
+    if path.endswith(".pkl"):
+        want, leftovers = convert_caffe2_backbone(load_caffe2_pickle(path), name)
+    else:
+        want, leftovers = convert_torchvision_backbone(load_state_dict(path), trunk=name)
+    state = model.state_dict()
+    trunk = [k for k in state if k.startswith(name + ".")]
+    differ = [k for k in trunk if k not in want
+              or not torch.equal(state[k].cpu(), want[k].to(state[k].dtype))]
+    if differ or leftovers or len(want) != len(trunk):
+        raise AssertionError(f"{label}: {len(differ)} of {len(trunk)} trunk tensors differ from "
+                             f"the file's ({differ[:3]}), leftovers {leftovers}")
+    log(f"{VOC} {label}: all {len(trunk)} trunk tensors on the card bit-equal to the converted "
+        f"blobs (dtypes {sorted({str(state[k].dtype) for k in trunk})})")
+    return len(trunk)
+
+
+def check_voc_kernels(rng, dev):
+    """The VOC path's new kernel shapes: the box head's ``nms_keep`` over
+    8 x 2000 class-offset candidates of 20 classes (the evaluation's batch
+    of 8; ``max_keep`` 100), and the training box pool at 8 x 512, S = 7,
+    C = 256 over boxes inside 480 x 720 of the 800 x 1344 plane (the YAML's
+    smallest scale), forward and backward, bf16."""
+    b, v = clustered_boxes(rng, 8, 2000)
+    cls = rng.integers(0, VOC_NMS_CLASSES, (8, 2000))
+    nms = nms_case(dev, "voc box head B=8 N=2000 20 classes iou=0.5 max_keep=100",
+                   class_offset(b, cls), v, 0.5, 100, tag=VOC)
+    storage, starts, wy, wx, valid = roi_inputs(rng, dev, torch.bfloat16, 512, 7, b=8,
+                                                objects=64, content=(480, 720))
+    fwd = roi_fwd_case("voc train box B=8 N=512 S=7 content 480x720", storage, starts, wy, wx,
+                       valid, tag=VOC)
+    g = card_normal(rng, (8, 512, 7, 7, 256), dev, torch.bfloat16)
+    bwd = roi_bwd_case("voc train box B=8 N=512 S=7 content 480x720", g, starts, wy, wx, valid,
+                       tuple(storage.shape), tag=VOC)
+    return {"nms": nms, "fwd": fwd, "bwd": bwd}
+
+
+def voc_lines(voc, kernels_):
+    """The ``kernels`` line's entries of the VOC shapes; ``launches`` counts
+    the kernel in the VOC run that has the shape (the evaluation's for the
+    box head's NMS, the four training steps' for the box pool)."""
+    e, t = voc["eval"], voc["train"]
+    return [kernel_line(f"{kernel}@{case_label('voc', r['case'])}", src,
+                        tpu_kernel(pattern, line), n, r, r["err"])
+            for kernel, src, pattern, line, n, r in (
+                ("nms_keep", NMS_SRC, "*/ops/pallas/nms_keep.py", 161, e["nms_keep"],
+                 kernels_["nms"]),
+                ("roi_patch_fwd", ROI_SRC, "*/ops/pallas/roi_patch.py", 667,
+                 t["roi_patch_fwd"], kernels_["fwd"]),
+                ("roi_patch_bwd", ROI_SRC, "*/ops/pallas/roi_patch.py", 440,
+                 t["roi_patch_bwd"], kernels_["bwd"]))]
+
+
+def run_voc(rng, dev):
+    """Phase 18: the VOC YAML trained from an ImageNet trunk with every
+    augmentation and the cosine LR, then evaluated on the VOC metrics; a
+    torchvision trunk served. Returns the training's and the evaluation's
+    launches."""
+    train_ds = SyntheticDataset(n=16, h=480, w=640, num_classes=VOC_NMS_CLASSES,
+                                box_range=(40, 200))
+    val_ds = SyntheticDataset(n=8, h=480, w=640, num_classes=VOC_NMS_CLASSES,
+                              box_range=(40, 200), first_id=16)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = voc_cfg(root)
+        model = build_model(cfg, training=True, generator=torch.Generator().manual_seed(SEED))
+        path = write_imagenet_trunk(rng, model, root, VOC_MSRA)
+        n = check_trunk_loaded(cfg, model, path, "voc msra")
+        log(f"{VOC} {VOC_YAML} + every AUGMENT.*, WarmupCosineLR, bf16, batch "
+            f"{cfg.SOLVER.IMS_PER_BATCH}, MIN_SIZE_TRAIN "
+            f"{tuple(cfg.TRANSFORM.RESIZE.MIN_SIZE_TRAIN)}, "
+            f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes; a seeded MSRA R-50.pkl "
+            f"({os.path.getsize(path) / 2**20:.1f} MiB, {n} trunk tensors) through "
+            f"PRETRAINS.BACKBONE")
+        per_batch = loader_seconds_per_batch(cfg, train_ds, VOC_STEPS)
+        log(f"{VOC} the loader alone, every augmentation on: {per_batch:.3f} host s per batch of "
+            f"{cfg.SOLVER.IMS_PER_BATCH} ({cfg.DATALOADER.NUM_READERS} reader threads, "
+            f"480x640 images)")
+
+        schedule = build_lr_schedule(cfg)
+        lrs = []
+
+        def read_lr(state, step):
+            group = state.optimizer.sgd.param_groups[0]  # the weights: LR factor 1
+            lrs.append((step, group["lr"]))
+            return {"lr": group["lr"]}
+
+        batches = TimedBatches(build_dataloader(cfg, train_ds, training=True, seed=SEED))
+        zero_launches()
+        t0 = time.perf_counter()
+        state = train(cfg, model, batches, max_iter=VOC_STEPS, log_every=1, eval_fn=read_lr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        batches.batches.close()
+        training = read_launches()
+        # eval_fn runs after each step: the LR its update took.
+        want_lrs = [(s, schedule(s - 1)) for s in range(1, VOC_STEPS + 1)]
+        if lrs != want_lrs:
+            raise AssertionError(f"voc: learning rates {lrs}, the schedule's {want_lrs}")
+        total = scaled_max_iter(cfg)
+        base = cfg.SOLVER.BASE_LR * lr_scale(cfg)
+        cosine = [base * 0.5 * (1 + math.cos(math.pi * (s - 1) / total)) for s, _ in lrs[2:4]]
+        if not all(abs(lr - c) <= 1e-6 * c for (_, lr), c in zip(lrs[2:4], cosine)):
+            raise AssertionError(f"voc: LR after the warmup {lrs[2:4]}, the cosine's {cosine}")
+        want = {"nms_keep": NMS_PER_STEP * VOC_STEPS, "roi_patch_fwd": VOC_ROI_PER_STEP * VOC_STEPS,
+                "roi_patch_bwd": VOC_ROI_PER_STEP * VOC_STEPS, "fused_residual": 0}
+        losses = [v for _, metrics, _ in state.history for v in metrics.values()]
+        if (len(state.history) != VOC_STEPS or not all(math.isfinite(v) for v in losses)
+                or any(training[k] != v for k, v in want.items())):
+            raise AssertionError(f"voc train: history {state.history}, launches {training}, "
+                                 f"expected {want}")
+        log(f"{VOC} train() {VOC_STEPS} steps in {wall:.2f} s, seconds per iteration "
+            f"{', '.join(f'{dt:.3f}' for _, _, dt in state.history)}, host seconds waiting for "
+            f"each batch {', '.join(f'{t:.3f}' for t in batches.seconds)}; LR each step "
+            f"{', '.join(f'{lr:.6g}' for _, lr in lrs[:VOC_STEPS])} (the schedule's: warmup "
+            f"{cfg.SOLVER.WARMUP_ITERS}, cosine over {total}); losses at step {VOC_STEPS} "
+            + ", ".join(f"{k} {v:.4f}" for k, v in state.history[-1][1].items())
+            + f"; launches {training}")
+
+        zero_launches()
+        t0 = time.perf_counter()
+        val = list(build_dataloader(cfg, val_ds, training=False))
+        metrics = run_evaluation(cfg, state.model, val_ds, val)
+        eval_s = time.perf_counter() - t0
+        evaluation = read_launches()
+        keys = {f"{p}/{k}" for p in ("voc_bbox", "voc_bbox_weighted") for k in ("mAP", "CorLoc")}
+        if set(metrics) != keys or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"voc eval: {metrics}")
+        if (evaluation["nms_keep"] != NMS_PER_PREDICT * len(val)
+                or evaluation["roi_patch_fwd"] != len(val)):
+            raise AssertionError(f"voc eval: launches {evaluation} in {len(val)} predict calls")
+        log(f"{VOC} run_evaluation over {len(val_ds)} images in {len(val)} batch(es), "
+            f"{eval_s:.2f} s: " + json.dumps(metrics) + f"; launches {evaluation}")
+        del state, model
+
+        tv_cfg = voc_cfg(root, VOC_TORCHVISION, TORCHVISION_OPTS)
+        model = build_model(tv_cfg, generator=torch.Generator().manual_seed(SEED))
+        path = write_imagenet_trunk(rng, model, root, VOC_TORCHVISION)
+        n = check_trunk_loaded(tv_cfg, model, path, "voc torchvision")
+        batch = serving_batch(rng, dev)
+        zero_launches()
+        with torch.no_grad():
+            out = model.predict(batch)
+        served = read_launches()
+        check_outputs(tv_cfg, out, batch, 2, 800, 1333, "torchvision R50 (STRIDE_IN_1X1 False)",
+                      phase=VOC)
+        if served["nms_keep"] != NMS_PER_PREDICT or served["roi_patch_fwd"] != 1:
+            raise AssertionError(f"voc torchvision predict: launches {served}")
+        log(f"{VOC} a seeded torchvision resnet50.pth through PRETRAINS.BACKBONE into the "
+            f"STRIDE_IN_1X1 False R50 ({n} trunk tensors); one predict of 2 x 800x1344, "
+            f"launches {served}")
+    return {"train": training, "eval": evaluation}
+
+
 def probe():
     """What the card's machine offers a JPEG route (decides nothing here).
     Each module is imported in a child interpreter, so this one imports none."""
@@ -4265,6 +4600,8 @@ def main() -> None:
         yolo = run_yolov4(rng, dev, later["yolov4"])
     with phase_seconds("relation"), fused_switch(False):
         run_relation(rng, dev)
+    with phase_seconds("voc"), fused_switch(False):
+        voc = run_voc(rng, dev)
     with phase_seconds("gates"):
         gates = finish_workflow(pending)
     probe()
@@ -4303,6 +4640,7 @@ def main() -> None:
                     tpu_kernel("*/ops/pallas/nms_keep.py", 161),
                     gates["yolov4"]["launches"]["nms_keep"], yolo["nms"]["gate"],
                     yolo["nms"]["gate"]["err"]),
+        *voc_lines(voc, later["voc"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,10 @@ for a Detectron2 checkpoint. SOLOv2's ``head/{cate,kernel}_tower_{i}``,
 their names (``head.cate_tower_0`` ...); a deformable tower's
 ``conv/{kernel, conv_offset}`` (``MODEL.SOLO.USE_DEFORM_CONV``) becomes the
 tower's ``weight`` and ``conv_offset``, its norm beside it the tower's
-``norm``. :func:`convert_solo_weights` reads an mmdet SOLOv2 checkpoint, and
+``norm``. :func:`convert_solo_weights` reads an mmdet SOLOv2 checkpoint,
+:func:`convert_caffe2_backbone` an MSRA/caffe2 ImageNet trunk (a pickle
+read by :func:`load_caffe2_pickle`), :func:`convert_torchvision_backbone`
+a torchvision (or mmdet ``backbone.``) ResNet state dict, and
 :func:`convert_darknet_weights` a darknet ``.weights`` blob through its
 JSON manifest (:func:`emit_manifest` writes the skeleton of one;
 :func:`write_darknet_weights` writes a model's tensors the other way). A YOLOv4's
@@ -224,12 +227,11 @@ def convert_solo_weights(sd: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, torc
     """An mmdetection SOLOv2 checkpoint -> (the port's float32 ``state_dict``
     entries it holds, the checkpoint's names that the model has no place for).
 
-    Port of the JAX package's ``convert/solo.py`` (with the torchvision trunk
-    of its ``convert/torchvision.py``), writing the port's names: the
-    torchvision trunk ``backbone.{conv1, bn1, layer{L}.{b}.conv{i} / bn{i} /
-    downsample.{0,1}}`` -> ``backbone.bottom_up.{stem.conv1, res{L+1}.{b}.conv{i},
-    .shortcut}`` (each BN a FrozenBN ``norm``), the FPN's ``neck.lateral_convs.{l}``
-    / ``neck.fpn_convs.{l}`` -> ``backbone.fpn_lateral{l+2}`` /
+    Port of the JAX package's ``convert/solo.py``, writing the port's names:
+    the torchvision trunk under ``backbone.`` by
+    :func:`convert_torchvision_backbone` into ``backbone.bottom_up``, the
+    FPN's ``neck.lateral_convs.{l}`` / ``neck.fpn_convs.{l}`` ->
+    ``backbone.fpn_lateral{l+2}`` /
     ``backbone.fpn_output{l+2}``, the towers' ``bbox_head.{cate,kernel}_convs.{i}.{conv,gn}``
     -> ``head.{cate,kernel}_tower_{i}`` and its ``norm``, ``bbox_head.solo_cate`` /
     ``solo_kernel`` -> ``head.cate_pred`` / ``kernel_pred``, the mask
@@ -238,7 +240,7 @@ def convert_solo_weights(sd: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, torc
     both sides; the classifier's ``fc.*`` is dropped."""
     sd = {k: np.asarray(v, np.float32) for k, v in sd.items()
           if not k.endswith("num_batches_tracked")}
-    out: Dict[str, torch.Tensor] = {}
+    out, rest = convert_torchvision_backbone(sd, "backbone.", "backbone.bottom_up")
     used = set()
 
     def put(src: str, dst: str):
@@ -254,21 +256,6 @@ def convert_solo_weights(sd: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, torc
         for leaf in leaves:
             put(f"{src}.{leaf}", f"{dst}.norm.{leaf}")
 
-    trunk = "backbone.bottom_up"
-    conv("backbone.conv1", f"{trunk}.stem.conv1")
-    norm("backbone.bn1", f"{trunk}.stem.conv1", _BN_LEAVES)
-    for layer in range(1, 5):
-        b = 0
-        while f"backbone.layer{layer}.{b}.conv1.weight" in sd:
-            src, dst = f"backbone.layer{layer}.{b}", f"{trunk}.res{layer + 1}.{b}"
-            for i in (1, 2, 3):
-                if f"{src}.conv{i}.weight" in sd:
-                    conv(f"{src}.conv{i}", f"{dst}.conv{i}")
-                    norm(f"{src}.bn{i}", f"{dst}.conv{i}", _BN_LEAVES)
-            if f"{src}.downsample.0.weight" in sd:
-                conv(f"{src}.downsample.0", f"{dst}.shortcut")
-                norm(f"{src}.downsample.1", f"{dst}.shortcut", _BN_LEAVES)
-            b += 1
     for lvl in range(2, 6):
         conv(f"neck.lateral_convs.{lvl - 2}.conv", f"backbone.fpn_lateral{lvl}")
         conv(f"neck.fpn_convs.{lvl - 2}.conv", f"backbone.fpn_output{lvl}")
@@ -287,7 +274,114 @@ def convert_solo_weights(sd: Dict[str, np.ndarray], cfg) -> Tuple[Dict[str, torc
             norm(f"{src}.gn", f"head.mask_{f}_{k}", _GN_LEAVES)
     conv("mask_feat_head.conv_pred.0.conv", "head.mask_pred")
     norm("mask_feat_head.conv_pred.0.gn", "head.mask_pred", _GN_LEAVES)
-    leftovers = [k for k in sd if k not in used and not k.startswith(("fc.", "backbone.fc"))]
+    return out, [k for k in rest if k not in used]
+
+
+def load_caffe2_pickle(path: str) -> Dict[str, np.ndarray]:
+    """An MSRA/caffe2 pickle (``{"blobs": {name: array}}`` or the bare dict)
+    -> ``{name: np.ndarray}``, without the ``_momentum`` blobs."""
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    blobs = data.get("blobs", data)
+    return {k: np.asarray(v) for k, v in blobs.items() if not k.endswith("_momentum")}
+
+
+def _tensor(arr) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(arr, np.float32)))
+
+
+_CAFFE2_BLOCK = re.compile(r"^res(\d)_(\d+)_(branch\w+)_w$")
+_CAFFE2_BRANCH = {"branch2a": "conv1", "branch2b": "conv2", "branch2c": "conv3",
+                  "branch1": "shortcut"}
+
+
+def convert_caffe2_backbone(blobs: Dict[str, np.ndarray], trunk: str = "backbone"
+                            ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """An MSRA/caffe2 ResNet's blobs -> (the port's float32 trunk tensors under
+    ``trunk``, the blobs left unconverted).
+
+    Port of the JAX package's ``convert/backbone.py``: ``conv1_w`` and
+    ``res_conv1_bn_{s,b}`` are the stem's ``stem.conv1``;
+    ``res{s}_{b}_branch{2a,2b,2c,1}_{w,bn_s,bn_b}`` are block ``b`` of stage
+    ``res{s}``'s ``conv1``, ``conv2``, ``conv3`` and ``shortcut``. Kernels are
+    OIHW on both sides. caffe2 folded each BN's statistics into ``_bn_s`` /
+    ``_bn_b``, so the FrozenBN gets them as its weight and bias with mean 0
+    and variance ``1 - 1e-5``: with the layer's eps of 1e-5 its scale is
+    ``_bn_s`` itself. The classifier's ``fc1000`` and ``pred`` blobs are
+    dropped without being listed."""
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+
+    def take(name):
+        used.add(name)
+        return blobs.get(name)
+
+    def put(dst, w, bn_s, bn_b):
+        if w is not None:
+            out[f"{dst}.weight"] = _tensor(w)
+        if bn_s is not None:
+            out[f"{dst}.norm.weight"] = _tensor(bn_s)
+            out[f"{dst}.norm.bias"] = _tensor(bn_b)
+            out[f"{dst}.norm.running_mean"] = _tensor(np.zeros_like(bn_s))
+            out[f"{dst}.norm.running_var"] = _tensor(np.ones_like(bn_s) - 1e-5)
+
+    put(f"{trunk}.stem.conv1", take("conv1_w"), take("res_conv1_bn_s"), take("res_conv1_bn_b"))
+    for name in list(blobs):
+        m = _CAFFE2_BLOCK.match(name)
+        if not m:
+            continue
+        stage, block, branch = m.groups()
+        base = f"res{stage}_{block}_{branch}"
+        put(f"{trunk}.res{stage}.{block}.{_CAFFE2_BRANCH[branch]}",
+            take(base + "_w"), take(base + "_bn_s"), take(base + "_bn_b"))
+    leftovers = [k for k in blobs if k not in used and not k.startswith(("fc1000", "pred"))]
+    return out, leftovers
+
+
+def convert_torchvision_backbone(sd: Dict[str, np.ndarray], prefix: str = "",
+                                 trunk: str = "backbone"
+                                 ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """A torchvision ResNet state dict (or an mmdet checkpoint's, with
+    ``prefix`` ``"backbone."``) -> (the port's float32 trunk tensors under
+    ``trunk``, the names left unconverted).
+
+    Port of the JAX package's ``convert/torchvision.py``: ``conv1`` /
+    ``bn1`` are ``stem.conv1``, ``layer{L}.{b}.conv{i}`` / ``bn{i}`` are
+    ``res{L+1}.{b}.conv{i}`` (a basic block has no ``conv3``) and
+    ``downsample.{0,1}`` the block's ``shortcut``; each BN becomes a FrozenBN
+    with its running statistics. ``fc.*`` and ``num_batches_tracked`` are
+    dropped without being listed. torchvision's ResNets stride in the 3x3 and
+    read RGB with ImageNet's mean and std: use them with
+    ``MODEL.RESNETS.STRIDE_IN_1X1 False``, ``MODEL.INPUT_FORMAT RGB`` and
+    ``MODEL.PIXEL_STD [58.395, 57.120, 57.375]``."""
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+
+    def has(name):
+        return prefix + name in sd
+
+    def get(name):
+        used.add(prefix + name)
+        return sd[prefix + name]
+
+    def conv_bn(conv, bn, dst):
+        out[f"{dst}.weight"] = _tensor(get(f"{conv}.weight"))
+        for leaf in _BN_LEAVES:
+            out[f"{dst}.norm.{leaf}"] = _tensor(get(f"{bn}.{leaf}"))
+
+    conv_bn("conv1", "bn1", f"{trunk}.stem.conv1")
+    for layer in range(1, 5):
+        b = 0
+        while has(f"layer{layer}.{b}.conv1.weight"):
+            src, dst = f"layer{layer}.{b}", f"{trunk}.res{layer + 1}.{b}"
+            for i in (1, 2, 3):
+                if has(f"{src}.conv{i}.weight"):
+                    conv_bn(f"{src}.conv{i}", f"{src}.bn{i}", f"{dst}.conv{i}")
+            if has(f"{src}.downsample.0.weight"):
+                conv_bn(f"{src}.downsample.0", f"{src}.downsample.1", f"{dst}.shortcut")
+            b += 1
+    leftovers = [k for k in sd if k not in used and not k.endswith("num_batches_tracked")
+                 and not k.startswith(("fc.", prefix + "fc."))]
     return out, leftovers
 
 

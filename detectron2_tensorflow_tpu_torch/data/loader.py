@@ -135,7 +135,6 @@ def build_dataloader(
     example :class:`.synthetic.SyntheticDataset`). Batches group samples by
     pad bucket.
     """
-    transforms.check_supported(cfg)
     batch_size = batch_size or cfg.SOLVER.IMS_PER_BATCH
     buckets = [tuple(b) for b in cfg.INPUT.PAD_BUCKETS]
     max_gt = cfg.INPUT.MAX_GT_INSTANCES

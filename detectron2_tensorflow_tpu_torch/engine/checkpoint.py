@@ -15,13 +15,15 @@ multiple of ``keep_period``.
 ``load_pretrained`` reads ``PRETRAINS.*`` into a model, keeping tensors
 whose name and shape the model has and warning about the rest: ``WEIGHTS``
 names a port checkpoint (a train-loop checkpoint or a bare ``state_dict``),
-``DETECTRON2`` a Detectron2 ``.pkl``/``.pth`` file, ``MMDET`` an
+``DETECTRON2`` a Detectron2 ``.pkl``/``.pth`` file, ``BACKBONE`` an
+ImageNet trunk for the model's ``trunk`` (a ``.pkl`` is an MSRA/caffe2
+pickle, ``convert.convert_caffe2_backbone``; any other file a torchvision
+state dict, ``convert.convert_torchvision_backbone``), ``MMDET`` an
 mmdetection SOLOv2 checkpoint (``convert.convert_solo_weights``),
 ``DARKNET`` a darknet ``.weights`` file read through the JSON manifest beside
 it, ``<path>.json`` (``convert.convert_darknet_weights``; one manifest serves
-both packages). ``BACKBONE`` needs converters the port does not have yet. A
-file that is not there is skipped with a warning, and training starts from
-the model's own weights.
+both packages). A file that is not there is skipped with a warning, and
+training starts from the model's own weights, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -179,8 +181,27 @@ def load_pretrained(cfg, model: torch.nn.Module) -> bool:
         return True
 
     if pre.BACKBONE:
-        raise NotImplementedError("PRETRAINS.BACKBONE needs the caffe2/torchvision backbone "
-                                  "converters, not ported yet")
+        from ..convert import (
+            convert_caffe2_backbone,
+            convert_torchvision_backbone,
+            load_caffe2_pickle,
+            load_state_dict,
+        )
+
+        path = os.path.join(root, pre.BACKBONE)
+        if missing(path):
+            return False
+        logger.info("initializing backbone from %s", path)
+        if path.endswith(".pkl"):
+            converted, leftovers = convert_caffe2_backbone(load_caffe2_pickle(path),
+                                                           _trunk_name(model))
+        else:
+            converted, leftovers = convert_torchvision_backbone(load_state_dict(path),
+                                                                trunk=_trunk_name(model))
+        if leftovers:
+            logger.warning("unconverted backbone blobs: %s", leftovers)
+        model.load_state_dict(overlay_compatible(model.state_dict(), converted))
+        return True
 
     if pre.MMDET:
         from ..convert import convert_solo_weights, load_state_dict
@@ -210,10 +231,15 @@ def load_pretrained(cfg, model: torch.nn.Module) -> bool:
     return False
 
 
+def _trunk_name(model: torch.nn.Module) -> str:
+    """The module name of ``model.trunk`` (``backbone.bottom_up`` under an
+    FPN, ``backbone`` without one): the JAX package's ``backbone`` subtree,
+    which holds the trunk and not the FPN (nor the C4 ROI head's res5)."""
+    return next(n for n, m in model.named_modules() if m is model.trunk)
+
+
 def _backbone_only(converted: Dict[str, torch.Tensor],
                    model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The trunk's tensors only (``PRETRAINS.ONLY_BACKBONE``): the JAX
-    package keeps its ``backbone`` subtree, which holds the trunk and not the
-    FPN (nor the C4 ROI head's res5)."""
-    prefix = next(n for n, m in model.named_modules() if m is model.trunk) + "."
+    """The trunk's tensors only (``PRETRAINS.ONLY_BACKBONE``)."""
+    prefix = _trunk_name(model) + "."
     return {k: v for k, v in converted.items() if k.startswith(prefix)}

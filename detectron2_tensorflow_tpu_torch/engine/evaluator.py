@@ -8,7 +8,11 @@ Port of the JAX package's ``engine/evaluator.py`` (``build_predict``,
 built on the CPU) and gives fixed-shape detections in network-input
 coordinates; the host scales the boxes and keypoints to the original
 resolution, pastes the masks there and streams each image into the COCO
-bbox, segm and keypoint (OKS) evaluators; a ``ProposalNetwork``'s proposals go to the proposal-recall
+bbox, segm and keypoint (OKS) evaluators and the Pascal VOC ones
+(``voc_bbox``, ``voc_bbox_weighted``, ``voc_segm``, ``voc_segm_weighted``:
+mAP and CorLoc at ``EVAL.PASCAL_MATCHING_IOU_THRESH``, crowd GT read as
+group-of boxes weighted by ``EVAL.PASCAL_GROUP_OF_WEIGHT``, masks matched
+against the full-frame GT masks); a ``ProposalNetwork``'s proposals go to the proposal-recall
 evaluator (``box_proposals/AR@100``, ``box_proposals/AR@1000``) instead.
 A RetinaNet (``SingleStageDetector``) predicts no masks, so it gets the bbox
 evaluator alone. SOLOv2's masks are whole frames at stride 4: their content
@@ -32,9 +36,9 @@ evaluator's dispatch): its merged detections are in the input batch's
 frame, so the loop un-resizes them as it does ``predict``'s. The semantic
 and panoptic loops raise on ``TEST.AUG``: the JAX semantic loop reads a
 ``sem_seg`` that ``tta_predict``'s merged detections do not have, so it
-fails there too, and the JAX panoptic loop has no TTA. The VOC evaluators
-and the drawn examples raise ``NotImplementedError``: they wait for their
-families.
+fails there too, and the JAX panoptic loop has no TTA. The drawn examples
+(``EVAL.MAX_EXAMPLE_TO_DRAW``, TensorBoard images) wait for the metric
+logger.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from ..data.transforms import resize_nearest
 from ..evaluation.coco_eval import CocoEvaluator, ProposalEvaluator
 from ..evaluation.np_masks import fullframe_masks_to_image, paste_masks
 from ..evaluation.panoptic_eval import PanopticEvaluator
+from ..evaluation.pascal_voc_eval import PascalVocEvaluator
 from ..evaluation.sem_seg_eval import SemSegEvaluator
 from ..models.meta_arch.postprocess import fullframe_masks
 from .train import to_device
@@ -63,11 +68,25 @@ _DETECTION_METRICS = {
     "coco_instance_segmentation_metrics": ("segm", lambda n: CocoEvaluator(n, "segm")),
     "coco_keypoint_metrics": ("keypoints", lambda n: CocoEvaluator(n, "keypoints")),
 }
-_NOT_PORTED_METRICS = (
-    "pascal_voc_detection_metrics",
-    "weighted_pascal_voc_detection_metrics", "pascal_voc_instance_segmentation_metrics",
-    "weighted_pascal_voc_instance_segmentation_metrics",
-)
+
+
+def _voc_factories(cfg) -> Dict[str, tuple]:
+    iou, gow = cfg.EVAL.PASCAL_MATCHING_IOU_THRESH, cfg.EVAL.PASCAL_GROUP_OF_WEIGHT
+    return {
+        "pascal_voc_detection_metrics": (
+            "voc_bbox", lambda n: PascalVocEvaluator(n, iou, group_of_weight=gow)),
+        "weighted_pascal_voc_detection_metrics": (
+            "voc_bbox_weighted",
+            lambda n: PascalVocEvaluator(n, iou, weighted=True, group_of_weight=gow)),
+        "pascal_voc_instance_segmentation_metrics": (
+            "voc_segm",
+            lambda n: PascalVocEvaluator(n, iou, use_masks=True, group_of_weight=gow)),
+        "weighted_pascal_voc_instance_segmentation_metrics": (
+            "voc_segm_weighted",
+            lambda n: PascalVocEvaluator(n, iou, weighted=True, use_masks=True,
+                                         group_of_weight=gow)),
+    }
+
 # The segmentation families, which run_evaluation routes past the detection loop.
 SEGMENTATION_METRICS = ("semantic_segmentation_metrics", "panoptic_segmentation_metrics")
 
@@ -116,19 +135,21 @@ def build_tta_predict(cfg, model) -> Callable[[Dict], Dict[str, np.ndarray]]:
 
 def build_detection_evaluators(cfg) -> Dict[str, tuple]:
     """The evaluators ``EVAL.METRICS`` names: ``{prefix: (evaluator, kind)}``
-    with kind ``bbox``, ``segm`` or ``keypoints``."""
+    with kind ``bbox``, ``segm`` or ``keypoints`` (what each reads of the
+    predictions)."""
     num_classes = num_classes_of(cfg)
+    table = {**_DETECTION_METRICS, **_voc_factories(cfg)}
     out = {}
     for name in cfg.EVAL.METRICS:
         if name in SEGMENTATION_METRICS:
             continue
-        if name in _NOT_PORTED_METRICS:
-            raise NotImplementedError(f"EVAL.METRICS entry '{name}' is not ported")
-        if name not in _DETECTION_METRICS:
+        if name not in table:
             raise ValueError(f"unknown EVAL.METRICS entry '{name}' "
-                             f"(known: {sorted(_DETECTION_METRICS) + list(SEGMENTATION_METRICS)})")
-        prefix, factory = _DETECTION_METRICS[name]
-        out[prefix] = (factory(num_classes), prefix)
+                             f"(known: {sorted(table) + list(SEGMENTATION_METRICS)})")
+        prefix, factory = table[name]
+        kind = ("segm" if "segm" in prefix else "keypoints" if "keypoint" in name
+                else "bbox")
+        out[prefix] = (factory(num_classes), kind)
     return out
 
 
@@ -208,8 +229,9 @@ def evaluate(cfg, model, dataset, data_iter: Iterable[Dict],
             if cfg.EVAL.CLASS_AGNOSTIC:  # localization only
                 classes, gt_classes = np.zeros_like(classes), np.zeros_like(gt_classes)
             det = {"boxes": boxes, "scores": out["scores"][i][valid], "classes": classes}
-            gt = {"boxes": raw["boxes"], "classes": gt_classes,
-                  "is_crowd": raw["is_crowd"], "areas": raw.get("areas")}
+            # The VOC evaluators read crowd boxes as Open-Images group-of boxes.
+            gt = {"boxes": raw["boxes"], "classes": gt_classes, "is_crowd": raw["is_crowd"],
+                  "is_group_of": raw["is_crowd"], "areas": raw.get("areas")}
             if (auto_keypoints and "pred_keypoints" in out and "keypoints" in raw
                     and "keypoints" not in evaluators):
                 evaluators["keypoints"] = (keypoint_evaluator(cfg, num_classes), "keypoints")

@@ -1,4 +1,5 @@
-"""Solver: the warmup-multistep LR schedule and SGD with momentum.
+"""Solver: the warmup-multistep and warmup-cosine LR schedules and SGD with
+momentum.
 
 Port of the JAX package's ``solver/__init__.py``. The JAX package chains
 optax transforms over the trainable parameters (the frozen trunk stages are
@@ -14,6 +15,9 @@ holds it against the optax chain step for step.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -33,17 +37,35 @@ def scaled_max_iter(cfg) -> int:
     return int(round(cfg.SOLVER.MAX_ITER / lr_scale(cfg)))
 
 
+@functools.cache
+def _libm_cosf():
+    cosf = ctypes.CDLL(ctypes.util.find_library("m")).cosf
+    cosf.argtypes, cosf.restype = [ctypes.c_float], ctypes.c_float
+    return cosf
+
+
+def cosf(x: np.float32) -> np.float32:
+    """The C library's float32 cosine, which XLA's CPU backend calls for
+    ``jnp.cos``. Near the end of a cosine schedule ``1 + cos`` cancels, so one
+    ulp of another float32 cosine (numpy's, torch's) moves the LR by
+    hundreds of ulps there."""
+    return np.float32(_libm_cosf()(float(x)))
+
+
 def build_lr_schedule(cfg) -> Callable[[int], float]:
-    """``step -> lr`` of ``WarmupMultiStepLR``: linear (or constant) warmup,
-    then ``GAMMA`` at each of ``STEPS``; computed in float32, as the JAX
-    schedule is."""
+    """``step -> lr`` of ``SOLVER.LR_SCHEDULER_NAME``: ``WarmupMultiStepLR``
+    (``GAMMA`` at each of ``STEPS``) or ``WarmupCosineLR`` (``0.5 * (1 +
+    cos(pi * t / T))`` over ``T = scaled_max_iter``), each times the linear
+    (or constant) warmup; computed in float32, as the JAX schedule is."""
     s = cfg.SOLVER
-    if s.LR_SCHEDULER_NAME != "WarmupMultiStepLR":
-        raise NotImplementedError(f"LR scheduler '{s.LR_SCHEDULER_NAME}' is not ported")
+    name = s.LR_SCHEDULER_NAME
+    if name not in ("WarmupMultiStepLR", "WarmupCosineLR"):
+        raise ValueError(f"unknown SOLVER.LR_SCHEDULER_NAME: {name!r}")
     scale = lr_scale(cfg)
     f32 = np.float32
     base_lr = f32(s.BASE_LR * scale)
     steps = [int(round(x / scale)) for x in s.STEPS]
+    max_iter = f32(max(scaled_max_iter(cfg), 1))
     warmup_iters, warmup_factor = s.WARMUP_ITERS, f32(s.WARMUP_FACTOR)
 
     def schedule(step: int) -> float:
@@ -53,9 +75,13 @@ def build_lr_schedule(cfg) -> Callable[[int], float]:
         else:
             alpha = np.clip(t / f32(max(warmup_iters, 1)), f32(0.0), f32(1.0))
             warm = warmup_factor * (f32(1.0) - alpha) + alpha if t < warmup_iters else f32(1.0)
-        decay = f32(1.0)
-        for x in steps:
-            decay = decay * (f32(s.GAMMA) if t >= x else f32(1.0))
+        if name == "WarmupCosineLR":
+            frac = np.clip(t / max_iter, f32(0.0), f32(1.0))
+            decay = f32(0.5) * (f32(1.0) + cosf(f32(np.pi) * frac))
+        else:
+            decay = f32(1.0)
+            for x in steps:
+                decay = decay * (f32(s.GAMMA) if t >= x else f32(1.0))
         return float(base_lr * warm * decay)
 
     return schedule
@@ -126,5 +152,5 @@ class Optimizer:
 
 def build_optimizer(cfg, model: nn.Module) -> Optimizer:
     """SGD with momentum, per-group weight decay, global-norm clipping,
-    warmup-multistep LR, the bias LR factor and the frozen-stage mask."""
+    the warmup LR schedule, the bias LR factor and the frozen-stage mask."""
     return Optimizer(cfg, model)

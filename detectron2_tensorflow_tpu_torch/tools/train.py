@@ -29,9 +29,8 @@ losses and the hand-written kernels' launches during training.
 
 The JAX package's native (C++ JPEG) train loader is not ported: with
 ``DATALOADER.NATIVE_TRAIN_IO`` on, one line says so and ``build_dataloader``
-serves, as in the JAX CLI where the native loader is unusable. An
-``AUGMENT.*`` augmentation the port does not have raises before any data
-is read.
+serves, as in the JAX CLI where the native loader is unusable. The
+``AUGMENT.*`` augmentations run in the loader (``data/transforms.py``).
 """
 
 from __future__ import annotations
@@ -51,7 +50,6 @@ from ..data import (
     CocoPanopticDataset,
     TFRecordDataset,
     build_dataloader,
-    transforms,
 )
 from ..engine import train
 from ..engine.train import SEMANTIC_ARCHITECTURES
@@ -97,7 +95,6 @@ def load_dataset(cfg, split: str, proposal_files, training: bool = False):
     ``MODEL.LOAD_PROPOSALS`` and, for training a keypoint model, the images
     with fewer than ``MIN_KEYPOINTS_PER_IMAGE`` labelled keypoints left out.
     Records read for a model with a semantic head must carry its map."""
-    transforms.check_supported(cfg)
     root = cfg.DATASETS.ROOT_DIR
     pattern = os.path.join(root, split + ".record-*")
     fmt = cfg.DATASETS.TRAIN_FORMAT
@@ -138,7 +135,6 @@ def build_eval_dataset(cfg):
     there), else :func:`load_dataset` with ``PROPOSAL_FILES_TEST``, as the
     repo's ``eval.py`` chooses."""
     if any(name in SEGMENTATION_METRICS for name in cfg.EVAL.METRICS):
-        transforms.check_supported(cfg)
         return panoptic_dataset(cfg, cfg.DATASETS.VAL)
     return load_dataset(cfg, cfg.DATASETS.VAL, cfg.DATASETS.PROPOSAL_FILES_TEST)
 

@@ -220,17 +220,16 @@ def test_load_pretrained_missing_file_trains_from_scratch(tmp_path, caplog):
 
 @pytest.mark.parametrize("key", ["BACKBONE", "MMDET", "DARKNET"])
 def test_load_pretrained_other_converters_wait(key, caplog):
-    """``BACKBONE`` waits for its converters; ``MMDET`` and ``DARKNET`` have
-    one (``convert_solo_weights``, ``convert_darknet_weights``), so a missing
-    file is skipped with the warning, as the JAX package skips it
-    (``tests/test_torch_solov2_eval.py`` and ``tests/test_torch_yolov4_convert.py``
-    load present ones)."""
+    """``BACKBONE``, ``MMDET`` and ``DARKNET`` each have their converters
+    (``convert_{caffe2,torchvision}_backbone``, ``convert_solo_weights``,
+    ``convert_darknet_weights``), so a missing file is skipped with the
+    warning and the model keeps its weights, as the JAX package skips it
+    (``tests/test_torch_pretrained.py``, ``tests/test_torch_solov2_eval.py``
+    and ``tests/test_torch_yolov4_convert.py`` load present ones)."""
     _, tcfg, model = _narrow()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
     tcfg.PRETRAINS[key] = "weights.bin"
-    if key in ("MMDET", "DARKNET"):
-        with caplog.at_level(logging.WARNING):
-            assert not load_pretrained(tcfg, model)
-        assert "weights.bin not found" in caplog.text
-        return
-    with pytest.raises(NotImplementedError, match=f"PRETRAINS.{key}"):
-        load_pretrained(tcfg, model)
+    with caplog.at_level(logging.WARNING):
+        assert not load_pretrained(tcfg, model)
+    assert "weights.bin not found" in caplog.text
+    assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())

@@ -2,12 +2,13 @@
 (2 steps) -> a resumed ``tools.train`` -> ``tools.eval`` with
 ``--dump_results`` and ``TEST.EXPECTED_RESULTS``, and the workflow script,
 on the R18-GN overfit config at narrow widths (float32, 2 images per step)
-over a synthetic COCO directory of 4 train and 2 val images. What the port
-does not have yet raises, naming its key.
+over a synthetic COCO directory of 4 train and 2 val images, with the
+augmentations, the TTA and the Pascal VOC metrics passed through.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -138,19 +139,40 @@ def test_eval_restores_a_checkpoint_file_or_warns_of_random_weights(trained, tmp
     assert "evaluating random weights" in caplog.text
 
 
+def _with_keypoints(src, dst):
+    """A copy of the synthetic COCO directory ``src`` whose training
+    annotations carry 17 keypoints each, all labelled, inside their boxes."""
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("logs"))
+    path = dst / "train.json"
+    coco = json.loads(path.read_text())
+    rng = np.random.default_rng(0)
+    for a in coco["annotations"]:
+        x, y, w, h = a["bbox"]
+        kp = np.stack([rng.uniform(x, x + w, 17), rng.uniform(y, y + h, 17), np.full(17, 2.0)], 1)
+        a["keypoints"], a["num_keypoints"] = [float(v) for v in kp.reshape(-1)], 17
+    path.write_text(json.dumps(coco))
+    return dst
+
+
 @pytest.mark.parametrize("tool,opts,match", [
-    ("train", ["AUGMENT.ROTATE", "True"], "AUGMENT.ROTATE"),
-    ("train", ["MODEL.KEYPOINT_ON", "True", "AUGMENT.CROP.ENABLED", "True"], "AUGMENT.CROP.ENABLED"),
+    pytest.param("train", ["AUGMENT.ROTATE", "True"], "AUGMENT.ROTATE",
+                 id="train-opts0-AUGMENT.ROTATE"),
+    pytest.param("train", ["MODEL.KEYPOINT_ON", "True", "AUGMENT.CROP.ENABLED", "True"],
+                 "AUGMENT.CROP.ENABLED", id="train-opts1-AUGMENT.CROP.ENABLED"),
     # TEST.AUG is ported: tools.eval passes it through to the TTA evaluation.
     pytest.param("eval", ["TEST.AUG.ENABLED", "True", "TEST.AUG.MIN_SIZES", "(96, 128)",
                           "TEST.AUG.MAX_SIZE", "256", "--max_images", "1"], None,
                  id="eval-opts2-TEST.AUG"),
-    ("eval", ["EVAL.METRICS", "['pascal_voc_detection_metrics']"], "pascal_voc"),
+    pytest.param("eval", ["EVAL.METRICS", "['pascal_voc_detection_metrics']"], "pascal_voc",
+                 id="eval-opts3-pascal_voc"),
 ])
-def test_unported_options_raise_naming_the_key(trained, tool, opts, match, monkeypatch):
-    main = {"build_records": tools_build_records.main, "train": tools_train.main,
-            "eval": tools_eval.main}[tool]
-    device = [] if tool == "build_records" else ["--device", "cpu"]
+def test_unported_options_raise_naming_the_key(trained, tool, opts, match, monkeypatch,
+                                               tmp_path):
+    """Options the port once lacked now run through the CLIs: ``tools.train``
+    with the rotation, and a keypoint model with the crop (from the COCO
+    JSON, as keypoint models train); ``tools.eval`` with the TTA, and with
+    the Pascal VOC metrics."""
+    main = {"train": tools_train.main, "eval": tools_eval.main}[tool]
     if match is None:
         from detectron2_tensorflow_tpu_torch.engine import evaluator
 
@@ -159,11 +181,23 @@ def test_unported_options_raise_naming_the_key(trained, tool, opts, match, monke
         monkeypatch.setattr(evaluator, "tta_predict",
                             lambda *a: calls.append(a[2]["image_size"]) or real(*a))
         opts, flags = opts[:-2], opts[-2:]
-        metrics = main([*device, *flags, *_opts(trained["root"]), *opts])
+        metrics = main(["--device", "cpu", *flags, *_opts(trained["root"]), *opts])
         assert len(calls) >= 1 and np.isfinite(metrics["bbox/AP"])
         return
-    with pytest.raises(NotImplementedError, match=match):
-        main([*device, *_opts(trained["root"]), *opts])
+    if tool == "eval":
+        metrics = main(["--device", "cpu", "--max_images", "2", *_opts(trained["root"]), *opts])
+        assert set(metrics) == {"voc_bbox/mAP", "voc_bbox/CorLoc"}
+        assert all(np.isfinite(v) for v in metrics.values())
+        return
+    root = trained["root"]
+    if "MODEL.KEYPOINT_ON" in opts:
+        root = _with_keypoints(root, tmp_path / "kp")
+        opts = [*opts, "MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS", "(32, 32)"]
+    summary = main(["--device", "cpu", "--max_iter", "1", *_opts(root),
+                    "LOGS.ROOT_DIR", str(tmp_path / "logs"), *opts])
+    assert summary["steps"] == 1
+    assert all(np.isfinite(v) for v in summary["final_losses"].values())
+    assert ("loss_keypoint" in summary["final_losses"]) == ("MODEL.KEYPOINT_ON" in opts)
 
 
 def test_train_evaluates_through_tta(trained, tmp_path, monkeypatch):

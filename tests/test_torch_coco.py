@@ -346,7 +346,8 @@ def test_dataset_format_choice_matches_jax(tmp_path, fmt, shards):
     ("MODEL.META_ARCHITECTURE", "PanopticFPN", "coco_pano"),
 ])
 def test_unported_families_raise_naming_the_key(tmp_path, key, value, match):
-    """An augmentation the port lacks raises in both dataset choices; a
+    """Both dataset choices take the crop, as the JAX package's do (a crop
+    batch from the chosen training set equal to the JAX loader's); a
     model with a semantic head refuses to train from records without
     semantic maps (a ``ValueError`` naming ``coco_pano``, as the JAX
     ``train.py`` raises) and evaluates its detections from them, as the
@@ -354,9 +355,19 @@ def test_unported_families_raise_naming_the_key(tmp_path, key, value, match):
     root = _format_root(tmp_path)
     jcfg, tcfg = _fmt_cfgs(root, "auto", **{key: value})
     if key.startswith("AUGMENT."):
-        for build in (tools_train.build_train_dataset, tools_eval.build_eval_dataset):
-            with pytest.raises(NotImplementedError, match=match):
-                build(tcfg)
+        from test_torch_data import assert_batches_match, small_cfgs
+
+        train_ds = tools_train.build_train_dataset(tcfg)
+        assert _kind(train_ds) == _kind(jax_train.build_train_dataset(jcfg)) == "records"
+        assert _kind(tools_eval.build_eval_dataset(tcfg)) == _kind(
+            jax_eval.build_eval_dataset(jcfg)) == "records"
+        jsmall, tsmall = small_cfgs(**{key: value, "AUGMENT.CROP.MIN_OBJECT_COVERED": 0.5,
+                                       "DATALOADER.NATIVE_TRAIN_IO": False})
+        ours = build_dataloader(tsmall, train_ds, training=True, seed=0)
+        theirs = jax_build_dataloader(jsmall, jax_train.build_train_dataset(jcfg),
+                                      training=True, seed=0)
+        assert_batches_match(next(ours), next(theirs))
+        ours.close()
         return
     for cfg, build in ((tcfg, tools_train.build_train_dataset),
                        (jcfg, jax_train.build_train_dataset)):

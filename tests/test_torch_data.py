@@ -211,9 +211,14 @@ def test_pad_buckets_must_match_size_divisibility():
                                  "ADJUST_SATURATION.ENABLED", "DISTORT_COLOR.ENABLED",
                                  "JITTER_BOX.ENABLED"])
 def test_unported_augmentations_raise(key):
-    _, cfg = small_cfgs(**{f"AUGMENT.{key}": True})
-    with pytest.raises(NotImplementedError, match=f"AUGMENT.{key}"):
-        next(build_dataloader(cfg, SyntheticDataset(n=2), training=True))
+    """Each ``AUGMENT.*`` augmentation on its own (``tests/test_torch_augment.py``
+    holds them together): four training batches equal the JAX loader's."""
+    jcfg, tcfg = small_cfgs(**{f"AUGMENT.{key}": True, "AUGMENT.CROP.MIN_OBJECT_COVERED": 0.5})
+    ours = build_dataloader(tcfg, SyntheticDataset(n=6), training=True, seed=2)
+    theirs = jax_build_dataloader(jcfg, JaxSyntheticDataset(n=6), training=True, seed=2)
+    for _ in range(4):
+        assert_batches_match(next(ours), next(theirs))
+    ours.close()
 
 
 def test_reader_errors_reach_the_consumer():

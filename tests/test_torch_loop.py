@@ -355,8 +355,19 @@ def test_evaluate_on_the_trained_model(runs):
      "pascal_voc"),
     (("MODEL.META_ARCHITECTURE", "SemanticSegmentor"), "SemanticSegmentor"),
 ])
-def test_unported_evaluation_raises(opts, match):
+def test_unported_evaluation_raises(opts, match, request):
+    """What the port does not evaluate raises, naming it; the Pascal VOC
+    metrics beside COCO's are evaluated (``tests/test_torch_voc.py`` holds
+    them against the JAX package)."""
     _, cfg = loop_cfgs(*opts)
+    if match == "pascal_voc":
+        val = dataset(n=3, first_id=20)
+        metrics = run_evaluation(cfg, request.getfixturevalue("runs")["resumed_model"], val,
+                                 lambda: build_dataloader(cfg, val, training=False))
+        assert {k.split("/")[0] for k in metrics} == {"bbox", "voc_bbox"}  # no auto segm
+        for key in ("bbox/AP", "bbox/AP50", "voc_bbox/mAP", "voc_bbox/CorLoc"):
+            assert np.isfinite(metrics[key]), key
+        return
     with pytest.raises(NotImplementedError, match=match):
         run_evaluation(cfg, None, dataset(n=1), iter([]))
 

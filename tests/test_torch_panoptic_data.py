@@ -165,9 +165,9 @@ def test_nearest_resize_matches_cv2(shape, out):
 
 
 def test_sem_seg_transforms_match_jax():
-    """``flip_horizontal`` and ``resize_shortest_edge`` carry ``sem_seg`` as
-    the JAX transforms do; ``run`` with the flip drawn, and the augmentations
-    the port lacks still raise by their key with a semantic sample."""
+    """``flip_horizontal``, ``flip_vertical`` and ``resize_shortest_edge``
+    carry ``sem_seg`` as the JAX transforms do, and so does ``run`` with the
+    flips drawn."""
     jcfg, tcfg = small_cfgs()
     s = SyntheticDataset(n=1, h=97, w=153, with_sem_seg=True)[0]
     np.testing.assert_array_equal(transforms.flip_horizontal(s)["sem_seg"],
@@ -181,9 +181,13 @@ def test_sem_seg_transforms_match_jax():
         got, _ = transforms.run(tcfg, s, True, np.random.default_rng(seed))
         want, _ = jtransforms.run(jcfg, s, True, np.random.default_rng(seed))
         np.testing.assert_array_equal(got["sem_seg"], want["sem_seg"])
-    tcfg.AUGMENT.VERTICAL_FLIP = True
-    with pytest.raises(NotImplementedError, match="VERTICAL_FLIP"):
-        transforms.run(tcfg, s, True)
+    np.testing.assert_array_equal(transforms.flip_vertical(s)["sem_seg"],
+                                  jtransforms.flip_vertical(s)["sem_seg"])
+    tcfg.AUGMENT.VERTICAL_FLIP = jcfg.AUGMENT.VERTICAL_FLIP = True
+    for seed in range(4):
+        got, _ = transforms.run(tcfg, s, True, np.random.default_rng(seed))
+        want, _ = jtransforms.run(jcfg, s, True, np.random.default_rng(seed))
+        np.testing.assert_array_equal(got["sem_seg"], want["sem_seg"])
 
 
 def test_loader_gt_sem_seg_matches_jax():
